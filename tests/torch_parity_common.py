@@ -1,0 +1,127 @@
+"""Shared set-up of the PyTorch-port parity tests (tests/test_torch_*.py).
+
+One tiny TasteForCausalLM on each side: the JAX reference, with weights
+filled from a numpy seed, and the port, loaded from the same weights
+through taste_spokenlm_tpu_torch.convert with strict=True.  Inputs and
+noise are numpy arrays handed to both.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from taste_spokenlm_tpu.config import TasteConfig as JaxTasteConfig
+from taste_spokenlm_tpu.models.taste import TasteForCausalLM as JaxTaste
+from taste_spokenlm_tpu_torch import convert
+from taste_spokenlm_tpu_torch.config import TasteConfig
+from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
+
+
+def inputs(cfg, seed: int = 0):
+    """A batch of two utterances with ragged asr lengths and word runs."""
+    r = np.random.RandomState(seed)
+    b, t = 2, 8
+    w = cfg.audio_tower.whisper
+    return {
+        "speaker_embeds": r.randn(b, cfg.speech_decoder.spk_embed_dim
+                                  ).astype(np.float32),
+        "asr_token_ids": r.randint(10, w.vocab_size, (b, t)).astype(np.int32),
+        "asr_token_lengths": np.array([8, 6], np.int32),
+        "asr_word_ids": np.array([[0, 0, 1, 1, 2, 3, 3, 4],
+                                  [0, 1, 1, 2, 3, 3, 0, 0]], np.int32),
+        "audio_features": r.randn(b, w.n_mels, 2 * w.max_source_positions
+                                  ).astype(np.float32),
+    }
+
+
+def _fill(path, leaf, r):
+    """Weights at scales that keep every activation O(1): norms near 1,
+    fan-in scaled kernels, codebooks on the scale of their inputs."""
+    name = str(getattr(path[-1], "key", path[-1]))
+    shape, dtype = leaf.shape, leaf.dtype
+    if dtype == jnp.bool_:
+        return np.ones(shape, bool)
+    if name == "scale" or name.startswith("alpha") or name == "fuse_weights":
+        return (1.0 + 0.1 * r.randn(*shape)).astype(np.float32)
+    if name in ("bias", "pos_bias_u", "pos_bias_v"):
+        return (0.1 * r.randn(*shape)).astype(np.float32)
+    if name == "kernel":
+        fan_in = int(np.prod(shape[:-1]))
+        return (r.randn(*shape) / np.sqrt(fan_in)).astype(np.float32)
+    if name == "cluster_size":
+        return np.ones(shape, np.float32)
+    return r.randn(*shape).astype(np.float32)
+
+
+def random_params(shapes, r):
+    """numpy weights for a tree of jax.ShapeDtypeStruct, filled as _fill
+    does."""
+    return jax.tree_util.tree_map_with_path(lambda p, x: _fill(p, x, r), shapes)
+
+
+@functools.lru_cache(maxsize=1)
+def tiny_pair(seed: int = 0):
+    """(jax config, jax model, jax variables, port model) at
+    TasteConfig.tiny(), float32, on the CPU."""
+    cfg = JaxTasteConfig.tiny()
+    model = JaxTaste(cfg)
+    d = {k: jnp.asarray(v) for k, v in inputs(cfg).items()}
+    shapes = jax.eval_shape(
+        functools.partial(model.init, method=JaxTaste.init_reconstruction),
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1), d["speaker_embeds"],
+        d["asr_token_ids"], d["asr_token_lengths"], d["asr_word_ids"],
+        d["audio_features"])
+    variables_np = random_params(shapes, np.random.RandomState(seed))
+    # the HiFT f0 head lands in the voiced range, so the sine path runs
+    f0 = variables_np["params"]["voice_generator"]["hift"]["f0_predictor"]
+    f0["classifier"]["bias"] = np.full_like(f0["classifier"]["bias"], 150.0)
+    # and the magnitude head stays below its exp clamp, so the waveform is
+    # not mostly clipped
+    post = variables_np["params"]["voice_generator"]["hift"]["conv_post"]
+    post["kernel"] = post["kernel"] * np.float32(0.2)
+    variables = jax.tree.map(jnp.asarray, variables_np)
+    port = TasteForCausalLM(TasteConfig.tiny(), device="cpu")
+    port.load_state_dict(
+        convert.to_torch(convert.params_to_state_dict(variables_np)),
+        strict=True)
+    port.eval()
+    return cfg, model, variables, port
+
+
+def voice_noise(rng, batch: int, mel_len_max: int, cfg):
+    """The random draws of the JAX VoiceGenerator for `rng`, by the same
+    split chain (generator.py, flow.py ConditionalCFM, hift.py
+    HiFTGenerator + sine_source): (z, source phase, source noise)."""
+    rng_flow, rng_hift = jax.random.split(rng)
+    z = jax.random.normal(rng_flow, (batch, mel_len_max, cfg.flow.output_size),
+                          jnp.float32)
+    phase, noise = hift_noise(rng_hift, batch, mel_len_max, cfg)
+    return np.asarray(z), phase, noise
+
+
+def hift_noise(rng, batch: int, n_frames: int, cfg):
+    h = cfg.hift
+    n_samples = n_frames * int(np.prod(h.upsample_rates)) * h.istft_hop_len
+    rng_src, _ = jax.random.split(rng)
+    rng_phase, rng_noise = jax.random.split(rng_src)
+    phase = jax.random.uniform(rng_phase, (batch, h.nb_harmonics + 1, 1),
+                               minval=-jnp.pi, maxval=jnp.pi)
+    noise = jax.random.normal(rng_noise, (batch, h.nb_harmonics + 1, n_samples))
+    return np.asarray(phase), np.asarray(noise)
+
+
+def t(x, dtype=None):
+    """numpy / jax array -> CPU torch tensor."""
+    a = torch.from_numpy(np.array(x))
+    return a if dtype is None else a.to(dtype)
+
+
+def rel_err(got, ref) -> float:
+    got = np.asarray(got, np.float64)
+    ref = np.asarray(ref, np.float64)
+    return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-12))
