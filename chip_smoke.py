@@ -1,14 +1,43 @@
-"""Drive the PyTorch/CUDA port of the reconstruction path on one GPU.
+"""Drive the PyTorch/CUDA port on one GPU: reconstruction and completion.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and the CUDA toolkit (nvcc).  In order it:
+Needs one CUDA device and the CUDA toolkit (nvcc).  One model in the bench's
+serving layout (`bench.py:755-811` with BENCH_FUSED_MLP=1) drives both
+paths: TasteConfig.full() with the f32 tower, everything else bf16, LoRA
+merged, the Llama int8 with the int4 tied head, fused qkv and fused MLPs,
+the S3 llm stack int8 with fused qkv and fused FFN, fused DiT blocks and
+kernel convs.  Its weights are random from seed 0 at the bench's scales in
+the float layout (with LoRA adapters) and go through the port's own
+quantizer (quant.py).  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
-3. holds each kernel against its plain PyTorch version at the shapes the
-   reconstruction gives it, and times kernel, plain version and a library
+3. runs the full-width reconstruction (step 4 below), then a full-width
+   completion (step 5), each with every launch count set to 0 just before
+   and read just after;
+4. reconstruction: B=1, 40 asr tokens and the whisper log-mel of a seeded
+   wav; it checks that it went through every kernel the expected number of
+   times, that the S3 decode ran at least 64 steps, that the waveform is
+   finite and 256 samples per mel frame, that the tower with kernels picks
+   the same taste indices as with the plain versions (>= 0.99) and that
+   the flow's mel with kernels is within 2e-2 of the plain versions' for
+   the same start noise z, on what the estimator added to it (mel - z),
+   printing beside it the same error of the plain bf16 flow against an f32
+   copy (the bf16 noise floor);
+5. completion, as bench.py:990-1087: extract_vq on the same wav (a 40-token
+   llm prefix with the asr word ids), 64 joint text + taste decode steps
+   with the bench's sampler (text top-p 0.3, temperature 0.5, repetition
+   penalty 1.1, taste greedy, extra_words 64), the host glue (per-word
+   taste rows, 128 asr tokens at 2 per word) and synthesize_from_taste (512
+   S3 steps, 904 mel frames).  Checks: >= 32 tokens, an S3 decode >= 64
+   long, a finite waveform of rms > 1e-7 and 256 samples per mel frame,
+   exact launch counts of all six kernels, the same token trajectory from
+   the same generator state twice, and a greedy decode with kernels
+   against the plain versions agreeing on >= 0.98 of its text steps;
+6. holds each kernel against its plain PyTorch version at the shapes the
+   completion gives it, and times kernel, plain version and a library
    call that computes the same function (CUDA events, median of 20 after
    warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both sides
    do true f32 arithmetic in another summation order; the bf16 conv 2e-2
@@ -18,26 +47,22 @@ Needs one CUDA device and the CUDA toolkit (nvcc).  In order it:
    the attention), at the path's key lengths and at ragged ones, with
    fan-in scaled weights and a peaked softmax.  The script also checks that
    zeroed attention and an unmasked key range each move that increment by
-   more than 5x the tolerance;
-4. runs the full-width reconstruction (TasteConfig.full() in the serving
-   layout: f32 tower, bf16 speech decoder / flow / HiFT, fused DiT blocks
-   and kernel convs on) on B=1, 40 asr tokens and the whisper log-mel of a
-   seeded wav, with seeded random weights, and checks that it went through
-   every kernel the expected number of times, that the S3 decode ran at
-   least 64 steps, that the waveform is finite and 256 samples per mel
-   frame, that the tower with kernels picks the same taste indices as with
-   the plain versions (>= 0.99) and that the flow's mel with kernels is
-   within 2e-2 of the plain versions' for the same start noise z, on what
-   the estimator added to it (mel - z), printing beside it the same error
-   of the plain bf16 flow against an f32 copy (the bf16 noise floor);
-5. prints a {"kernels": [...]} line, then, as the last line,
+   more than 5x the tolerance.  The int8 / int4 kernels, with fan-in scaled
+   random weights through the port's quantizer: matmul_int4 1e-3 relative
+   to max|plain| (both sides form the same exact bf16 x int4 products with
+   f32 sums, in another order), the fused MLPs 2e-2 relative (their bf16
+   activation can differ by one bf16 step where the f32 sums differ); and
+   swapped nibble planes / a zeroed gate must move the output by more than
+   5x the tolerance;
+7. prints a {"kernels": [...]} line, then, as the last line,
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds a torch.profiler trace of one reconstruction after step 4: the
-device's busy time, its idle share of the wall time and the kernels with
-the most device time.
+adds torch.profiler traces of one reconstruction, one joint decode and one
+synthesis: the device's busy time, its idle share of the wall time, the
+kernels with the most device time, and whether the trace holds every
+launch that the kernels' counters saw.
 
 Any failed check ends the run with a non-zero exit code and no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -57,13 +82,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from taste_spokenlm_tpu_torch import quant
 from taste_spokenlm_tpu_torch.config import TasteConfig
 from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               flash_attention, fused_dit,
+                                              fused_mlp, int4_matmul,
                                               launch_counts,
                                               reset_launch_counts)
+from taste_spokenlm_tpu_torch.models.llama import RMSNorm
+from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
+                                                     build_sampler_tables)
 from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
 from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
+from taste_spokenlm_tpu_torch.ops.quantized import FUSED_MLP_MAX_ROWS
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
 # cores, bf16 on the tensor cores
@@ -72,6 +103,7 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 B, T_TOK, MAX_SPEECH, MEL_LEN_MAX = 1, 40, 512, 904
+LM_STEPS, SYN_ASR = 64, 128        # joint decode budget; asr tokens, 2 a word
 
 
 class CheckFailed(RuntimeError):
@@ -88,13 +120,19 @@ def log(obj) -> None:
 
 
 def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median of `reps` CUDA-event timings of fn() after `warmup` calls."""
+    """Median device time of fn() over `reps` calls after `warmup`: CUDA
+    events around one call, enqueued behind a device sleep of about 2.5 ms,
+    so the host's launch overhead is hidden and the events bracket the
+    device work alone (a small kernel would otherwise time the Python
+    wrapper)."""
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(5_000_000)
         start.record()
         fn()
         end.record()
@@ -174,7 +212,11 @@ def conv_shapes(cfg: TasteConfig):
 # ---------------------------------------------------------------------------
 
 
-def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int):
+def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
+                quantized_launches: dict):
+    """Each kernel against its plain version at the shapes of one completion
+    (`quantized_launches`: {kernel: {rows M: launches}} of the int8 / int4
+    kernels); -> (name, source, replaces, tolerance, per-shape rows)."""
     rows = []
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -307,7 +349,94 @@ def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int):
     rows.append(("conv1d_same", "taste_spokenlm_tpu_torch/csrc/conv1d.cu",
                  "taste_spokenlm_tpu/ops/pallas/conv1d.py:45",
                  "rel err <= 2e-2 (bf16)", shapes))
+    rows.extend(quantized_kernel_rows(cfg, dev, gen, quantized_launches, randn))
     return rows
+
+
+def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
+    """The fused int8 MLPs and the int4 head against their plain versions,
+    with fan-in scaled random weights through the port's quantizer, each
+    with a reach check: a zeroed gate / swapped nibble planes must move the
+    output by more than 5x the tolerance."""
+    def q8(n_in, n_out):
+        q = quant.quantize_kernel(
+            torch.randn(n_in, n_out, generator=gen, device=dev) * n_in ** -0.5)
+        return q["base_q"], q["base_scale"]
+
+    def rel(out, ref):
+        return ((out - ref).abs().max() / ref.abs().max()).item()
+
+    def row(kernel, plain, args, blind_args, tol, n, n_bytes, flops,
+            library=None, **extra):
+        out, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        err, reach = rel(out, ref), rel(plain(*blind_args), ref)
+        m = args[0].shape[0]
+        check(err <= tol, f"{kernel.__name__} rel err {err} > {tol} at M={m}")
+        check(reach > 5 * tol, f"{kernel.__name__} check too blunt at M={m}: "
+                               f"the broken input moves it only {reach}")
+        bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
+        return {"launches": n, "max_abs_err": (out - ref).abs().max().item(),
+                "rel_err": err, "broken_input_rel": reach,
+                "ms": time_ms(lambda: kernel(*args)),
+                "plain_ms": time_ms(lambda: plain(*args)),
+                "library_ms": None if library is None else time_ms(library),
+                "bound_ms": bnd, "bound_by": by, **extra}
+
+    out = []
+    llama = cfg.spoken_lm.llama
+    h, i = llama.hidden_size, llama.intermediate_size
+    (wg, sg), (wu, su), (wd, sd) = q8(h, i), q8(h, i), q8(i, h)
+    shapes = []
+    for m, n in launches["gated_mlp_int8"].items():
+        x = randn(m, h)
+        shapes.append(row(
+            fused_mlp.gated_mlp_int8, fused_mlp.gated_mlp_int8_plain,
+            (x, wg, sg, wu, su, wd, sd),
+            (x, torch.zeros_like(wg), sg, wu, su, wd, sd), 2e-2, n,
+            3 * h * i + 4 * (2 * i + h) + m * h * (2 + 4), 3 * 2 * m * h * i,
+            shape=[m, h, i], broken_input="zeroed gate weights"))
+    out.append(("gated_mlp_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
+                "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:102",
+                "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
+
+    s3 = cfg.speech_decoder.llm
+    d, i = s3.output_size, s3.linear_units
+    (w1, s1), (w2, s2) = q8(d, i), q8(i, d)
+    b1 = 0.1 * torch.randn(i, generator=gen, device=dev)
+    b2 = 0.1 * torch.randn(d, generator=gen, device=dev)
+    shapes = []
+    for m, n in launches["ffn_int8"].items():
+        x = randn(m, d)
+        shapes.append(row(
+            fused_mlp.ffn_int8, fused_mlp.ffn_int8_plain,
+            (x, w1, s1, b1, w2, s2, b2),
+            (x, torch.zeros_like(w1), s1, b1, w2, s2, b2), 2e-2, n,
+            2 * d * i + 4 * (2 * i + 2 * d) + m * d * (2 + 4), 2 * 2 * m * d * i,
+            shape=[m, d, i], broken_input="zeroed first-projection weights"))
+    out.append(("ffn_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
+                "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:383",
+                "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
+
+    d, v = llama.hidden_size, llama.vocab_size
+    wp, scale = int4_matmul.quantize_int4(
+        torch.randn(d, v, generator=gen, device=dev) * d ** -0.5)
+    swapped = (wp >> 4) | (wp << 4)
+    w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
+    shapes = []
+    for m, n in launches["matmul_int4"].items():
+        x = randn(m, d)
+        shapes.append(row(
+            int4_matmul.matmul_int4, int4_matmul.matmul_int4_plain,
+            (x, wp, scale), (x, swapped, scale), 1e-3, n,
+            wp.numel() + 4 * scale.numel() + m * (2 * d + 4 * v), 2 * m * d * v,
+            library=lambda: x @ w16, shape=[m, d, v],
+            broken_input="swapped nibble planes",
+            library_call="x_bf16 @ W_bf16 (the head dequantized once)"))
+    out.append(("matmul_int4", "taste_spokenlm_tpu_torch/csrc/int4_matmul.cu",
+                "taste_spokenlm_tpu/ops/pallas/int4_matmul.py:114",
+                "rel err <= 1e-3 of max|plain|", shapes))
+    return out
 
 
 def increment_err(out, ref, x, lengths):
@@ -343,11 +472,18 @@ def random_state_dict(model: torch.nn.Module, gen) -> dict:
     The CFM estimator's transformer blocks take fan-in scaled matrices: at
     0.02 their softmax would be near uniform over ~900 keys, and the
     attention branch too small for the flow's kernel-against-plain check
-    to see."""
-    near_one = set()
+    to see.  The Llama's RMSNorm weights are 0.01 x N(0, 1): at the bench's
+    1e-3 the MLPs' output never reaches the bf16 residual stream (the
+    greedy check would be blind to the kernels), and near 1 the random
+    16-layer Llama is chaotic in bf16, so its greedy trajectory with the
+    kernels parts from the plain versions' within a few steps, whatever the
+    kernels' own error."""
+    near_one, rms = set(), set()
     for name, mod in model.named_modules():
         if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
             near_one.add(f"{name}.weight")
+        elif isinstance(mod, RMSNorm):
+            rms.add(f"{name}.weight")
     sd = {}
     for name, ref in model.state_dict().items():
         shape = ref.shape
@@ -356,6 +492,8 @@ def random_state_dict(model: torch.nn.Module, gen) -> dict:
                       and (".attn1." in name or ".ff.net." in name))
         if name in near_one or name.endswith(".alpha"):
             v = 1.0 + 0.02 * r
+        elif name in rms:
+            v = 0.01 * r
         elif name.endswith(("cluster_size", "initted")):
             v = torch.ones(shape, device=ref.device)
         elif dit_matrix:
@@ -443,15 +581,18 @@ def flow_parity(model, cfg: TasteConfig, out, x, gen, mel_len: int):
             increment_err(mel_p, mel_32, z, lengths)[1])
 
 
-def device_profile(model, x, gen, wall_s: float):
-    """Device time of one reconstruction from a torch.profiler trace: the
-    union of the CUDA kernel intervals against the unprofiled wall time,
-    and the kernels with the most device time."""
+def device_profile(run, wall_s: float):
+    """Device time of run() from a torch.profiler trace: the union of the
+    CUDA kernel intervals against the unprofiled wall time, and the kernels
+    with the most device time.  The trace is complete when it holds as many
+    launches of our kernels as their counters saw during it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    reset_launch_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        reconstruct(model, x, gen)
+        run()
         torch.cuda.synchronize()
+    counts = launch_counts()
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not kernels:
         return {"busy_s": None, "note": "the profiler recorded no device time"}
@@ -468,18 +609,165 @@ def device_profile(model, x, gen, wall_s: float):
         n, us = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
+                "int4_kernel": counts["matmul_int4"],
+                "attn_kernel<float": counts["flash_attention"]}
+    seen = {key: sum(1 for k in kernels if key in k.name) for key in expected}
     return {"busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall_s,
-            "n_kernel_launches": len(kernels),
+            "n_kernel_launches": len(kernels), "trace_complete": seen == expected,
+            "traced_launches": seen, "counted_launches": expected,
             "top_kernels": [{"name": n[:90], "launches": c, "ms": us / 1e3}
                             for n, (c, us) in top]}
+
+
+# ---------------------------------------------------------------------------
+# the serving model and the completion
+# ---------------------------------------------------------------------------
+
+
+class VocabScan:
+    """A deterministic id -> subword map standing in for the Llama tokenizer
+    when building the sampler tables (bench.py:138-147): the tables' shapes
+    and the sampler's cost are those of real ones."""
+
+    def decode(self, i):
+        return (" the", "ing", ".", " end.", "!!", "a\nb", " word", "s",
+                ",'", " no.", "xyz")[i % 11]
+
+
+def configs():
+    """(float layout, serving layout) of TasteConfig.full(): the serving
+    one is bench.py:755-811 with BENCH_FUSED_MLP=1."""
+    cfg = TasteConfig.full()
+    cfg = cfg.replace(flow=cfg.flow.replace(fused_dit_serving=True),
+                      hift=cfg.hift.replace(pallas_conv=True))
+    sd, lm = cfg.speech_decoder, cfg.spoken_lm
+    serving = cfg.replace(
+        spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
+            quantized_serving="int8", quantized_embed_serving="int4head",
+            fused_qkv_serving=True, fused_mlp_serving=True)),
+        speech_decoder=sd.replace(llm=sd.llm.replace(
+            quantized_serving="int8", fused_qkv_serving=True,
+            fused_mlp_serving=True)))
+    return cfg, serving
+
+
+def serving_state_dict(sd: dict, cfg: TasteConfig) -> dict:
+    """The float model's state dict -> the serving layout's, by the port's
+    quantizer: LoRA merged, the Llama int8 with the int4 tied head, fused
+    qkv and separate MLP projections; the S3 llm stack and its head int8."""
+    lm_pre, llm_pre = "spoken_lm.language_model.", "speech_decoder.llm."
+    head = "speech_decoder.llm_decoder"
+    sub = lambda pre: {k[len(pre):]: v for k, v in sd.items()  # noqa: E731
+                       if k.startswith(pre)}
+    lora = cfg.spoken_lm.lora
+    lm = quant.quantize_llama_params(
+        quant.merge_lora_params(sub(lm_pre), lora.alpha, lora.r),
+        include_embed=True, embed_head_mode="int4head", fuse_qkv=True,
+        fused_mlp=True)
+    enc = quant.quantize_encoder_params(sub(llm_pre), fuse_qkv=True,
+                                        fused_mlp=True)
+    out = {k: v for k, v in sd.items()
+           if not k.startswith((lm_pre, llm_pre, head + "."))}
+    out.update({lm_pre + k: v for k, v in lm.items()})
+    out.update({llm_pre + k: v for k, v in enc.items()})
+    out.update(quant.quantize_dense_leaf(sd, head))
+    return out
+
+
+def build_model(dev, gen):
+    """The serving model, its config and the parameter counts."""
+    float_cfg, cfg = configs()
+    kw = dict(dtype=torch.bfloat16, tower_dtype=torch.float32, device=dev)
+    with torch.device(dev):
+        float_model = TasteForCausalLM(float_cfg, **kw)
+        n_float = sum(p.numel() for p in float_model.parameters())
+        sd = random_state_dict(float_model, gen)
+        del float_model
+        model = TasteForCausalLM(cfg, **kw)
+    model.load_state_dict(serving_state_dict(sd, cfg), strict=True)
+    return model.eval(), cfg, n_float
+
+
+def lm_prefix(cfg: TasteConfig, x, dev):
+    """The spoken-LM prefix of the same utterance: 40 llm ids (bench.py:
+    836-844) with the asr word ids."""
+    rng = np.random.RandomState(1)
+    ids = rng.randint(100, 120000, (B, T_TOK)) % cfg.spoken_lm.llama.vocab_size
+    return {"llm_token_ids": torch.from_numpy(ids).to(dev),
+            "llm_token_lengths": torch.full((B,), T_TOK, device=dev),
+            "llm_word_ids": x["asr_word_ids"]}
+
+
+def synth_batch(cfg: TasteConfig, out, dev):
+    """Host glue (bench.py:1030-1042): the decoded taste rows dense per word
+    and 128 asr tokens at 2 per word."""
+    n_taste = max(int(out["num_taste_words"][0]), 1)
+    l = cfg.audio_tower.quantizer.num_quantizers
+    taste = torch.zeros((B, LM_STEPS, l), dtype=torch.long, device=dev)
+    taste[0, :n_taste] = out["taste_indices"][0, :n_taste].clamp(min=0)
+    rng = np.random.RandomState(2)
+    ids = rng.randint(100, 20000, (B, SYN_ASR)) % cfg.audio_tower.whisper.vocab_size
+    words = np.minimum(np.arange(SYN_ASR) // 2, LM_STEPS - 1)[None].repeat(B, 0)
+    return (taste, torch.from_numpy(ids).to(dev),
+            torch.full((B,), SYN_ASR, device=dev), torch.from_numpy(words).to(dev))
+
+
+def joint_decode(model, scfg, tables, lm, llm_indices, seed=None):
+    gen = (None if seed is None
+           else torch.Generator(device=llm_indices.device).manual_seed(seed))
+    return model.generate_completion(
+        scfg, tables, llm_indices, lm["llm_token_ids"], lm["llm_token_lengths"],
+        lm["llm_word_ids"], "audio", LM_STEPS, generator=gen)
+
+
+def prefill_hidden(model, lm, llm_indices):
+    """The joint decode's first hidden state (after the prefix prefill)."""
+    st = model.spoken_lm.generate_stream_init(
+        model._cb(), llm_indices, lm["llm_token_ids"], lm["llm_token_lengths"],
+        lm["llm_word_ids"], "audio", 1)
+    return st["hidden"].float()
+
+
+def complete(model, cfg, x, lm, scfg, tables, gen):
+    """One completion: extract_vq, the joint decode, the host glue and the
+    synthesis, each timed to a synchronize."""
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+    (_, idx), t_vq = timed(lambda: model.extract_vq(
+        x["asr_token_ids"], x["asr_token_lengths"], x["asr_word_ids"],
+        lm["llm_token_ids"], lm["llm_token_lengths"], lm["llm_word_ids"],
+        x["audio_features"]))
+    out, t_dec = timed(lambda: joint_decode(model, scfg, tables, lm, idx, 5))
+    taste, ids, lens, words = synth_batch(cfg, out, idx.device)
+    syn, t_syn = timed(lambda: model.synthesize_from_taste(
+        x["speaker_embeds"], taste, ids, lens, words,
+        max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX, generator=gen))
+    return idx, out, syn, {"extract_vq_s": t_vq, "joint_decode_s": t_dec,
+                           "synthesis_s": t_syn}
+
+
+def check_counts(counts: dict, expected: dict, path: str) -> None:
+    """Every kernel launched exactly as often as the config implies, and
+    each that the path runs at least once."""
+    for name, n in counts.items():
+        want = expected.get(name, 0)
+        check(n == want, f"{path}: {name} launched {n} times, the config "
+                         f"implies {want}")
+    for name, n in expected.items():
+        check(counts[name] > 0, f"{path}: {name} never launched")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one reconstruction with torch.profiler "
-                         "(device busy time, idle share, top kernels; adds "
-                         "about two minutes)")
+                    help="also trace one reconstruction and one completion "
+                         "with torch.profiler (device busy time, idle share, "
+                         "top kernels; adds a few minutes)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -499,23 +787,22 @@ def main(argv=None) -> int:
     log({"build_s": build_s})
 
     gen = torch.Generator(device=dev).manual_seed(0)
-    cfg = TasteConfig.full()
-    cfg = cfg.replace(flow=cfg.flow.replace(fused_dit_serving=True),
-                      hift=cfg.hift.replace(pallas_conv=True))
-    t0 = time.perf_counter()
-    model = TasteForCausalLM(cfg, dtype=torch.bfloat16,
-                             tower_dtype=torch.float32, device=dev)
-    model.load_state_dict(random_state_dict(model, gen), strict=True)
-    model.eval()
+    t_start = t0 = time.perf_counter()
+    model, cfg, n_float = build_model(dev, gen)
     torch.cuda.synchronize()
     log({"model_init_s": time.perf_counter() - t0,
-         "params": sum(p.numel() for p in model.parameters())})
+         "float_params": n_float,
+         "serving_bytes": sum(t.numel() * t.element_size() for t in
+                              model.state_dict().values())})
     x = inputs(cfg, dev)
     n_frames = x["audio_features"].shape[-1]
     check(tuple(x["audio_features"].shape) == (B, 128, 3000),
           f"mel shape {tuple(x['audio_features'].shape)}")
+    s3 = cfg.speech_decoder.llm
+    s3_ffn = lambda prefix_rows, length: s3.num_blocks * (  # noqa: E731
+        min(length + 1, MAX_SPEECH) + (B * prefix_rows <= FUSED_MLP_MAX_ROWS))
 
-    # warm-up run (cuDNN / cuBLAS plans), then the counted, timed run
+    # ---- reconstruction: warm-up (cuDNN / cuBLAS plans), then counted ----
     reconstruct(model, x, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -537,21 +824,19 @@ def main(argv=None) -> int:
     wav_len = int(out["waveform_lengths"][0])
     check(wav_len == 256 * mel_len, f"wav length {wav_len} != 256 x {mel_len}")
     audio_s = wav_len / cfg.hift.sampling_rate
-    expected = {
+    check_counts(counts, {
         "flash_attention": sum(flash_shapes(cfg, n_frames).values()),
         "fused_dit_block": sum(dit_shapes(cfg, mel_len).values()),
-        "conv1d_same": sum(conv_shapes(cfg).values())}
-    for name, n in expected.items():
-        check(counts[name] > 0, f"{name} never launched on the main path")
-        check(counts[name] == n, f"{name}: {counts[name]} launches, the "
-                                 f"config implies {n}")
+        "conv1d_same": sum(conv_shapes(cfg).values()),
+        "ffn_int8": s3_ffn(3 + T_TOK, dec_len)}, "reconstruction")
     log({"reconstruction": {
         "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
         "s3_decode_len": dec_len, "mel_frames": mel_len, "wav_len": wav_len,
         "peak_mem_gb": peak_gb, "launches": counts}})
     log({"stages": stage_times(model, x, out, gen)})
     if opts.profile:
-        log({"device_profile": device_profile(model, x, gen, wall)})
+        log({"device_profile": device_profile(
+            lambda: reconstruct(model, x, gen), wall)})
 
     # the tower with kernels against the tower with the plain versions
     args = (x["audio_features"], x["asr_token_ids"], x["asr_token_lengths"],
@@ -569,8 +854,99 @@ def main(argv=None) -> int:
     log({"parity": {"taste_index_agreement": agree, "flow_mel_rel_err": mel_rel,
                     "flow_mel_bf16_vs_f32_rel_err": mel_floor}})
 
+    # ---- completion: warm-up, then counted ----
+    llama = cfg.spoken_lm.llama
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in
+              build_sampler_tables(VocabScan(), llama.vocab_size).items()}
+    scfg = SamplerConfig(
+        delay=cfg.spoken_lm.delay, delay_level=cfg.spoken_lm.delay_level,
+        extra_words=LM_STEPS, text_top_p=0.3, taste_top_p=0.0,
+        text_temperature=0.5, repetition_penalty=1.1, has_prefix=True)
+    lm = lm_prefix(cfg, x, dev)
+    complete(model, cfg, x, lm, scfg, tables, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    idx, dec, syn, walls = complete(model, cfg, x, lm, scfg, tables, gen)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps, n_tokens = int(dec["steps"]), int(dec["num_tokens"][0])
+    check(n_tokens >= LM_STEPS // 2, f"degenerate joint decode: {n_tokens} tokens")
+    s3_len = int(syn["speech_token_lengths"][0])
+    check(s3_len >= 64, f"degenerate S3 decode length {s3_len}")
+    syn_mel = int(model.voice_generator.flow.mel_lengths(
+        syn["speech_token_lengths"]).clamp(max=MEL_LEN_MAX)[0])
+    wav = syn["waveform"].float()
+    check(bool(torch.isfinite(wav).all()), "non-finite completion waveform")
+    rms = wav.pow(2).mean().sqrt().item()
+    check(rms > 1e-7, f"degenerate completion waveform rms {rms}")
+    syn_wav_len = int(syn["waveform_lengths"][0])
+    check(syn_wav_len == 256 * syn_mel,
+          f"completion wav length {syn_wav_len} != 256 x {syn_mel}")
+    syn_audio_s = syn_wav_len / cfg.hift.sampling_rate
+    lm_prefill = B * (1 + T_TOK + cfg.spoken_lm.delay)
+    check(lm_prefill <= FUSED_MLP_MAX_ROWS and B * (3 + SYN_ASR) <= FUSED_MLP_MAX_ROWS,
+          "a prefill past the fused MLPs' row limit")
+    quantized_launches = {
+        "gated_mlp_int8": {1: llama.num_hidden_layers * steps,
+                           lm_prefill: llama.num_hidden_layers},
+        "ffn_int8": {1: s3_ffn(3 + SYN_ASR, s3_len) - s3.num_blocks,
+                     B * (3 + SYN_ASR): s3.num_blocks},
+        "matmul_int4": {1: steps}}
+    check_counts(counts, {
+        "flash_attention": sum(flash_shapes(cfg, n_frames).values()),
+        "fused_dit_block": sum(dit_shapes(cfg, syn_mel).values()),
+        "conv1d_same": sum(conv_shapes(cfg).values()),
+        **{k: sum(v.values()) for k, v in quantized_launches.items()}},
+        "completion")
+    log({"completion": {
+        **walls, "joint_decode_steps": steps, "tokens": n_tokens,
+        "ms_per_step": 1e3 * walls["joint_decode_s"] / steps,
+        "taste_words": int(dec["num_taste_words"][0]),
+        "s3_decode_len": s3_len, "mel_frames": syn_mel, "audio_s": syn_audio_s,
+        "wav_rms": rms, "completion_rtf": (walls["joint_decode_s"]
+                                           + walls["synthesis_s"]) / syn_audio_s,
+        "peak_mem_gb": peak_gb, "launches": counts}})
+
+    # the same generator state gives the same trajectory; a greedy decode
+    # with the kernels against one with their plain versions
+    again = joint_decode(model, scfg, tables, lm, idx, 5)
+    check(torch.equal(again["llm_token_ids"], dec["llm_token_ids"])
+          and torch.equal(again["taste_indices"], dec["taste_indices"]),
+          "the joint decode is not deterministic for one generator state")
+    greedy = scfg._replace(text_top_p=0.0)
+    tok_k = joint_decode(model, greedy, tables, lm, idx)
+    model.set_use_kernels(False)
+    tok_p = joint_decode(model, greedy, tables, lm, idx)
+    h_p = prefill_hidden(model, lm, idx)
+    model.set_use_kernels(True)
+    h_k = prefill_hidden(model, lm, idx)
+    n = max(int(tok_k["num_tokens"][0]), int(tok_p["num_tokens"][0]), 1)
+    greedy_agree = (tok_k["llm_token_ids"][0, :n]
+                    == tok_p["llm_token_ids"][0, :n]).float().mean().item()
+    check(greedy_agree >= 0.98,
+          f"greedy text trajectory agreement {greedy_agree} < 0.98")
+    hidden_rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
+    check(hidden_rel > 0, "the greedy check is blind: the joint decode's "
+                          "hidden state is the same with and without kernels")
+    log({"completion_parity": {
+        "repeat_identical": True, "greedy_text_agreement": greedy_agree,
+        "greedy_tokens": n, "greedy_text_ids": tok_k["llm_token_ids"][0, :8].tolist(),
+        "prefill_hidden_rel_err": hidden_rel}})
+    if opts.profile:
+        taste, ids, lens, words = synth_batch(cfg, dec, dev)
+        log({"joint_decode_device_profile": device_profile(
+            lambda: joint_decode(model, scfg, tables, lm, idx, 5),
+            walls["joint_decode_s"])})
+        log({"synthesis_device_profile": device_profile(
+            lambda: model.synthesize_from_taste(
+                x["speaker_embeds"], taste, ids, lens, words,
+                max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX,
+                generator=gen), walls["synthesis_s"])})
+
     with torch.no_grad():
-        rows = kernel_rows(cfg, dev, gen, mel_len, n_frames)
+        rows = kernel_rows(cfg, dev, gen, syn_mel, n_frames, quantized_launches)
     kernels = []
     for name, source, replaces, tolerance, shapes in rows:
         check(bool(shapes), f"{name}: no shape of the main path")
@@ -586,9 +962,10 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "one reconstruction: per-launch times x launches; per-shape "
+            "per": "one completion: per-launch times x launches; per-shape "
                    "rows in 'shapes'",
             "shapes": shapes})
+    log({"total_s_after_build": time.perf_counter() - t_start})
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),

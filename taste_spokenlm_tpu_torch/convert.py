@@ -1,15 +1,19 @@
 """JAX parameter tree (as numpy) -> the port's state dict.
 
 The port's own copy of the parts of the JAX package's utils/export.py that
-the reconstruction slice needs (audio tower, RVQ, speech decoder, conformer,
-flow, CFM estimator, HiFT).  Keys are the reference state-dict names, so a
-published TASTE / CosyVoice checkpoint can load the same way:
+its slices need (audio tower, RVQ, speech decoder, conformer, spoken LM with
+its Llama and bridges, flow, CFM estimator, HiFT).  Keys are the reference
+state-dict names, so a published TASTE / CosyVoice checkpoint can load the
+same way:
 
     sd = params_to_state_dict(jax.tree.map(np.asarray, variables))
     model.load_state_dict(to_torch(sd), strict=True)
 
 Linear weights come out [out, in], convs channels-first, LayerNorm
-{scale, bias} as {weight, bias}.  HiFT's weight-norm convs are emitted as
+{scale, bias} as {weight, bias}.  The int8 / uint8 arrays of the quantized
+serving layouts (utils/quant.py's base_q / base_scale, kernel_q / scale,
+embedding_q / embedding_scale / head_q4 / head_scale4, fused qkv_proj,
+gateup_proj and linear_qkv) go across unchanged, [in, out] as in JAX.  HiFT's weight-norm convs are emitted as
 (weight_g, weight_v) pairs, as the reference stores them, and
 `collapse_weight_norm` turns each pair into the one `weight` the port's
 modules hold.  Layouts a kernel wants (conv1d_same's [K, Cin, Cout], the
@@ -33,6 +37,19 @@ def _put_dense(out: Dict, base: str, p: Mapping):
     out[f"{base}.weight"] = _np(p["kernel"]).T
     if "bias" in p:
         out[f"{base}.bias"] = _np(p["bias"])
+
+
+def _put_linear(out: Dict, base: str, p: Mapping):
+    """A Dense leaf, float ({kernel, bias?}) or the int8 QDense layout
+    ({kernel_q, scale, bias?}, unchanged)."""
+    if "kernel_q4" in p:
+        raise NotImplementedError("the int4 tier is not ported: ROADMAP.md "
+                                  "queue B")
+    if "kernel_q" in p:
+        for k, v in p.items():
+            out[f"{base}.{k}"] = _np(v)
+    else:
+        _put_dense(out, base, p)
 
 
 def _put_norm(out: Dict, base: str, p: Mapping):
@@ -154,10 +171,10 @@ def conformer_state(tree: Mapping, prefix: str) -> Dict:
                         if p_name in ("pos_bias_u", "pos_bias_v"):
                             out[f"{base}.self_attn.{p_name}"] = _np(p)
                         else:
-                            _put_dense(out, f"{base}.self_attn.{p_name}", p)
+                            _put_linear(out, f"{base}.self_attn.{p_name}", p)
                 elif mod == "feed_forward":
                     for p_name, p in msub.items():
-                        _put_dense(out, f"{base}.{mod}.{p_name}", p)
+                        _put_linear(out, f"{base}.{mod}.{p_name}", p)
                 elif mod in ("norm1", "norm2", "norm_mha", "norm_ff"):
                     _put_norm(out, f"{base}.{mod}", msub)
                 else:
@@ -177,13 +194,84 @@ def speech_decoder_state(tree: Mapping, prefix: str = "speech_decoder.") -> Dict
                       "audio_token_encoder_affine_layer",
                       "audio_embed_affine_layer", "spk_embed_affine_layer",
                       "llm_decoder"):
-            _put_dense(out, f"{prefix}{name}", sub)
+            _put_linear(out, f"{prefix}{name}", sub)
         elif name == "fuse_weights":
             out[f"{prefix}fuse_encoded_audio_text_module.weights"] = _np(sub)
         elif name in ("text_encoder", "audio_token_encoder", "llm"):
             out.update(conformer_state(sub, f"{prefix}{name}."))
         else:
             raise KeyError(f"unhandled speech decoder param: {name}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# spoken LM: Llama backbone and bridges
+# ---------------------------------------------------------------------------
+
+
+def _put_projection(out: Dict, base: str, p: Mapping):
+    """A LoraDense: float {base: {kernel, bias?}, lora_a?, lora_b?} or the
+    int8 {base_q, base_scale}."""
+    if "base_q4" in p:
+        raise NotImplementedError("the int4 tier is not ported: ROADMAP.md "
+                                  "queue B")
+    for k, v in p.items():
+        if k == "base":
+            _put_dense(out, base, v)
+        elif k in ("lora_a", "lora_b"):
+            out[f"{base}.lora_{k[-1].upper()}"] = _np(v).T
+        elif k in ("base_q", "base_scale"):
+            out[f"{base}.{k}"] = _np(v)
+        else:
+            raise KeyError(f"unhandled projection param: {base}.{k}")
+
+
+def llama_state(tree: Mapping, prefix: str) -> Dict:
+    """flax LlamaModel -> HF Llama names (float or int8 serving layout)."""
+    out: Dict = {}
+    for name, sub in tree.items():
+        if name == "embed_tokens":
+            if "embedding" in sub:
+                out[f"{prefix}embed_tokens.weight"] = _np(sub["embedding"])
+            else:
+                for k, v in sub.items():
+                    out[f"{prefix}embed_tokens.{k}"] = _np(v)
+        elif name == "norm":
+            out[f"{prefix}norm.weight"] = _np(sub["weight"])
+        elif name == "lm_head_kernel":
+            out[f"{prefix}lm_head.weight"] = _np(sub).T
+        elif name.startswith("layers_"):
+            base = f"{prefix}layers.{name.split('_')[-1]}"
+            for mod, msub in sub.items():
+                if mod in ("input_layernorm", "post_attention_layernorm"):
+                    out[f"{base}.{mod}.weight"] = _np(msub["weight"])
+                elif mod in ("self_attn", "mlp"):
+                    for proj, p in msub.items():
+                        _put_projection(out, f"{base}.{mod}.{proj}", p)
+                else:
+                    raise KeyError(f"unhandled llama param: {base}.{mod}")
+        else:
+            raise KeyError(f"unhandled llama param: {name}")
+    return out
+
+
+def spoken_lm_state(tree: Mapping, prefix: str = "spoken_lm.") -> Dict:
+    """flax TasteSpokenLM -> the port's names: language_model.* (Llama),
+    the bridges' Linears as {weight, bias} and their bare parameters."""
+    out: Dict = {}
+    for name, sub in tree.items():
+        if name == "language_model":
+            out.update(llama_state(sub, f"{prefix}language_model."))
+        elif name in ("fuse_for_bridge_in_llm", "extract_for_bridge_out_llm"):
+            for p_name, p in sub.items():
+                if isinstance(p, Mapping):
+                    _put_dense(out, f"{prefix}{name}.{p_name}", p)
+                else:
+                    out[f"{prefix}{name}.{p_name}"] = _np(p)
+        elif name in ("pad_text_unit_embed", "pad_audio_unit_embed"):
+            out[f"{prefix}{name}"] = _np(sub)
+        else:
+            raise KeyError(f"unhandled spoken_lm param: {name}")
     return out
 
 
@@ -372,14 +460,16 @@ def collapse_weight_norm(state: Dict) -> Dict:
 def params_to_state_dict(variables: Mapping) -> Dict:
     """JAX TasteForCausalLM variables ({"params", "quantizer"}, numpy
     leaves) -> the state dict of the port's TasteForCausalLM: audio_tower.*,
-    speech_decoder.* and voice_generator.{flow,hift}.*.  The spoken LM's
-    params are not part of this slice and are left out."""
+    speech_decoder.*, spoken_lm.* (when the tree has it) and
+    voice_generator.{flow,hift}.*."""
     params = variables["params"]
     quantizer = variables.get("quantizer", {})
     out: Dict = {}
     out.update(audio_tower_state(
         params["audio_tower"], quantizer.get("audio_tower", {}).get("vq")))
     out.update(speech_decoder_state(params["speech_decoder"]))
+    if "spoken_lm" in params:
+        out.update(spoken_lm_state(params["spoken_lm"]))
     vg = params["voice_generator"]
     out.update(flow_state(vg["flow"], "voice_generator.flow."))
     out.update(hift_state(vg["hift"], "voice_generator.hift."))
@@ -389,5 +479,5 @@ def params_to_state_dict(variables: Mapping) -> Dict:
 def to_torch(state: Dict):
     """numpy state dict -> torch tensors for load_state_dict."""
     import torch
-    return {k: torch.from_numpy(np.ascontiguousarray(v))
+    return {k: torch.from_numpy(np.array(v, copy=True))
             for k, v in state.items()}

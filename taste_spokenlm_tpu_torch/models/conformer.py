@@ -2,17 +2,21 @@
 attention (counterpart of the JAX models/conformer.py).
 
 Ported: `RelPositionAttention` (full sequence and cached decode, with
-precomputed position projections), the unquantized positionwise FFN, and
-`ConformerEncoder` with the `linear` / `linear_legacy` input layers.  The
-Pallas rel-pos causal-attention branch belongs to training (the JAX package
-takes it only on the TPU); the port takes the JAX package's own non-kernel
-branch.  The convolution module, macaron FFN, conv subsampling stems and the
-quantized serving layouts are not ported yet.
+precomputed position projections), the positionwise FFN, and
+`ConformerEncoder` with the `linear` / `linear_legacy` input layers, in the
+float layout and the int8 serving layouts of EncoderStackConfig:
+`quantized_serving` (QDense projections), `fused_qkv_serving` (one
+linear_qkv) and `fused_mlp_serving` (the FFN as one kernel call,
+kernels/fused_mlp.py).  The Pallas rel-pos causal-attention branch belongs
+to training (the JAX package takes it only on the TPU); the port takes the
+JAX package's own non-kernel branch.  The convolution module, macaron FFN,
+conv subsampling stems and the int4 tier are not ported yet.
 
 Names follow the reference state dict: embed.out.{0,1}, encoders.{i}.
-self_attn.linear_{q,k,v,out,pos}, pos_bias_u/v, feed_forward.w_1/w_2,
-norm_mha/norm_ff (or norm1/norm2 for linear_legacy), after_norm.
-Decode caches are written in place.
+self_attn.linear_{q,k,v,out,pos} (or linear_qkv), pos_bias_u/v,
+feed_forward.w_1/w_2, norm_mha/norm_ff (or norm1/norm2 for linear_legacy),
+after_norm; a QDense holds kernel_q [in, out], scale and bias.  Decode
+caches are written in place.
 """
 
 from __future__ import annotations
@@ -27,6 +31,9 @@ import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.config import EncoderStackConfig
 from taste_spokenlm_tpu_torch.ops.masking import chunk_causal_mask, length_mask
+from taste_spokenlm_tpu_torch.ops.quantized import (dense, fused_ffn_apply,
+                                                    qmode)
+from taste_spokenlm_tpu_torch.quant import QUEUE_B
 
 NEG_F32 = torch.finfo(torch.float32).min / 2
 
@@ -64,15 +71,21 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 class RelPositionAttention(nn.Module):
     """scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(dk)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, quantized=False,
+                 fused_qkv: bool = False):
         super().__init__()
         self.d_model, self.num_heads = d_model, num_heads
+        self.fused_qkv = fused_qkv
         dk = d_model // num_heads
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
-        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
+        d = d_model
+        if fused_qkv:
+            self.linear_qkv = dense(d, 3 * d, quantized)
+        else:
+            self.linear_q = dense(d, d, quantized)
+            self.linear_k = dense(d, d, quantized)
+            self.linear_v = dense(d, d, quantized)
+        self.linear_out = dense(d, d, quantized)
+        self.linear_pos = dense(d, d, quantized, use_bias=False)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, dk))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dk))
         nn.init.xavier_uniform_(self.pos_bias_u)
@@ -86,9 +99,13 @@ class RelPositionAttention(nn.Module):
         b, t, _ = x.shape
         h, dk = self.num_heads, self.d_model // self.num_heads
         dt = x.dtype
-        q = self.linear_q(x).view(b, t, h, dk)
-        k = self.linear_k(x).view(b, t, h, dk)
-        v = self.linear_v(x).view(b, t, h, dk)
+        if self.fused_qkv:
+            q, k, v = (z.reshape(b, t, h, dk)
+                       for z in self.linear_qkv(x).chunk(3, dim=-1))
+        else:
+            q = self.linear_q(x).view(b, t, h, dk)
+            k = self.linear_k(x).view(b, t, h, dk)
+            v = self.linear_v(x).view(b, t, h, dk)
         if cache is not None:
             cache["k"][:, cache_index:cache_index + t] = k
             cache["v"][:, cache_index:cache_index + t] = v
@@ -127,13 +144,24 @@ class RelPositionAttention(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    def __init__(self, d_model: int, hidden: int, activation: str = "relu"):
+    """w_2(act(w_1 x)); with `fused` and an int8 layout, one fused_ffn_apply
+    over the two QDense weights (the kernel's plain version when
+    `use_kernels` is False)."""
+
+    def __init__(self, d_model: int, hidden: int, activation: str = "relu",
+                 quantized=False, fused: bool = False):
         super().__init__()
-        self.w_1 = nn.Linear(d_model, hidden)
-        self.w_2 = nn.Linear(hidden, d_model)
-        self.act = _ACT[activation]
+        self.w_1 = dense(d_model, hidden, quantized)
+        self.w_2 = dense(hidden, d_model, quantized)
+        self.activation, self.act = activation, _ACT[activation]
+        self.fused = fused and qmode(quantized) is not None
+        self.use_kernels = True
 
     def forward(self, x):
+        if self.fused:
+            triple = lambda m: (m.kernel_q, m.scale, m.bias)  # noqa: E731
+            return fused_ffn_apply(x, triple(self.w_1), triple(self.w_2),
+                                   x.dtype, self.activation, self.use_kernels)
         return self.w_2(self.act(self.w_1(x)))
 
 
@@ -142,10 +170,14 @@ class EncoderLayer(nn.Module):
     (else norm1/norm2), as the reference state dicts do."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
-                 activation: str, conformer_names: bool = True):
+                 activation: str, conformer_names: bool = True,
+                 quantized=False, fused_qkv: bool = False,
+                 fused_mlp: bool = False):
         super().__init__()
-        self.self_attn = RelPositionAttention(d_model, num_heads)
-        self.feed_forward = PositionwiseFeedForward(d_model, ffn_dim, activation)
+        self.self_attn = RelPositionAttention(d_model, num_heads, quantized,
+                                              fused_qkv)
+        self.feed_forward = PositionwiseFeedForward(d_model, ffn_dim, activation,
+                                                    quantized, fused_mlp)
         self.mha_norm_name = "norm_mha" if conformer_names else "norm1"
         self.ff_norm_name = "norm_ff" if conformer_names else "norm2"
         setattr(self, self.mha_norm_name, nn.LayerNorm(d_model, eps=1e-5))
@@ -180,15 +212,16 @@ class ConformerEncoder(nn.Module):
             raise NotImplementedError(f"input_layer {cfg.input_layer!r}")
         if cfg.use_cnn_module or cfg.macaron_style:
             raise NotImplementedError("conformer conv module / macaron FFN")
-        if cfg.quantized_serving or cfg.fused_qkv_serving or cfg.fused_mlp_serving:
-            raise NotImplementedError("quantized / fused serving layouts")
+        if qmode(cfg.quantized_serving) == "int4":
+            raise NotImplementedError(QUEUE_B)
         self.max_len = max_len
         self.embed = _Embed(cfg.input_size, cfg.output_size)
         conformer_names = cfg.input_layer != "linear_legacy"
         act = cfg.activation_type if conformer_names else "relu"
         self.encoders = nn.ModuleList(
             EncoderLayer(cfg.output_size, cfg.attention_heads, cfg.linear_units,
-                         act, conformer_names)
+                         act, conformer_names, cfg.quantized_serving,
+                         cfg.fused_qkv_serving, cfg.fused_mlp_serving)
             for _ in range(cfg.num_blocks))
         self.after_norm = nn.LayerNorm(cfg.output_size, eps=1e-5)
         self.register_buffer("pe_table", torch.from_numpy(

@@ -50,6 +50,21 @@ def codebook_output_from_indices(cb: Codebook, indices: torch.Tensor
     return summed
 
 
+def codebook_indices_from_code(cb: Codebook, code: torch.Tensor
+                               ) -> torch.Tensor:
+    """Codebook-space latents [..., Dc] -> nearest residual indices
+    [..., Q]."""
+    residual = code.float()
+    dc = residual.shape[-1]
+    indices = []
+    for qi in range(cb.embed.shape[0]):
+        emb = cb.embed[qi].float()
+        idx = nearest(residual.reshape(-1, dc), emb).reshape(residual.shape[:-1])
+        residual = residual - emb[idx]
+        indices.append(idx)
+    return torch.stack(indices, dim=-1)
+
+
 def nearest(residual: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """[N, D] x [K, D] -> [N] nearest code by euclidean distance:
     argmax(2 x.e - |e|^2), the same expression as JAX."""

@@ -21,6 +21,7 @@ import torch.nn as nn
 
 from taste_spokenlm_tpu_torch.config import SpeechDecoderConfig
 from taste_spokenlm_tpu_torch.models.conformer import ConformerEncoder
+from taste_spokenlm_tpu_torch.ops.quantized import dense
 from taste_spokenlm_tpu_torch.ops.sampling import sample
 from taste_spokenlm_tpu_torch.ops.segment import ragged_concat
 
@@ -54,8 +55,9 @@ class TasteSpeechDecoder(nn.Module):
         self.fuse_encoded_audio_text_module = _Fuse(cfg.fuse_weight_init_type)
         self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
         self.llm = ConformerEncoder(cfg.llm)
-        self.llm_decoder = nn.Linear(cfg.llm_output_size,
-                                     cfg.speech_token_size + 1)
+        # the logits head rides the llm stack's serving quantization
+        self.llm_decoder = dense(cfg.llm_output_size, cfg.speech_token_size + 1,
+                                 cfg.llm.quantized_serving)
         self.speech_embedding = nn.Embedding(cfg.speech_token_size,
                                              cfg.llm_input_size)
         self.spk_embed_affine_layer = nn.Linear(cfg.spk_embed_dim,
@@ -64,7 +66,7 @@ class TasteSpeechDecoder(nn.Module):
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.llm_decoder.weight.dtype
+        return self.spk_embed_affine_layer.weight.dtype
 
     def encode_text(self, asr_token_ids, asr_token_lengths):
         emb = self.text_embedding(asr_token_ids)

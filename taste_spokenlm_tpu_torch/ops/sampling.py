@@ -1,10 +1,13 @@
-"""Categorical sampling with temperature, top-k, a banned-token mask and
-min-length EOS masking (counterpart of the JAX ops/sampling.py `sample`).
+"""Categorical sampling with temperature, top-k / top-p (nucleus), a
+repetition penalty, a banned-token mask and min-length EOS masking
+(counterpart of the JAX ops/sampling.py).
 
 A categorical draw is argmax(logits + gumbel noise), as in
 `jax.random.categorical`.  The noise comes from a `torch.Generator`, or is
 passed in (`gumbel`) so that a test can hand both frameworks the same
-numbers.  Top-p and the repetition penalty belong to the completion slice.
+numbers.  `mask_top_p` copies the JAX package's sort-free threshold search
+(`_refine_bracket`) step for step: a sort-based nucleus keeps another set
+where two logits meet the boundary.
 """
 
 from __future__ import annotations
@@ -15,6 +18,58 @@ import numpy as np
 import torch
 
 NEG_INF = float(np.float32(np.finfo(np.float32).min / 2))
+
+
+def temperature_scale(logits: torch.Tensor, temperature) -> torch.Tensor:
+    t = torch.as_tensor(temperature, dtype=logits.dtype, device=logits.device)
+    return logits / torch.clamp(t, min=1e-6)
+
+
+def apply_repetition_penalty(logits: torch.Tensor, token_counts: torch.Tensor,
+                             penalty: float) -> torch.Tensor:
+    """CTRL-style penalty on tokens already emitted (token_counts > 0):
+    positive logits divided by `penalty`, negative ones multiplied."""
+    penalized = torch.where(logits > 0, logits / penalty, logits * penalty)
+    return torch.where(token_counts > 0, penalized, logits)
+
+
+def _refine_bracket(f, weights, lo, hi, budget, fan: int, rounds: int,
+                    strict: bool = False):
+    """The JAX package's wide-fan threshold search: the bracket (lo, hi) of
+    the monotone predicate sum_v weights[v] * (f[v] >= tau) >= budget
+    (> budget when `strict`), narrowed `rounds` times by a factor fan + 1."""
+    grid = torch.arange(1, fan + 1, dtype=torch.float32, device=f.device) / (fan + 1)
+    for _ in range(rounds):
+        taus = lo + (hi - lo) * grid                        # [..., fan]
+        kept = f[..., :, None] >= taus[..., None, :]        # [..., V, fan]
+        if weights is None:
+            stat = kept.float().sum(dim=-2)
+        else:
+            stat = torch.where(kept, weights[..., :, None],
+                               weights.new_zeros(())).sum(dim=-2)
+        ok = stat > budget if strict else stat >= budget
+        idx = ok.int().sum(dim=-1, keepdim=True) - 1         # True prefix
+        lo_new = torch.where(idx >= 0, torch.gather(taus, -1, idx.clamp(min=0)),
+                             lo)
+        hi_new = torch.where(idx + 1 < fan, torch.gather(
+            taus, -1, (idx + 1).clamp(max=fan - 1)), hi)
+        lo, hi = lo_new, hi_new
+    return lo, hi
+
+
+def mask_top_p(logits: torch.Tensor, p: float) -> torch.Tensor:
+    """Nucleus filtering with the reference's semantics: keep the largest
+    set of top tokens whose probability mass is <= p, and always the top-1
+    token; the rest become NEG_INF.  The threshold comes from 14 rounds of
+    the fan-8 search over the finite logit range, as in JAX."""
+    f = logits.float()
+    probs = torch.softmax(f, dim=-1)
+    mx = f.amax(dim=-1, keepdim=True)
+    lo = torch.where(f > NEG_INF * 0.5, f, mx).amin(dim=-1, keepdim=True)
+    _, hi = _refine_bracket(f, probs, lo, mx, torch.tensor(
+        p, dtype=torch.float32, device=f.device), fan=8, rounds=14, strict=True)
+    keep = (f >= hi) | (f >= mx)
+    return torch.where(keep, logits, logits.new_tensor(NEG_INF))
 
 
 def mask_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Ragged word-level ops as batched tensor ops (counterpart of the JAX
 ops/segment.py: `segment_mean_pool`, `word_start_remap`, `remap_gather`,
-`ragged_concat`)."""
+`ragged_concat`, `compact_valid_rows`, `word_count`)."""
 
 from __future__ import annotations
 
@@ -105,3 +105,21 @@ def ragged_concat(segments, out_len: int, pad_value=0.0):
     if is_2d:
         packed = packed[..., 0]
     return packed, total
+
+
+def compact_valid_rows(values: torch.Tensor, valid: torch.Tensor,
+                       out_len: int, pad_value=0) -> torch.Tensor:
+    """Move the rows of values [B, T, ...] where valid [B, T] to the front,
+    in order; [B, out_len, ...] with `pad_value` after them."""
+    b, t = valid.shape
+    dest = torch.cumsum(valid.long(), dim=1) - 1
+    dest = torch.where(valid, dest, torch.full_like(dest, out_len))
+    out = values.new_full((b, out_len + 1) + tuple(values.shape[2:]), pad_value)
+    idx = dest.reshape(b, t, *([1] * (values.dim() - 2))).expand_as(values)
+    out.scatter_(1, idx.clamp(max=out_len), values)
+    return out[:, :out_len]
+
+
+def word_count(word_ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """[B] number of word runs within each row's valid length."""
+    return word_start_mask(word_ids, lengths).sum(dim=1)

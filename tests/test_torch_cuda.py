@@ -9,7 +9,10 @@ elsewhere.  Run on the card with:
 import pytest
 import torch
 
-from taste_spokenlm_tpu_torch.kernels import conv1d, flash_attention, fused_dit
+from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
+                                              fused_dit, fused_mlp,
+                                              int4_matmul)
+from taste_spokenlm_tpu_torch.quant import quantize_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -117,3 +120,79 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     q = torch.zeros(1, 64, 2, 48, device=dev)
     with pytest.raises(ValueError):
         flash_attention.flash_attention(q, q, q)
+
+
+def _q8(g, n_in, n_out, dev):
+    """Fan-in scaled random weights through the port's int8 quantizer."""
+    q = quantize_kernel(torch.randn(n_in, n_out, generator=g) * n_in ** -0.5)
+    return q["base_q"].to(dev), q["base_scale"].to(dev)
+
+
+def _rel(out, ref):
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+@pytest.mark.parametrize("m", [1, 40, 256])
+def test_gated_mlp_int8_matches_plain(dev, m):
+    g = torch.Generator().manual_seed(4)
+    h, i = 2048, 8192
+    (wg, sg), (wu, su), (wd, sd) = (_q8(g, h, i, dev), _q8(g, h, i, dev),
+                                    _q8(g, i, h, dev))
+    x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+    out = fused_mlp.gated_mlp_int8(x, wg, sg, wu, su, wd, sd)
+    ref = fused_mlp.gated_mlp_int8_plain(x, wg, sg, wu, su, wd, sd)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 2e-2
+    again = fused_mlp.gated_mlp_int8(x, wg, sg, wu, su, wd, sd)
+    assert torch.equal(out, again)          # no atomics: bit-for-bit repeat
+    # the gate reaches the output: a zeroed gate moves it past the tolerance
+    no_gate = fused_mlp.gated_mlp_int8(x, torch.zeros_like(wg), sg, wu, su,
+                                       wd, sd)
+    assert _rel(no_gate, ref) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("m", [1, 40, 256])
+def test_ffn_int8_matches_plain(dev, m):
+    g = torch.Generator().manual_seed(5)
+    d, i = 1024, 2048
+    (w1, s1), (w2, s2) = _q8(g, d, i, dev), _q8(g, i, d, dev)
+    b1 = (0.1 * torch.randn(i, generator=g)).to(dev)
+    b2 = (0.1 * torch.randn(d, generator=g)).to(dev)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    out = fused_mlp.ffn_int8(x, w1, s1, b1, w2, s2, b2)
+    ref = fused_mlp.ffn_int8_plain(x, w1, s1, b1, w2, s2, b2)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 2e-2
+
+
+@pytest.mark.parametrize("m,d,n", [(1, 2048, 128256), (40, 2048, 4097),
+                                   (256, 1024, 4097), (3, 512, 1000)])
+def test_matmul_int4_matches_plain(dev, m, d, n):
+    g = torch.Generator().manual_seed(6)
+    wp, scale = int4_matmul.quantize_int4(
+        torch.randn(d, n, generator=g) * d ** -0.5)
+    wp, scale = wp.to(dev), scale.to(dev)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    out = int4_matmul.matmul_int4(x, wp, scale)
+    ref = int4_matmul.matmul_int4_plain(x, wp, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-3
+    # both nibble planes reach the output: swapping them moves it
+    half = wp.shape[0]
+    swapped = ((wp >> 4) | (wp << 4)).contiguous()
+    moved = int4_matmul.matmul_int4(x, swapped, scale)
+    assert _rel(moved, ref) > 5 * 1e-3
+    lead = int4_matmul.matmul_int4(x.reshape(1, m, d), wp, scale)
+    assert torch.equal(lead[0], out) and half * 2 == d
+
+
+def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 64, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(64, 80, dtype=torch.int8, device=dev)
+    s = torch.ones(80, device=dev)
+    with pytest.raises(ValueError):        # I % 32 != 0
+        fused_mlp.gated_mlp_int8(x, w, s, w, s, w.T.contiguous(),
+                                 torch.ones(64, device=dev))
+    wp = torch.zeros(32, 96, dtype=torch.uint8, device=dev)
+    with pytest.raises(TypeError):         # float16 scales
+        int4_matmul.matmul_int4(x, wp, torch.ones(2, 96, device=dev).half())

@@ -67,7 +67,9 @@ def random_params(shapes, r):
 @functools.lru_cache(maxsize=1)
 def tiny_pair(seed: int = 0):
     """(jax config, jax model, jax variables, port model) at
-    TasteConfig.tiny(), float32, on the CPU."""
+    TasteConfig.tiny(), float32, on the CPU.  The spoken LM (float, with
+    LoRA adapters) is filled from its own seed after the rest, so the
+    reconstruction weights do not depend on it."""
     cfg = JaxTasteConfig.tiny()
     model = JaxTaste(cfg)
     d = {k: jnp.asarray(v) for k, v in inputs(cfg).items()}
@@ -84,13 +86,19 @@ def tiny_pair(seed: int = 0):
     # not mostly clipped
     post = variables_np["params"]["voice_generator"]["hift"]["conv_post"]
     post["kernel"] = post["kernel"] * np.float32(0.2)
+    lm = {k: jnp.asarray(v) for k, v in lm_inputs(cfg).items()}
+    all_shapes = jax.eval_shape(
+        functools.partial(model.init, method=JaxTaste.init_all),
+        jax.random.PRNGKey(0), jax.random.PRNGKey(1), d["speaker_embeds"],
+        d["asr_token_ids"], d["asr_token_lengths"], d["asr_word_ids"],
+        d["audio_features"], jnp.zeros((2, 4), jnp.int32),
+        jnp.full((2,), 4, jnp.int32), lm["llm_token_ids"],
+        lm["llm_token_lengths"], lm["llm_word_ids"])
+    r = np.random.RandomState(seed + 100)
+    variables_np["params"]["spoken_lm"] = jax.tree_util.tree_map_with_path(
+        lambda p, x: _fill_spoken_lm(p, x, r), all_shapes["params"]["spoken_lm"])
     variables = jax.tree.map(jnp.asarray, variables_np)
-    port = TasteForCausalLM(TasteConfig.tiny(), device="cpu")
-    port.load_state_dict(
-        convert.to_torch(convert.params_to_state_dict(variables_np)),
-        strict=True)
-    port.eval()
-    return cfg, model, variables, port
+    return cfg, model, variables, port_model(TasteConfig.tiny(), variables_np)
 
 
 def voice_noise(rng, batch: int, mel_len_max: int, cfg):
@@ -125,3 +133,95 @@ def rel_err(got, ref) -> float:
     got = np.asarray(got, np.float64)
     ref = np.asarray(ref, np.float64)
     return float(np.max(np.abs(got - ref)) / max(np.max(np.abs(ref)), 1e-12))
+
+
+# ---------------------------------------------------------------------------
+# the completion slice: the spoken LM in the float and the int8 layouts
+# ---------------------------------------------------------------------------
+
+
+def serving_config(cfg):
+    """The int8 fused serving layout of a TasteConfig (either package's):
+    merged LoRA, int8 Llama with the int4 tied head, fused qkv and fused
+    MLPs, and the S3 llm stack likewise."""
+    sd, lm = cfg.speech_decoder, cfg.spoken_lm
+    return cfg.replace(
+        spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
+            quantized_serving="int8", quantized_embed_serving="int4head",
+            fused_qkv_serving=True, fused_mlp_serving=True)),
+        speech_decoder=sd.replace(llm=sd.llm.replace(
+            quantized_serving="int8", fused_qkv_serving=True,
+            fused_mlp_serving=True)))
+
+
+def lm_inputs(cfg, seed: int = 1):
+    """A spoken-LM prefix of two rows: llm ids, ragged lengths, word runs
+    and the taste indices at word starts (-1 elsewhere)."""
+    r = np.random.RandomState(seed)
+    q = cfg.audio_tower.quantizer
+    word_ids = np.array([[0, 0, 1, 2, 2, 3, 4, 4, 5],
+                         [0, 1, 1, 2, 3, 4, 4, 0, 0]], np.int32)
+    lengths = np.array([9, 7], np.int32)
+    ids = r.randint(2, cfg.spoken_lm.llama.vocab_size, word_ids.shape)
+    indices = np.full(word_ids.shape + (q.num_quantizers,), -1, np.int32)
+    for bi in range(2):
+        for ti in range(lengths[bi]):
+            if ti == 0 or word_ids[bi, ti] != word_ids[bi, ti - 1]:
+                indices[bi, ti] = r.randint(0, q.codebook_size, q.num_quantizers)
+    return {"llm_indices": indices, "llm_token_ids": ids.astype(np.int32),
+            "llm_token_lengths": lengths, "llm_word_ids": word_ids}
+
+
+class VocabScan:
+    """A deterministic id -> subword map standing in for the Llama
+    tokenizer when building the sampler tables (as bench.py's)."""
+
+    def decode(self, i):
+        return (" the", "ing", ".", " end.", "!!", "a\nb", " word", "s",
+                ",'", " no.", "xyz")[i % 11]
+
+
+def _fill_spoken_lm(path, leaf, r):
+    """Weights of the spoken LM: norms near 1, fan-in scaled kernels, small
+    LoRA adapters (so merging moves the weights a little)."""
+    name = str(getattr(path[-1], "key", path[-1]))
+    shape = leaf.shape
+    if name == "weight":                     # RMSNorm
+        return (1.0 + 0.1 * r.randn(*shape)).astype(np.float32)
+    if name == "kernel":
+        return (r.randn(*shape) / np.sqrt(shape[0])).astype(np.float32)
+    if name in ("lora_a", "lora_b"):
+        return (0.1 * r.randn(*shape) / np.sqrt(shape[0])).astype(np.float32)
+    if name == "bias":
+        return (0.1 * r.randn(*shape)).astype(np.float32)
+    return r.randn(*shape).astype(np.float32)
+
+
+def quantize_variables_jax(cfg, variables):
+    """The int8 fused serving tree by the JAX package's own quantizer, from
+    the float variables (numpy leaves)."""
+    from taste_spokenlm_tpu.utils.quant import (_quantize_dense_leaf,
+                                                merge_lora_params,
+                                                quantize_encoder_params,
+                                                quantize_llama_params)
+    lora = cfg.spoken_lm.lora
+    params = dict(variables["params"])
+    slm = dict(params["spoken_lm"])
+    lm = merge_lora_params(slm["language_model"], lora.alpha, lora.r)
+    slm["language_model"] = jax.tree.map(np.asarray, quantize_llama_params(
+        lm, include_embed=True, embed_head_mode="int4", fuse_qkv=True,
+        fused_mlp=True))
+    sdec = dict(params["speech_decoder"])
+    sdec["llm"] = jax.tree.map(np.asarray, quantize_encoder_params(
+        sdec["llm"], fuse_qkv=True, fused_mlp=True))
+    sdec["llm_decoder"] = jax.tree.map(
+        np.asarray, _quantize_dense_leaf(sdec["llm_decoder"]))
+    params.update(spoken_lm=slm, speech_decoder=sdec)
+    return dict(variables, params=params)
+
+
+def port_model(cfg, variables, dtype=torch.float32):
+    port = TasteForCausalLM(cfg, dtype=dtype, device="cpu")
+    port.load_state_dict(convert.to_torch(convert.params_to_state_dict(variables)),
+                         strict=True)
+    return port.eval()
