@@ -1,22 +1,26 @@
-"""Drive the PyTorch/CUDA port on one GPU: reconstruction and completion.
+"""Drive the PyTorch/CUDA port on one GPU: reconstruction, and completion in
+the int8 and the int4 serving tiers.
 
     python3 chip_smoke.py
 
-Needs one CUDA device and the CUDA toolkit (nvcc).  One model in the bench's
-serving layout (`bench.py:755-811` with BENCH_FUSED_MLP=1) drives both
-paths: TasteConfig.full() with the f32 tower, everything else bf16, LoRA
-merged, the Llama int8 with the int4 tied head, fused qkv and fused MLPs,
-the S3 llm stack int8 with fused qkv and fused FFN, fused DiT blocks and
-kernel convs.  Its weights are random from seed 0 at the bench's scales in
-the float layout (with LoRA adapters) and go through the port's own
+Needs one CUDA device and the CUDA toolkit (nvcc).  Two models in the
+bench's serving layouts (`bench.py:755-811` with BENCH_FUSED_MLP=1; the
+second with BENCH_QUANT=4) drive the paths: TasteConfig.full() with the f32
+tower, everything else bf16, LoRA merged, the Llama int8 (int4) with the
+int4 tied head, fused qkv and fused MLPs, the S3 llm stack and its head
+int8 (int4) with fused qkv and fused FFN, fused DiT blocks and kernel
+convs.  Both take the same weights: random from seed 0 at the bench's
+scales in the float layout (with LoRA adapters), through the port's own
 quantizer (quant.py).  In order it:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
-3. runs the full-width reconstruction (step 4 below), then a full-width
-   completion (step 5), each with every launch count set to 0 just before
-   and read just after;
+3. runs, on the int8 model, the full-width reconstruction (step 4) and a
+   full-width completion (step 5); then frees it, builds the int4 model and
+   runs the same completion on it (step 6).  Each counted run has every
+   launch count set to 0 just before it and read just after, and prints
+   its peak device memory;
 4. reconstruction: B=1, 40 asr tokens and the whisper log-mel of a seeded
    wav; it checks that it went through every kernel the expected number of
    times, that the S3 decode ran at least 64 steps, that the waveform is
@@ -33,36 +37,47 @@ quantizer (quant.py).  In order it:
    taste rows, 128 asr tokens at 2 per word) and synthesize_from_taste (512
    S3 steps, 904 mel frames).  Checks: >= 32 tokens, an S3 decode >= 64
    long, a finite waveform of rms > 1e-7 and 256 samples per mel frame,
-   exact launch counts of all six kernels, the same token trajectory from
+   exact launch counts of all eight kernels, the same token trajectory from
    the same generator state twice, and a greedy decode with kernels
-   against the plain versions agreeing on >= 0.98 of its text steps;
-6. holds each kernel against its plain PyTorch version at the shapes the
-   completion gives it, and times kernel, plain version and a library
-   call that computes the same function (CUDA events, median of 20 after
-   warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both sides
-   do true f32 arithmetic in another summation order; the bf16 conv 2e-2
-   relative to the plain version's f32-accumulated result, as both round
-   to bf16 at the same points but sum in another order; the bf16 fused DiT
-   block 2e-2 relative on its increment out - x (the residual would hide
-   the attention), at the path's key lengths and at ragged ones, with
-   fan-in scaled weights and a peaked softmax.  The script also checks that
-   zeroed attention and an unmasked key range each move that increment by
-   more than 5x the tolerance.  The int8 / int4 kernels, with fan-in scaled
-   random weights through the port's quantizer: matmul_int4 1e-3 relative
-   to max|plain| (both sides form the same exact bf16 x int4 products with
-   f32 sums, in another order), the fused MLPs 2e-2 relative (their bf16
-   activation can differ by one bf16 step where the f32 sums differ); and
-   swapped nibble planes / a zeroed gate must move the output by more than
-   5x the tolerance;
-7. prints a {"kernels": [...]} line, then, as the last line,
+   against one with the plain versions: their text logits within 1.2e-2 of
+   max |logit| on every step of their shared history (up to the first
+   step at which a text or taste decision differs), the text agreeing on
+   >= 0.98 of the steps unless the runs part that way at a near-tie of
+   the random weights' logits, zeroed Llama MLPs moving those logits past
+   the tolerance, and the prefill hidden states differing;
+6. the int4 completion: step 5 on the int4 model, where the fused MLPs are
+   gated_mlp_int4 / ffn_int4 and every other projection (Llama qkv / o, S3
+   qkv / out, the S3 head) runs matmul_int4; it must launch the int8 MLPs
+   0 times.  It prints its greedy text agreement with the int8 tier (not a
+   gate: JAX's floor for the int4 tier is against f32);
+7. holds each kernel against its plain PyTorch version at the shapes the
+   three counted runs gave it, and times kernel, plain version and a
+   library call that computes the same function (CUDA events, median of 20
+   after warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both
+   sides do true f32 arithmetic in another summation order; the bf16 conv
+   2e-2 relative to the plain version's f32-accumulated result, as both
+   round to bf16 at the same points but sum in another order; the bf16
+   fused DiT block 2e-2 relative on its increment out - x (the residual
+   would hide the attention), at the path's key lengths and at ragged
+   ones, with fan-in scaled weights and a peaked softmax.  The script also
+   checks that zeroed attention and an unmasked key range each move that
+   increment by more than 5x the tolerance.  The int8 / int4 kernels, with
+   fan-in scaled random weights through the port's quantizer: matmul_int4
+   1e-3 relative to max|plain| (both sides form the same exact bf16 x int4
+   products with f32 sums, in another order), the fused MLPs 2e-2 relative
+   (their bf16 activation can differ by one bf16 step where the f32 sums
+   differ); and swapped nibble planes, a zeroed gate or first projection,
+   and (int4) a second projection packed untiled must each move the output
+   by more than 5x the tolerance;
+8. prints a {"kernels": [...]} line, then, as the last line,
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds torch.profiler traces of one reconstruction, one joint decode and one
-synthesis: the device's busy time, its idle share of the wall time, the
-kernels with the most device time, and whether the trace holds every
-launch that the kernels' counters saw.
+adds torch.profiler traces of one reconstruction and, in each tier, one
+joint decode and one synthesis: the device's busy time, its idle share of
+the wall time, the kernels with the most device time, and whether the trace
+holds every launch that the kernels' counters saw.
 
 Any failed check ends the run with a non-zero exit code and no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -72,6 +87,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import gc
 import json
 import statistics
 import subprocess
@@ -94,7 +110,8 @@ from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
                                                      build_sampler_tables)
 from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
 from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
-from taste_spokenlm_tpu_torch.ops.quantized import FUSED_MLP_MAX_ROWS
+from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
+                                                    INT4_KERNEL_MAX_ROWS)
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
 # cores, bf16 on the tensor cores
@@ -103,6 +120,10 @@ F32_FLOPS = 67e12
 BF16_FLOPS = 989e12
 
 B, T_TOK, MAX_SPEECH, MEL_LEN_MAX = 1, 40, 512, 904
+# kernel-vs-plain text logits on a shared greedy history, relative to
+# max |logit|: between the bf16 floor (0.006-0.007 on an H100) and the
+# effect of zeroed Llama MLPs (0.018) on the script's random weights
+LOGIT_TOL = 1.2e-2
 LM_STEPS, SYN_ASR = 64, 128        # joint decode budget; asr tokens, 2 a word
 
 
@@ -212,11 +233,10 @@ def conv_shapes(cfg: TasteConfig):
 # ---------------------------------------------------------------------------
 
 
-def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
-                quantized_launches: dict):
-    """Each kernel against its plain version at the shapes of one completion
-    (`quantized_launches`: {kernel: {rows M: launches}} of the int8 / int4
-    kernels); -> (name, source, replaces, tolerance, per-shape rows)."""
+def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
+    """Each kernel against its plain version at the shapes of the counted
+    runs (`launches`: {kernel: {shape: launches}}); -> (name, source,
+    replaces, tolerance, per-shape rows)."""
     rows = []
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
@@ -224,7 +244,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
 
     # flash attention, f32 (the tower's dtype)
     shapes = []
-    for (b, t, h, d), n in flash_shapes(cfg, n_frames).items():
+    for (b, t, h, d), n in launches["flash_attention"].items():
         q, k, v = (randn(b, t, h, d, dtype=torch.float32) for _ in range(3))
         out = flash_attention.flash_attention(q, k, v)
         ref = flash_attention.flash_attention_plain(q, k, v)
@@ -275,7 +295,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
     block = lambda fn, x, lens, p=params: fn(  # noqa: E731
         x, lens, p, heads=heads, head_dim=hd)
     shapes = []
-    for (t, valid), n in dit_shapes(cfg, mel_len).items():
+    for (t, valid), n in sorted(launches["fused_dit_block"].items()):
         x = randn(2 * B, t, c, scale=0.5)
         lengths = torch.full((2 * B,), valid, dtype=torch.int32, device=dev)
         # the path's lengths, and ragged ones with half the keys masked
@@ -322,7 +342,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
 
     # conv1d same, bf16, channels-last
     shapes = []
-    for (ch, t, k, d), n in conv_shapes(cfg).items():
+    for (ch, t, k, d), n in launches["conv1d_same"].items():
         x = randn(B, t, ch)
         w = randn(k, ch, ch, scale=0.02)
         bias = randn(ch, scale=0.02)
@@ -349,32 +369,42 @@ def kernel_rows(cfg: TasteConfig, dev, gen, mel_len: int, n_frames: int,
     rows.append(("conv1d_same", "taste_spokenlm_tpu_torch/csrc/conv1d.cu",
                  "taste_spokenlm_tpu/ops/pallas/conv1d.py:45",
                  "rel err <= 2e-2 (bf16)", shapes))
-    rows.extend(quantized_kernel_rows(cfg, dev, gen, quantized_launches, randn))
+    rows.extend(quantized_kernel_rows(cfg, dev, gen, launches, randn))
     return rows
 
 
 def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
-    """The fused int8 MLPs and the int4 head against their plain versions,
-    with fan-in scaled random weights through the port's quantizer, each
-    with a reach check: a zeroed gate / swapped nibble planes must move the
-    output by more than 5x the tolerance."""
+    """The fused int8 / int4 MLPs and the int4 products against their plain
+    versions, with fan-in scaled random weights through the port's
+    quantizer, each with reach checks: a broken input (a zeroed gate,
+    swapped nibble planes, a second projection packed untiled) must move
+    the output by more than 5x the tolerance."""
+    def weights(n_in, n_out):
+        return torch.randn(n_in, n_out, generator=gen, device=dev) * n_in ** -0.5
+
     def q8(n_in, n_out):
-        q = quant.quantize_kernel(
-            torch.randn(n_in, n_out, generator=gen, device=dev) * n_in ** -0.5)
+        q = quant.quantize_kernel(weights(n_in, n_out))
         return q["base_q"], q["base_scale"]
 
     def rel(out, ref):
         return ((out - ref).abs().max() / ref.abs().max()).item()
 
-    def row(kernel, plain, args, blind_args, tol, n, n_bytes, flops,
+    def swap(wp):
+        return ((wp >> 4) | (wp << 4)).contiguous()
+
+    def row(kernel, plain, args, broken, tol, n, n_bytes, flops,
             library=None, **extra):
         out, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
-        err, reach = rel(out, ref), rel(plain(*blind_args), ref)
+        err = rel(out, ref)
         m = args[0].shape[0]
         check(err <= tol, f"{kernel.__name__} rel err {err} > {tol} at M={m}")
-        check(reach > 5 * tol, f"{kernel.__name__} check too blunt at M={m}: "
-                               f"the broken input moves it only {reach}")
+        reach = {}
+        for what, broken_args in broken.items():
+            reach[what] = rel(plain(*broken_args), ref)
+            check(reach[what] > 5 * tol,
+                  f"{kernel.__name__} check too blunt at M={m}: {what} moves "
+                  f"it only {reach[what]}")
         bnd, by = bound_ms(n_bytes, flops, BF16_FLOPS)
         return {"launches": n, "max_abs_err": (out - ref).abs().max().item(),
                 "rel_err": err, "broken_input_rel": reach,
@@ -384,55 +414,115 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 "bound_ms": bnd, "bound_by": by, **extra}
 
     out = []
-    llama = cfg.spoken_lm.llama
+    llama, s3 = cfg.spoken_lm.llama, cfg.speech_decoder.llm
     h, i = llama.hidden_size, llama.intermediate_size
     (wg, sg), (wu, su), (wd, sd) = q8(h, i), q8(h, i), q8(i, h)
     shapes = []
-    for m, n in launches["gated_mlp_int8"].items():
+    for m, n in sorted(launches["gated_mlp_int8"].items()):
         x = randn(m, h)
         shapes.append(row(
             fused_mlp.gated_mlp_int8, fused_mlp.gated_mlp_int8_plain,
             (x, wg, sg, wu, su, wd, sd),
-            (x, torch.zeros_like(wg), sg, wu, su, wd, sd), 2e-2, n,
+            {"zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su, wd,
+                                     sd)}, 2e-2, n,
             3 * h * i + 4 * (2 * i + h) + m * h * (2 + 4), 3 * 2 * m * h * i,
-            shape=[m, h, i], broken_input="zeroed gate weights"))
+            shape=[m, h, i]))
     out.append(("gated_mlp_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:102",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
 
-    s3 = cfg.speech_decoder.llm
     d, i = s3.output_size, s3.linear_units
     (w1, s1), (w2, s2) = q8(d, i), q8(i, d)
     b1 = 0.1 * torch.randn(i, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(d, generator=gen, device=dev)
     shapes = []
-    for m, n in launches["ffn_int8"].items():
+    for m, n in sorted(launches["ffn_int8"].items()):
         x = randn(m, d)
         shapes.append(row(
             fused_mlp.ffn_int8, fused_mlp.ffn_int8_plain,
             (x, w1, s1, b1, w2, s2, b2),
-            (x, torch.zeros_like(w1), s1, b1, w2, s2, b2), 2e-2, n,
+            {"zeroed first-projection weights": (
+                x, torch.zeros_like(w1), s1, b1, w2, s2, b2)}, 2e-2, n,
             2 * d * i + 4 * (2 * i + 2 * d) + m * d * (2 + 4), 2 * 2 * m * d * i,
-            shape=[m, d, i], broken_input="zeroed first-projection weights"))
+            shape=[m, d, i]))
     out.append(("ffn_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:383",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
 
-    d, v = llama.hidden_size, llama.vocab_size
-    wp, scale = int4_matmul.quantize_int4(
-        torch.randn(d, v, generator=gen, device=dev) * d ** -0.5)
-    swapped = (wp >> 4) | (wp << 4)
-    w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
+    # int4: the second projection packed per tile, as quant.py packs it;
+    # the same float weights packed untiled are the third broken input
+    def q4(n_in, n_out, tiled=False):
+        w = weights(n_in, n_out)
+        if not tiled:
+            return int4_matmul.quantize_int4(w)
+        tile = fused_mlp.mlp_tile(n_in)
+        return (*fused_mlp.quantize_int4_tiled(w, tile),
+                *int4_matmul.quantize_int4(w), n_in // tile)
+
+    def nbytes4(n_in, n_out):         # packed nibbles and their f32 scales
+        return n_in * n_out // 2 + 4 * n_in * n_out // int4_matmul._group(n_in)
+
+    i = llama.intermediate_size
+    (wg, sg), (wu, su) = q4(h, i), q4(h, i)
+    wd, sd, wd_flat, sd_flat, n_tiles = q4(i, h, tiled=True)
     shapes = []
-    for m, n in launches["matmul_int4"].items():
+    for m, n in sorted(launches["gated_mlp_int4"].items()):
+        x = randn(m, h)
+        shapes.append(row(
+            fused_mlp.gated_mlp_int4, fused_mlp.gated_mlp_int4_plain,
+            (x, wg, sg, wu, su, wd, sd), {
+                "zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su,
+                                        wd, sd),
+                "swapped nibble planes of wd": (x, wg, sg, wu, su, swap(wd),
+                                                sd),
+                f"wd packed untiled ({n_tiles} tiles)": (
+                    x, wg, sg, wu, su, wd_flat, sd_flat)}, 2e-2, n,
+            2 * nbytes4(h, i) + nbytes4(i, h) + m * h * (2 + 4),
+            3 * 2 * m * h * i, shape=[m, h, i]))
+    out.append(("gated_mlp_int4",
+                "taste_spokenlm_tpu_torch/csrc/fused_mlp_int4.cu",
+                "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:192",
+                "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
+
+    d, i = s3.output_size, s3.linear_units
+    w1, s1 = q4(d, i)
+    w2, s2, w2_flat, s2_flat, n_tiles = q4(i, d, tiled=True)
+    shapes = []
+    for m, n in sorted(launches["ffn_int4"].items()):
         x = randn(m, d)
         shapes.append(row(
-            int4_matmul.matmul_int4, int4_matmul.matmul_int4_plain,
-            (x, wp, scale), (x, swapped, scale), 1e-3, n,
-            wp.numel() + 4 * scale.numel() + m * (2 * d + 4 * v), 2 * m * d * v,
-            library=lambda: x @ w16, shape=[m, d, v],
-            broken_input="swapped nibble planes",
-            library_call="x_bf16 @ W_bf16 (the head dequantized once)"))
+            fused_mlp.ffn_int4, fused_mlp.ffn_int4_plain,
+            (x, w1, s1, b1, w2, s2, b2), {
+                "zeroed first-projection weights": (
+                    x, torch.zeros_like(w1), s1, b1, w2, s2, b2),
+                "swapped nibble planes of w2": (x, w1, s1, b1, swap(w2), s2,
+                                                b2),
+                f"w2 packed untiled ({n_tiles} tiles)": (
+                    x, w1, s1, b1, w2_flat, s2_flat, b2)}, 2e-2, n,
+            nbytes4(d, i) + nbytes4(i, d) + 4 * (i + d) + m * d * (2 + 4),
+            2 * 2 * m * d * i, shape=[m, d, i]))
+    out.append(("ffn_int4", "taste_spokenlm_tpu_torch/csrc/fused_mlp_int4.cu",
+                "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:312",
+                "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
+
+    shapes = []
+    by_weight = {}
+    for (m, d, n_out), n in launches["matmul_int4"].items():
+        by_weight.setdefault((d, n_out), {})[m] = n
+    for (d, n_out), per_m in sorted(by_weight.items()):
+        wp, scale = q4(d, n_out)
+        w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
+        for m, n in sorted(per_m.items()):
+            check(m <= INT4_KERNEL_MAX_ROWS, f"matmul_int4 at M={m}")
+            x = randn(m, d)
+            shapes.append(row(
+                int4_matmul.matmul_int4, int4_matmul.matmul_int4_plain,
+                (x, wp, scale), {"swapped nibble planes": (x, swap(wp), scale)},
+                1e-3, n, nbytes4(d, n_out) + m * (2 * d + 4 * n_out),
+                2 * m * d * n_out, library=lambda: x @ w16,
+                shape=[m, d, n_out],
+                library_call="x_bf16 @ W_bf16 (dequantized once)"))
+        del wp, scale, w16
     out.append(("matmul_int4", "taste_spokenlm_tpu_torch/csrc/int4_matmul.cu",
                 "taste_spokenlm_tpu/ops/pallas/int4_matmul.py:114",
                 "rel err <= 1e-3 of max|plain|", shapes))
@@ -610,6 +700,7 @@ def device_profile(run, wall_s: float):
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
+                "mlp4_pass1": counts["gated_mlp_int4"] + counts["ffn_int4"],
                 "int4_kernel": counts["matmul_int4"],
                 "attn_kernel<float": counts["flash_attention"]}
     seen = {key: sum(1 for k in kernels if key in k.name) for key in expected}
@@ -636,26 +727,27 @@ class VocabScan:
 
 
 def configs():
-    """(float layout, serving layout) of TasteConfig.full(): the serving
-    one is bench.py:755-811 with BENCH_FUSED_MLP=1."""
+    """(float layout, {tier: serving layout}) of TasteConfig.full(): the
+    serving ones are bench.py:755-811 with BENCH_FUSED_MLP=1, and BENCH_QUANT
+    unset ("int8") or 4 ("int4")."""
     cfg = TasteConfig.full()
     cfg = cfg.replace(flow=cfg.flow.replace(fused_dit_serving=True),
                       hift=cfg.hift.replace(pallas_conv=True))
     sd, lm = cfg.speech_decoder, cfg.spoken_lm
-    serving = cfg.replace(
+    return cfg, {tier: cfg.replace(
         spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
-            quantized_serving="int8", quantized_embed_serving="int4head",
+            quantized_serving=tier, quantized_embed_serving="int4head",
             fused_qkv_serving=True, fused_mlp_serving=True)),
         speech_decoder=sd.replace(llm=sd.llm.replace(
-            quantized_serving="int8", fused_qkv_serving=True,
-            fused_mlp_serving=True)))
-    return cfg, serving
+            quantized_serving=tier, fused_qkv_serving=True,
+            fused_mlp_serving=True))) for tier in ("int8", "int4")}
 
 
-def serving_state_dict(sd: dict, cfg: TasteConfig) -> dict:
+def serving_state_dict(sd: dict, cfg: TasteConfig, tier: str) -> dict:
     """The float model's state dict -> the serving layout's, by the port's
-    quantizer: LoRA merged, the Llama int8 with the int4 tied head, fused
-    qkv and separate MLP projections; the S3 llm stack and its head int8."""
+    quantizer: LoRA merged, the Llama in the tier with the int4 tied head,
+    fused qkv and separate MLP projections (int4: down_proj packed per
+    tile); the S3 llm stack (int4: w_2 per tile) and its head likewise."""
     lm_pre, llm_pre = "spoken_lm.language_model.", "speech_decoder.llm."
     head = "speech_decoder.llm_decoder"
     sub = lambda pre: {k[len(pre):]: v for k, v in sd.items()  # noqa: E731
@@ -663,21 +755,23 @@ def serving_state_dict(sd: dict, cfg: TasteConfig) -> dict:
     lora = cfg.spoken_lm.lora
     lm = quant.quantize_llama_params(
         quant.merge_lora_params(sub(lm_pre), lora.alpha, lora.r),
-        include_embed=True, embed_head_mode="int4head", fuse_qkv=True,
-        fused_mlp=True)
-    enc = quant.quantize_encoder_params(sub(llm_pre), fuse_qkv=True,
+        include_embed=True, mode=tier, embed_head_mode="int4head",
+        fuse_qkv=True, fused_mlp=True)
+    enc = quant.quantize_encoder_params(sub(llm_pre), mode=tier, fuse_qkv=True,
                                         fused_mlp=True)
     out = {k: v for k, v in sd.items()
            if not k.startswith((lm_pre, llm_pre, head + "."))}
     out.update({lm_pre + k: v for k, v in lm.items()})
     out.update({llm_pre + k: v for k, v in enc.items()})
-    out.update(quant.quantize_dense_leaf(sd, head))
+    out.update(quant.quantize_dense_leaf(sd, head, tier))
     return out
 
 
-def build_model(dev, gen):
-    """The serving model, its config and the parameter counts."""
-    float_cfg, cfg = configs()
+def build_model(dev, gen, tier: str):
+    """The serving model of a tier, its config and the parameter counts;
+    the float weights are the first draws of `gen`."""
+    float_cfg, serving = configs()
+    cfg = serving[tier]
     kw = dict(dtype=torch.bfloat16, tower_dtype=torch.float32, device=dev)
     with torch.device(dev):
         float_model = TasteForCausalLM(float_cfg, **kw)
@@ -685,7 +779,7 @@ def build_model(dev, gen):
         sd = random_state_dict(float_model, gen)
         del float_model
         model = TasteForCausalLM(cfg, **kw)
-    model.load_state_dict(serving_state_dict(sd, cfg), strict=True)
+    model.load_state_dict(serving_state_dict(sd, cfg, tier), strict=True)
     return model.eval(), cfg, n_float
 
 
@@ -719,6 +813,54 @@ def joint_decode(model, scfg, tables, lm, llm_indices, seed=None):
     return model.generate_completion(
         scfg, tables, llm_indices, lm["llm_token_ids"], lm["llm_token_lengths"],
         lm["llm_word_ids"], "audio", LM_STEPS, generator=gen)
+
+
+def greedy_run(model, scfg, tables, lm, llm_indices):
+    """A joint decode that also records, per step, the text logits the
+    sampler decides on (f32, banned tokens not yet masked) and the argmax
+    of the taste logits: -> (decode output, [S, B, V], [S, B, L])."""
+    slm = model.spoken_lm
+    text, taste = [], []
+    head = slm.language_model.logits
+
+    def recorded_head(hidden):
+        out = head(hidden)
+        text.append(out[:, 0].float())
+        return out
+    slm.language_model.logits = recorded_head
+    hook = slm.extract_for_bridge_out_llm.register_forward_hook(
+        lambda mod, args, out: taste.append(out[0][:, 0].argmax(-1)))
+    try:
+        res = joint_decode(model, scfg, tables, lm, llm_indices)
+    finally:
+        hook.remove()
+        del slm.language_model.logits
+    return res, torch.stack(text), torch.stack(taste)
+
+
+def shared_history_logits(tables, run_k, run_p):
+    """Two greedy runs compared on the steps where their histories are the
+    same: up to and including the first step at which a text or a taste
+    argmax differs.  -> (that step or None, the largest kernel-vs-plain
+    text-logit difference over those steps relative to max |logit|, and at
+    the parting step the plain run's top-2 margin and the largest logit
+    difference)."""
+    (_, lg_k, ts_k), (_, lg_p, ts_p) = run_k, run_p
+    steps = min(len(lg_k), len(lg_p))
+    ok = ~tables["banned"]
+    mask = lambda lg: torch.where(ok, lg, torch.full_like(lg, -1e30))  # noqa: E731
+    parted = ((mask(lg_k[:steps]).argmax(-1) != mask(lg_p[:steps]).argmax(-1))
+              .any(-1) | (ts_k[:steps] != ts_p[:steps]).flatten(1).any(-1))
+    first = int(parted.nonzero()[0]) if bool(parted.any()) else None
+    last = steps - 1 if first is None else first
+    diff = (lg_k[:last + 1] - lg_p[:last + 1]).abs()[..., ok]
+    scale = lg_p[:last + 1].abs()[..., ok].amax(dim=-1)
+    rel = (diff.amax(dim=-1) / scale).max().item()
+    if first is None:
+        return None, rel, None, None
+    top2 = mask(lg_p[first]).topk(2, dim=-1).values[:, :2]
+    return (first, rel, (top2[:, 0] - top2[:, 1]).max().item(),
+            diff[-1].max().item())
 
 
 def prefill_hidden(model, lm, llm_indices):
@@ -762,12 +904,169 @@ def check_counts(counts: dict, expected: dict, path: str) -> None:
         check(counts[name] > 0, f"{path}: {name} never launched")
 
 
+def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
+                       s3_len: int) -> dict:
+    """{kernel: {shape: launches}} of the quantized kernels in one completion
+    of a tier, from the config: per Llama layer one prefill of the prefix
+    rows and one row a joint step; per S3 layer one prefill of the 131
+    prefix rows and one row an S3 step (the one that emits EOS included);
+    the tied head once a joint step, the S3 head once an S3 step.  In int4
+    the Llama's qkv / o and the S3 stack's qkv / out run matmul_int4 too
+    (rows, in, out); the S3 linear_pos runs over 2 x 643 - 1 rows, past
+    the kernel's limit, once per synthesis."""
+    llama, s3 = cfg.spoken_lm.llama, cfg.speech_decoder.llm
+    lm_rows, s3_rows = B * (1 + T_TOK + cfg.spoken_lm.delay), B * (3 + SYN_ASR)
+    check(max(lm_rows, s3_rows) <= min(FUSED_MLP_MAX_ROWS, INT4_KERNEL_MAX_ROWS),
+          "a prefill past the kernels' row limit")
+    n_s3 = min(s3_len + 1, MAX_SPEECH)
+    per_lm = {1: llama.num_hidden_layers * steps, lm_rows: llama.num_hidden_layers}
+    per_s3 = {1: s3.num_blocks * n_s3, s3_rows: s3.num_blocks}
+    h = llama.hidden_size
+    mm = {(1, h, llama.vocab_size): steps}
+    if tier == "int8":
+        return {"gated_mlp_int8": per_lm, "ffn_int8": per_s3, "matmul_int4": mm}
+    heads = llama.num_attention_heads * llama.head_dim
+    qkv = heads + 2 * llama.num_key_value_heads * llama.head_dim
+    d = s3.output_size
+    for d_in, d_out, rows in ((h, qkv, per_lm), (heads, h, per_lm),
+                              (d, 3 * d, per_s3), (d, d, per_s3)):
+        for m, n in rows.items():
+            mm[(m, d_in, d_out)] = n
+    mm[(1, cfg.speech_decoder.llm_output_size,
+        cfg.speech_decoder.speech_token_size + 1)] = n_s3
+    return {"gated_mlp_int4": per_lm, "ffn_int4": per_s3, "matmul_int4": mm}
+
+
+def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
+                    gen, n_frames: int, profile: bool):
+    """One tier's completion: a warm-up, the counted run and its checks, the
+    repeat and the greedy kernels-against-plain checks (and, with
+    `profile`, traces of one joint decode and one synthesis).  ->
+    ({kernel: {shape: launches}} and the launch counts of the counted run,
+    the greedy text ids with kernels, their number of tokens)."""
+    complete(model, cfg, x, lm, scfg, tables, gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    idx, dec, syn, walls = complete(model, cfg, x, lm, scfg, tables, gen)
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps, n_tokens = int(dec["steps"]), int(dec["num_tokens"][0])
+    check(n_tokens >= LM_STEPS // 2,
+          f"{tier}: degenerate joint decode: {n_tokens} tokens")
+    s3_len = int(syn["speech_token_lengths"][0])
+    check(s3_len >= 64, f"{tier}: degenerate S3 decode length {s3_len}")
+    syn_mel = int(model.voice_generator.flow.mel_lengths(
+        syn["speech_token_lengths"]).clamp(max=MEL_LEN_MAX)[0])
+    wav = syn["waveform"].float()
+    check(bool(torch.isfinite(wav).all()), f"{tier}: non-finite waveform")
+    rms = wav.pow(2).mean().sqrt().item()
+    check(rms > 1e-7, f"{tier}: degenerate completion waveform rms {rms}")
+    syn_wav_len = int(syn["waveform_lengths"][0])
+    check(syn_wav_len == 256 * syn_mel,
+          f"{tier}: completion wav length {syn_wav_len} != 256 x {syn_mel}")
+    syn_audio_s = syn_wav_len / cfg.hift.sampling_rate
+    launches = {"flash_attention": flash_shapes(cfg, n_frames),
+                "fused_dit_block": dit_shapes(cfg, syn_mel),
+                "conv1d_same": conv_shapes(cfg),
+                **quantized_launches(cfg, tier, steps, s3_len)}
+    check_counts(counts, {k: sum(v.values()) for k, v in launches.items()},
+                 f"{tier} completion")
+    log({f"{tier}_completion": {
+        **walls, "joint_decode_steps": steps, "tokens": n_tokens,
+        "ms_per_step": 1e3 * walls["joint_decode_s"] / steps,
+        "taste_words": int(dec["num_taste_words"][0]),
+        "s3_decode_len": s3_len, "mel_frames": syn_mel, "audio_s": syn_audio_s,
+        "wav_rms": rms, "completion_rtf": (walls["joint_decode_s"]
+                                           + walls["synthesis_s"]) / syn_audio_s,
+        "peak_mem_gb": peak_gb, "launches": counts}})
+
+    # the same generator state gives the same trajectory; a greedy decode
+    # with the kernels against one with their plain versions
+    again = joint_decode(model, scfg, tables, lm, idx, 5)
+    check(torch.equal(again["llm_token_ids"], dec["llm_token_ids"])
+          and torch.equal(again["taste_indices"], dec["taste_indices"]),
+          f"{tier}: the joint decode is not deterministic for one generator "
+          "state")
+    greedy = scfg._replace(text_top_p=0.0)
+    run_k = greedy_run(model, greedy, tables, lm, idx)
+    model.set_use_kernels(False)
+    run_p = greedy_run(model, greedy, tables, lm, idx)
+    h_p = prefill_hidden(model, lm, idx)
+    model.set_use_kernels(True)
+    h_k = prefill_hidden(model, lm, idx)
+    tok_k, tok_p = run_k[0], run_p[0]
+    n = max(int(tok_k["num_tokens"][0]), int(tok_p["num_tokens"][0]), 1)
+    greedy_agree = (tok_k["llm_token_ids"][0, :n]
+                    == tok_p["llm_token_ids"][0, :n]).float().mean().item()
+    parted, logit_rel, margin, delta = shared_history_logits(tables, run_k,
+                                                            run_p)
+    hidden_rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
+    log({f"{tier}_completion_parity": {
+        "repeat_identical": True, "greedy_text_agreement": greedy_agree,
+        "greedy_tokens": n, "greedy_text_ids": tok_k["llm_token_ids"][0, :8].tolist(),
+        "prefill_hidden_rel_err": hidden_rel, "parted_at_step": parted,
+        "shared_history_text_logit_rel_err": logit_rel,
+        "plain_top2_margin_at_parting": margin,
+        "logit_diff_at_parting": delta}})
+    check(hidden_rel > 0, f"{tier}: the greedy check is blind: the joint "
+                          "decode's hidden state is the same with and "
+                          "without kernels")
+    # random weights leave near-ties among 128,256 logits, which bf16
+    # rounding in either run can flip, after which the histories differ:
+    # the kernels are held to the plain versions' text logits on every
+    # step of the shared history, and to the greedy agreement only where
+    # the runs never part
+    check(logit_rel <= LOGIT_TOL,
+          f"{tier}: kernel-vs-plain text logits {logit_rel} apart (relative "
+          f"to max |logit|) on a shared history, > {LOGIT_TOL}")
+    check(greedy_agree >= 0.98 or parted is not None,
+          f"{tier}: greedy text trajectory agreement {greedy_agree} < 0.98")
+    # the check's reach: with every Llama MLP's output zeroed, the text
+    # logits leave the tolerance on the shared history
+    hooks = [layer.mlp.register_forward_hook(
+        lambda mod, args, out: torch.zeros_like(out))
+        for layer in model.spoken_lm.language_model.layers]
+    try:
+        run_z = greedy_run(model, greedy, tables, lm, idx)
+    finally:
+        for hook in hooks:
+            hook.remove()
+    reach = shared_history_logits(tables, run_z, run_p)[1]
+    log({f"{tier}_zeroed_mlps_text_logit_rel_err": reach})
+    check(reach > LOGIT_TOL, f"{tier}: the logit check is blind: zeroed "
+                             f"MLPs move the text logits only {reach}")
+    if profile:
+        taste, ids, lens, words = synth_batch(cfg, dec, idx.device)
+        log({f"{tier}_joint_decode_device_profile": device_profile(
+            lambda: joint_decode(model, scfg, tables, lm, idx, 5),
+            walls["joint_decode_s"])})
+        log({f"{tier}_synthesis_device_profile": device_profile(
+            lambda: model.synthesize_from_taste(
+                x["speaker_embeds"], taste, ids, lens, words,
+                max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX,
+                generator=gen), walls["synthesis_s"])})
+    return launches, counts, tok_k["llm_token_ids"][0], n
+
+
+def merge_launches(*paths: dict) -> dict:
+    """{kernel: {shape: launches}} summed over paths."""
+    out = {}
+    for path in paths:
+        for name, shapes in path.items():
+            for key, n in shapes.items():
+                out.setdefault(name, {})[key] = out.get(name, {}).get(key, 0) + n
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one reconstruction and one completion "
-                         "with torch.profiler (device busy time, idle share, "
-                         "top kernels; adds a few minutes)")
+                    help="also trace one reconstruction and, in each tier, "
+                         "one joint decode and one synthesis with "
+                         "torch.profiler (device busy time, idle share, top "
+                         "kernels; adds a few minutes)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -788,7 +1087,7 @@ def main(argv=None) -> int:
 
     gen = torch.Generator(device=dev).manual_seed(0)
     t_start = t0 = time.perf_counter()
-    model, cfg, n_float = build_model(dev, gen)
+    model, cfg, n_float = build_model(dev, gen, "int8")
     torch.cuda.synchronize()
     log({"model_init_s": time.perf_counter() - t0,
          "float_params": n_float,
@@ -799,8 +1098,6 @@ def main(argv=None) -> int:
     check(tuple(x["audio_features"].shape) == (B, 128, 3000),
           f"mel shape {tuple(x['audio_features'].shape)}")
     s3 = cfg.speech_decoder.llm
-    s3_ffn = lambda prefix_rows, length: s3.num_blocks * (  # noqa: E731
-        min(length + 1, MAX_SPEECH) + (B * prefix_rows <= FUSED_MLP_MAX_ROWS))
 
     # ---- reconstruction: warm-up (cuDNN / cuBLAS plans), then counted ----
     reconstruct(model, x, gen)
@@ -824,11 +1121,17 @@ def main(argv=None) -> int:
     wav_len = int(out["waveform_lengths"][0])
     check(wav_len == 256 * mel_len, f"wav length {wav_len} != 256 x {mel_len}")
     audio_s = wav_len / cfg.hift.sampling_rate
-    check_counts(counts, {
-        "flash_attention": sum(flash_shapes(cfg, n_frames).values()),
-        "fused_dit_block": sum(dit_shapes(cfg, mel_len).values()),
-        "conv1d_same": sum(conv_shapes(cfg).values()),
-        "ffn_int8": s3_ffn(3 + T_TOK, dec_len)}, "reconstruction")
+    check(B * (3 + T_TOK) <= FUSED_MLP_MAX_ROWS,
+          "the S3 prefill is past the fused FFN's row limit")
+    recon_launches = {
+        "flash_attention": flash_shapes(cfg, n_frames),
+        "fused_dit_block": dit_shapes(cfg, mel_len),
+        "conv1d_same": conv_shapes(cfg),
+        "ffn_int8": {1: s3.num_blocks * min(dec_len + 1, MAX_SPEECH),
+                     B * (3 + T_TOK): s3.num_blocks}}
+    check_counts(counts, {k: sum(v.values()) for k, v in recon_launches.items()},
+                 "reconstruction")
+    all_counts = [counts]
     log({"reconstruction": {
         "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
         "s3_decode_len": dec_len, "mel_frames": mel_len, "wav_len": wav_len,
@@ -854,7 +1157,7 @@ def main(argv=None) -> int:
     log({"parity": {"taste_index_agreement": agree, "flow_mel_rel_err": mel_rel,
                     "flow_mel_bf16_vs_f32_rel_err": mel_floor}})
 
-    # ---- completion: warm-up, then counted ----
+    # ---- completion in the int8 tier, then in the int4 tier ----
     llama = cfg.spoken_lm.llama
     tables = {k: torch.from_numpy(v).to(dev) for k, v in
               build_sampler_tables(VocabScan(), llama.vocab_size).items()}
@@ -863,90 +1166,41 @@ def main(argv=None) -> int:
         extra_words=LM_STEPS, text_top_p=0.3, taste_top_p=0.0,
         text_temperature=0.5, repetition_penalty=1.1, has_prefix=True)
     lm = lm_prefix(cfg, x, dev)
-    complete(model, cfg, x, lm, scfg, tables, gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    idx, dec, syn, walls = complete(model, cfg, x, lm, scfg, tables, gen)
-    counts = launch_counts()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    paths, greedy = [recon_launches], {}
+    for tier in ("int8", "int4"):
+        if tier == "int4":
+            # free the int8 model; the int4 one takes the same float
+            # weights: the first draws of a generator seeded 0
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            model, cfg, _ = build_model(
+                dev, torch.Generator(device=dev).manual_seed(0), "int4")
+            torch.cuda.synchronize()
+            log({"int4_model_init_s": time.perf_counter() - t0,
+                 "serving_bytes": sum(t.numel() * t.element_size() for t in
+                                      model.state_dict().values())})
+        launches, counts, ids, n = completion_path(
+            model, cfg, tier, x, lm, scfg, tables, gen, n_frames, opts.profile)
+        paths.append(launches)
+        all_counts.append(counts)
+        greedy[tier] = (ids, n)
+    n = max(greedy["int8"][1], greedy["int4"][1])
+    log({"int4_vs_int8_greedy_text_agreement": (
+        greedy["int4"][0][:n] == greedy["int8"][0][:n]).float().mean().item(),
+        "note": "information, not a gate"})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
-    steps, n_tokens = int(dec["steps"]), int(dec["num_tokens"][0])
-    check(n_tokens >= LM_STEPS // 2, f"degenerate joint decode: {n_tokens} tokens")
-    s3_len = int(syn["speech_token_lengths"][0])
-    check(s3_len >= 64, f"degenerate S3 decode length {s3_len}")
-    syn_mel = int(model.voice_generator.flow.mel_lengths(
-        syn["speech_token_lengths"]).clamp(max=MEL_LEN_MAX)[0])
-    wav = syn["waveform"].float()
-    check(bool(torch.isfinite(wav).all()), "non-finite completion waveform")
-    rms = wav.pow(2).mean().sqrt().item()
-    check(rms > 1e-7, f"degenerate completion waveform rms {rms}")
-    syn_wav_len = int(syn["waveform_lengths"][0])
-    check(syn_wav_len == 256 * syn_mel,
-          f"completion wav length {syn_wav_len} != 256 x {syn_mel}")
-    syn_audio_s = syn_wav_len / cfg.hift.sampling_rate
-    lm_prefill = B * (1 + T_TOK + cfg.spoken_lm.delay)
-    check(lm_prefill <= FUSED_MLP_MAX_ROWS and B * (3 + SYN_ASR) <= FUSED_MLP_MAX_ROWS,
-          "a prefill past the fused MLPs' row limit")
-    quantized_launches = {
-        "gated_mlp_int8": {1: llama.num_hidden_layers * steps,
-                           lm_prefill: llama.num_hidden_layers},
-        "ffn_int8": {1: s3_ffn(3 + SYN_ASR, s3_len) - s3.num_blocks,
-                     B * (3 + SYN_ASR): s3.num_blocks},
-        "matmul_int4": {1: steps}}
-    check_counts(counts, {
-        "flash_attention": sum(flash_shapes(cfg, n_frames).values()),
-        "fused_dit_block": sum(dit_shapes(cfg, syn_mel).values()),
-        "conv1d_same": sum(conv_shapes(cfg).values()),
-        **{k: sum(v.values()) for k, v in quantized_launches.items()}},
-        "completion")
-    log({"completion": {
-        **walls, "joint_decode_steps": steps, "tokens": n_tokens,
-        "ms_per_step": 1e3 * walls["joint_decode_s"] / steps,
-        "taste_words": int(dec["num_taste_words"][0]),
-        "s3_decode_len": s3_len, "mel_frames": syn_mel, "audio_s": syn_audio_s,
-        "wav_rms": rms, "completion_rtf": (walls["joint_decode_s"]
-                                           + walls["synthesis_s"]) / syn_audio_s,
-        "peak_mem_gb": peak_gb, "launches": counts}})
-
-    # the same generator state gives the same trajectory; a greedy decode
-    # with the kernels against one with their plain versions
-    again = joint_decode(model, scfg, tables, lm, idx, 5)
-    check(torch.equal(again["llm_token_ids"], dec["llm_token_ids"])
-          and torch.equal(again["taste_indices"], dec["taste_indices"]),
-          "the joint decode is not deterministic for one generator state")
-    greedy = scfg._replace(text_top_p=0.0)
-    tok_k = joint_decode(model, greedy, tables, lm, idx)
-    model.set_use_kernels(False)
-    tok_p = joint_decode(model, greedy, tables, lm, idx)
-    h_p = prefill_hidden(model, lm, idx)
-    model.set_use_kernels(True)
-    h_k = prefill_hidden(model, lm, idx)
-    n = max(int(tok_k["num_tokens"][0]), int(tok_p["num_tokens"][0]), 1)
-    greedy_agree = (tok_k["llm_token_ids"][0, :n]
-                    == tok_p["llm_token_ids"][0, :n]).float().mean().item()
-    check(greedy_agree >= 0.98,
-          f"greedy text trajectory agreement {greedy_agree} < 0.98")
-    hidden_rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
-    check(hidden_rel > 0, "the greedy check is blind: the joint decode's "
-                          "hidden state is the same with and without kernels")
-    log({"completion_parity": {
-        "repeat_identical": True, "greedy_text_agreement": greedy_agree,
-        "greedy_tokens": n, "greedy_text_ids": tok_k["llm_token_ids"][0, :8].tolist(),
-        "prefill_hidden_rel_err": hidden_rel}})
-    if opts.profile:
-        taste, ids, lens, words = synth_batch(cfg, dec, dev)
-        log({"joint_decode_device_profile": device_profile(
-            lambda: joint_decode(model, scfg, tables, lm, idx, 5),
-            walls["joint_decode_s"])})
-        log({"synthesis_device_profile": device_profile(
-            lambda: model.synthesize_from_taste(
-                x["speaker_embeds"], taste, ids, lens, words,
-                max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX,
-                generator=gen), walls["synthesis_s"])})
-
+    launches = merge_launches(*paths)
+    counts = {name: sum(c[name] for c in all_counts) for name in all_counts[0]}
+    for name, shapes in launches.items():
+        check(sum(shapes.values()) == counts[name],
+              f"{name}: the shapes' launches do not add up to its count")
     with torch.no_grad():
-        rows = kernel_rows(cfg, dev, gen, syn_mel, n_frames, quantized_launches)
+        rows = kernel_rows(cfg, dev, gen, launches)
     kernels = []
     for name, source, replaces, tolerance, shapes in rows:
         check(bool(shapes), f"{name}: no shape of the main path")
@@ -962,8 +1216,9 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "one completion: per-launch times x launches; per-shape "
-                   "rows in 'shapes'",
+            "per": "the three counted runs (reconstruction, int8 and int4 "
+                   "completion): per-launch times x launches; per-shape rows "
+                   "in 'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})
     log({"kernels": kernels})

@@ -40,12 +40,9 @@ def _put_dense(out: Dict, base: str, p: Mapping):
 
 
 def _put_linear(out: Dict, base: str, p: Mapping):
-    """A Dense leaf, float ({kernel, bias?}) or the int8 QDense layout
-    ({kernel_q, scale, bias?}, unchanged)."""
-    if "kernel_q4" in p:
-        raise NotImplementedError("the int4 tier is not ported: ROADMAP.md "
-                                  "queue B")
-    if "kernel_q" in p:
+    """A Dense leaf, float ({kernel, bias?}) or the QDense / QDense4 layout
+    ({kernel_q or kernel_q4, scale, bias?}, unchanged)."""
+    if "kernel_q" in p or "kernel_q4" in p:
         for k, v in p.items():
             out[f"{base}.{k}"] = _np(v)
     else:
@@ -210,24 +207,22 @@ def speech_decoder_state(tree: Mapping, prefix: str = "speech_decoder.") -> Dict
 
 
 def _put_projection(out: Dict, base: str, p: Mapping):
-    """A LoraDense: float {base: {kernel, bias?}, lora_a?, lora_b?} or the
-    int8 {base_q, base_scale}."""
-    if "base_q4" in p:
-        raise NotImplementedError("the int4 tier is not ported: ROADMAP.md "
-                                  "queue B")
+    """A LoraDense: float {base: {kernel, bias?}, lora_a?, lora_b?}, the int8
+    {base_q, base_scale} or the int4 {base_q4, base_scale}."""
     for k, v in p.items():
         if k == "base":
             _put_dense(out, base, v)
         elif k in ("lora_a", "lora_b"):
             out[f"{base}.lora_{k[-1].upper()}"] = _np(v).T
-        elif k in ("base_q", "base_scale"):
+        elif k in ("base_q", "base_q4", "base_scale"):
             out[f"{base}.{k}"] = _np(v)
         else:
             raise KeyError(f"unhandled projection param: {base}.{k}")
 
 
 def llama_state(tree: Mapping, prefix: str) -> Dict:
-    """flax LlamaModel -> HF Llama names (float or int8 serving layout)."""
+    """flax LlamaModel -> HF Llama names (float or quantized serving
+    layout)."""
     out: Dict = {}
     for name, sub in tree.items():
         if name == "embed_tokens":

@@ -13,7 +13,8 @@
 // reads every weight byte once per row tile and nothing else:
 //   * a block owns 128 columns (32 lanes x 4 consecutive columns, one
 //     4-byte load per packed row when N % 4 == 0) and MT rows of x, kept in
-//     shared memory as f32 (MT = 1 at decode, 8 otherwise);
+//     shared memory as bf16, so 8 rows of an 8192-deep x fit (MT = 1 at
+//     decode, 8 otherwise);
 //   * its 8 warps split the contraction by scale group: warp w sums groups
 //     w, w + 8, ...; each thread keeps the low- and high-plane partial sums
 //     of a group in registers (exact bf16 x int4 products, f32 sums), scales
@@ -45,16 +46,17 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(
     const float* __restrict__ scale, float* __restrict__ out, int M, int D,
     int N, int group) {
   extern __shared__ float smem[];
-  float* xs = smem;               // [MT][D]
-  float* red = smem + MT * D;     // [WARPS][MT][TILE_N]
+  float* red = smem;              // [WARPS][MT][TILE_N]
+  __nv_bfloat16* xs =             // [MT][D]
+      reinterpret_cast<__nv_bfloat16*>(smem + WARPS * MT * TILE_N);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int m0 = blockIdx.y * MT;
   const int rows = min(MT, M - m0);
   const int n0 = blockIdx.x * TILE_N + lane * COLS;
   for (int i = tid; i < MT * D; i += THREADS) {
     const int m = i / D;
-    xs[i] = m < rows ? __bfloat162float(x[(long long)(m0 + m) * D + i % D])
-                     : 0.f;
+    xs[i] = m < rows ? x[(long long)(m0 + m) * D + i % D]
+                     : __float2bfloat16(0.f);
   }
   __syncthreads();
 
@@ -86,7 +88,8 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(
       }
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
-        const float xl = xs[m * D + r], xh = xs[m * D + half + r];
+        const float xl = __bfloat162float(xs[m * D + r]);
+        const float xh = __bfloat162float(xs[m * D + half + r]);
 #pragma unroll
         for (int c = 0; c < COLS; ++c) {
           lo[m][c] = fmaf(xl, lo_nibble(b[c]), lo[m][c]);
@@ -125,7 +128,8 @@ __global__ void __launch_bounds__(THREADS) int4_kernel(
 template <int MT, bool VEC>
 int launch(const void* x, const void* wp, const void* scale, void* out, int M,
            int D, int N, int group, cudaStream_t s) {
-  const size_t smem = sizeof(float) * (size_t)MT * (D + WARPS * TILE_N);
+  const size_t smem = sizeof(float) * (size_t)MT * WARPS * TILE_N +
+                      sizeof(__nv_bfloat16) * (size_t)MT * D;
   auto kern = int4_kernel<MT, VEC>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -11,9 +11,10 @@ from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               int4_matmul)
 
 KERNEL_SOURCES = ("flash_attention", "fused_dit", "conv1d", "fused_mlp",
-                  "int4_matmul")
+                  "fused_mlp_int4", "int4_matmul")
 _WRAPPERS = (flash_attention.flash_attention, fused_dit.fused_dit_block,
              conv1d.conv1d_same, fused_mlp.gated_mlp_int8, fused_mlp.ffn_int8,
+             fused_mlp.gated_mlp_int4, fused_mlp.ffn_int4,
              int4_matmul.matmul_int4)
 
 

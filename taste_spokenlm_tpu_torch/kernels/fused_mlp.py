@@ -1,18 +1,26 @@
-"""Fused int8 MLPs: the Llama gated MLP and the conformer positionwise FFN,
-each one call with the intermediate activation kept on chip.
+"""Fused int8 and int4 MLPs: the Llama gated MLP and the conformer
+positionwise FFN, each one call with the intermediate activation kept on
+chip.
 
 Replaces the TPU kernels ops/pallas/fused_mlp.py:102 `gated_mlp_int8`
 (`_gated_kernel_i8`) and :383 `ffn_int8` (`_ffn_kernel_i8`) with
-csrc/fused_mlp.cu.  Numerics as on the TPU: x is cast to bf16, the int8
-products are summed in f32, the scales (and the first bias) are applied to
-the f32 sums, the activation a is rounded to bf16 before the second
-product, and the output is f32.
+csrc/fused_mlp.cu, and :192 `gated_mlp_int4` (`_gated_kernel_i4`) and :312
+`ffn_int4` (`_ffn_kernel_i4`) with csrc/fused_mlp_int4.cu.  Numerics as on
+the TPU: x is cast to bf16, the int8 products are summed in f32, the scales
+(and the first bias) are applied to the f32 sums, the activation a is
+rounded to bf16 before the second product, and the output is f32.  In int4
+each (nibble plane, scale group) partial sum is scaled on its own, as
+`_dot_int4` does.
 
-Bound on the H100: the weight bytes at decode; see the source note for the
+The int4 layouts are kernels/int4_matmul.py's, except that the second
+projection is packed per tile of `mlp_tile(I)` rows (`quantize_int4_tiled`):
+in packed row t*bi/2 + r the low nibble is I-row t*bi + r and the high
+nibble I-row t*bi + bi/2 + r, and tile t's scales are rows [t*spt,
+(t+1)*spt), low-plane groups first.  Byte-identical to the JAX package's.
+
+Bound on the H100: the weight bytes at decode; see the sources for the
 design (a split over I with a deterministic second pass instead of the
 TPU's sequential grid).  `launches` counts one per call (two CUDA launches).
-The int4 variants (`gated_mlp_int4`, `ffn_int4`) belong to the int4 tier,
-ROADMAP.md queue B.
 """
 
 from __future__ import annotations
@@ -23,12 +31,19 @@ import torch
 import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.kernels import _build
+from taste_spokenlm_tpu_torch.kernels.int4_matmul import (dequantize_int4,
+                                                          quantize_int4)
+from taste_spokenlm_tpu_torch.kernels.int4_matmul import \
+    matmul_int4_plain as _dot_int4
 
 MLP_TILE = 512
 SUB = 32                  # I columns per first-projection subtile (kernel)
 _ACTS = {"silu": 0, "swish": 0, "relu": 1, "gelu": 2}
 _SIG = (_build.P,) * 9 + (_build.I,) * 5 + (_build.P,)
 _SIGNATURE = {"tsk_gated_mlp_int8": _SIG, "tsk_ffn_int8": _SIG}
+SUBR4 = 16                # packed second-projection rows per subtile (int4)
+_SIG4 = (_build.P,) * 9 + (_build.I,) * 8 + (_build.P,)
+_SIGNATURE4 = {"tsk_gated_mlp_int4": _SIG4, "tsk_ffn_int4": _SIG4}
 
 
 def _pick_block(i: int, block_i: int) -> int:
@@ -94,30 +109,34 @@ def _splits(m: int, i: int, device) -> int:
                if n_sub % d == 0 and (d * tiles <= target or d == 1))
 
 
-def _prepare(fn_name, x, mats, vecs, activation):
-    """Check what the kernel takes; -> (x as [M, H] bf16, out [M, H] f32,
-    scratch [S, M, H] f32).  mats are the int8 matrices, vecs the f32
+def _prepare(fn_name, x, mats, vecs, activation, packed: bool = False):
+    """Check what the kernel takes; -> (x as [M, H] bf16, out [M, H] f32).
+    mats are the int8 (or, `packed`, the uint8 int4) matrices, vecs the f32
     scales and biases."""
-    h, i = x.shape[-1], mats[0].shape[1]
     if activation not in _ACTS:
         raise ValueError(f"{fn_name}: unsupported activation {activation!r}")
-    if h % 8 or i % SUB:
-        raise ValueError(f"{fn_name}: needs H % 8 == 0 and I % {SUB} == 0 "
-                         f"(got H={h}, I={i})")
-    if any(t.dtype != torch.int8 for t in mats):
-        raise TypeError(f"{fn_name}: weights must be int8")
+    if not packed:
+        h, i = x.shape[-1], mats[0].shape[1]
+        if h % 8 or i % SUB:
+            raise ValueError(f"{fn_name}: needs H % 8 == 0 and I % {SUB} == 0 "
+                             f"(got H={h}, I={i})")
+        if any(t.dtype != torch.int8 for t in mats):
+            raise TypeError(f"{fn_name}: weights must be int8")
     if any(t.dtype != torch.float32 for t in vecs):
         raise TypeError(f"{fn_name}: scales and biases must be float32")
     for t in (*mats, *vecs):
         if t.device != x.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{fn_name}: weights, scales and biases must be "
                              f"contiguous and 16-byte aligned on {x.device}")
+    h = x.shape[-1]
     xm = x.reshape(-1, h).to(torch.bfloat16).contiguous()
-    m = xm.shape[0]
-    out = torch.empty((m, h), dtype=torch.float32, device=x.device)
-    s = _splits(m, i, x.device) if m else 1
-    part = torch.empty((s, m, h), dtype=torch.float32, device=x.device)
-    return xm, out, part
+    out = torch.empty((xm.shape[0], h), dtype=torch.float32, device=x.device)
+    return xm, out
+
+
+def _scratch(m: int, h: int, i: int, device) -> torch.Tensor:
+    s = _splits(m, i, device) if m else 1
+    return torch.empty((s, m, h), dtype=torch.float32, device=device)
 
 
 def gated_mlp_int8(x, wg, sg, wu, su, wd, sd, activation: str = "silu"):
@@ -131,8 +150,9 @@ def gated_mlp_int8(x, wg, sg, wu, su, wd, sd, activation: str = "silu"):
     if x.shape[-1] != h or wu.shape != (h, i) or wd.shape != (i, h) \
             or sg.shape != (i,) or su.shape != (i,) or sd.shape != (h,):
         raise ValueError("gated_mlp_int8: shapes do not fit")
-    xm, out, part = _prepare("gated_mlp_int8", x, (wg, wu, wd), (sg, su, sd),
-                             activation)
+    xm, out = _prepare("gated_mlp_int8", x, (wg, wu, wd), (sg, su, sd),
+                       activation)
+    part = _scratch(xm.shape[0], h, i, x.device)
     if xm.shape[0]:
         lib = _build.load("fused_mlp", _SIGNATURE)
         p = _build.ptr
@@ -156,8 +176,8 @@ def ffn_int8(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
     if x.shape[-1] != d or w2.shape != (i, d) or s1.shape != (i,) \
             or b1.shape != (i,) or s2.shape != (d,) or b2.shape != (d,):
         raise ValueError("ffn_int8: shapes do not fit")
-    xm, out, part = _prepare("ffn_int8", x, (w1, w2), (s1, b1, s2, b2),
-                             activation)
+    xm, out = _prepare("ffn_int8", x, (w1, w2), (s1, b1, s2, b2), activation)
+    part = _scratch(xm.shape[0], d, i, x.device)
     if xm.shape[0]:
         lib = _build.load("fused_mlp", _SIGNATURE)
         p = _build.ptr
@@ -172,3 +192,170 @@ def ffn_int8(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
 
 gated_mlp_int8.launches = 0
 ffn_int8.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# int4: the first projection in kernels/int4_matmul.py's layout, the second
+# packed per tile
+# ---------------------------------------------------------------------------
+
+
+def quantize_int4_tiled(w: torch.Tensor, tile: int, group=None):
+    """[I, H] float -> (packed [I/2, H] uint8, scales [I/tile * spt, H] f32):
+    quantize_int4 applied tile by tile along I, in tile order."""
+    i = w.shape[0]
+    if i % tile:
+        raise ValueError(f"quantize_int4_tiled: I = {i} is not a multiple "
+                         f"of the tile {tile}")
+    parts = [quantize_int4(w[t:t + tile], group) for t in range(0, i, tile)]
+    return (torch.cat([p for p, _ in parts]), torch.cat([s for _, s in parts]))
+
+
+def dequantize_int4_tiled(wp: torch.Tensor, scale: torch.Tensor, tile: int
+                          ) -> torch.Tensor:
+    """Inverse of quantize_int4_tiled: -> [I, H] f32."""
+    n_tiles = 2 * wp.shape[0] // tile
+    th, spt = tile // 2, scale.shape[0] // n_tiles
+    return torch.cat([dequantize_int4(wp[t * th:(t + 1) * th],
+                                      scale[t * spt:(t + 1) * spt])
+                      for t in range(n_tiles)])
+
+
+def _tiled_dot(a: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
+               tile: int, out: torch.Tensor) -> torch.Tensor:
+    """out + a @ dequant(per-tile packed wp), one tile at a time in order,
+    as the TPU kernel's grid accumulates it."""
+    n_tiles = a.shape[1] // tile
+    th, spt = tile // 2, scale.shape[0] // n_tiles
+    for t in range(n_tiles):
+        out = out + _dot_int4(a[:, t * tile:(t + 1) * tile],
+                              wp[t * th:(t + 1) * th],
+                              scale[t * spt:(t + 1) * spt])
+    return out
+
+
+def gated_mlp_int4_plain(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
+                         tile=None):
+    """(act(x Wg) (x Wu)) Wd in PyTorch, with the kernel's casts.  x [...,
+    H]; wg/wu packed [H/2, I] uint8 with scales [H/g, I]; wd packed per tile
+    [I/2, H] with scales [I/g', H]; tile defaults to mlp_tile(I)."""
+    lead, h = x.shape[:-1], x.shape[-1]
+    i = wg.shape[1]
+    xm = _rows(x, h)
+    a = (act_fn(activation)(_dot_int4(xm, wg, sg)) * _dot_int4(xm, wu, su)
+         ).to(torch.bfloat16).float()
+    out = _tiled_dot(a, wd, sd, tile or mlp_tile(i), xm.new_zeros(xm.shape))
+    return out.reshape(*lead, h)
+
+
+def ffn_int4_plain(x, w1, s1, b1, w2, s2, b2, activation: str = "swish",
+                   tile=None):
+    """act(x W1 + b1) W2 + b2 in PyTorch, with the kernel's casts.  x [...,
+    D]; w1 packed [D/2, I] with scales [D/g, I], b1 [I]; w2 packed per tile
+    [I/2, D] with scales [I/g', D], b2 [D]."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    i = w1.shape[1]
+    xm = _rows(x, d)
+    a = act_fn(activation)(_dot_int4(xm, w1, s1) + b1.float()
+                           ).to(torch.bfloat16).float()
+    out = _tiled_dot(a, w2, s2, tile or mlp_tile(i),
+                     b2.float().expand(xm.shape[0], d))
+    return out.reshape(*lead, d)
+
+
+def _int4_geometry(fn_name, x, w1, s1, w2, s2, tile):
+    """Check the int4 layouts; -> (H, I, tile, first-projection group,
+    scale rows per tile)."""
+    h, i = x.shape[-1], w1.shape[1]
+    tile = tile or mlp_tile(i)
+    if w1.shape != (h // 2, i) or w2.shape != (i // 2, h) or h % 2:
+        raise ValueError(f"{fn_name}: packed weights {tuple(w1.shape)} and "
+                         f"{tuple(w2.shape)} do not fit x [..., {h}]")
+    if h % 4 or i % tile or tile % (2 * SUBR4) or i % 4:
+        raise ValueError(f"{fn_name}: needs H % 4 == 0, I % tile == 0 and "
+                         f"tile % {2 * SUBR4} == 0 (H={h}, I={i}, tile={tile})")
+    n_in, n_tiles = s1.shape[0], i // tile
+    if s1.shape != (n_in, i) or n_in % 2 or (h // 2) % (n_in // 2) \
+            or s2.dim() != 2 or s2.shape[1] != h or s2.shape[0] % n_tiles:
+        raise ValueError(f"{fn_name}: scales {tuple(s1.shape)} and "
+                         f"{tuple(s2.shape)} do not fit")
+    spt = s2.shape[0] // n_tiles
+    if spt % 2 or (tile // 2) % (spt // 2):
+        raise ValueError(f"{fn_name}: {spt} scale rows per tile of {tile}")
+    if any(t.dtype != torch.uint8 for t in (w1, w2)):
+        raise TypeError(f"{fn_name}: packed weights must be uint8")
+    return h, i, tile, (h // 2) // (n_in // 2), spt
+
+
+def _unit_rows(m: int, i: int, tile: int, device) -> int:
+    """Packed second-projection rows per pass-1 block: the fewest (a
+    multiple of SUBR4 dividing tile/2, so a block stays in one tile) with
+    about two blocks per SM over all row tiles."""
+    tiles = 1 if m == 1 else -(-m // 8)
+    target = 2 * _sm_count(device.index or 0)
+    half = tile // 2
+    for r in range(SUBR4, half + 1, SUBR4):
+        if half % r == 0 and (i // 2 // r) * tiles <= target:
+            return r
+    return half
+
+
+def _launch_int4(fn_name, c_name, x, args, activation, tile):
+    """Check and launch one int4 fused MLP; `args` are its six weight,
+    scale and bias tensors in the C function's order: (wg, sg, wu, su, wd,
+    sd) or (w1, s1, b1, w2, s2, b2)."""
+    w1, s1 = args[0], args[1]
+    w2, s2 = (args[4], args[5]) if c_name == "tsk_gated_mlp_int4" \
+        else (args[3], args[4])
+    h, i, tile, group_in, spt = _int4_geometry(fn_name, x, w1, s1, w2, s2,
+                                               tile)
+    xm, out = _prepare(fn_name, x, [t for t in args if t.dtype == torch.uint8],
+                       [t for t in args if t.dtype != torch.uint8], activation,
+                       packed=True)
+    m = xm.shape[0]
+    if m:
+        r = _unit_rows(m, i, tile, x.device)
+        part = torch.empty((i // 2 // r, m, h), dtype=torch.float32,
+                           device=x.device)
+        lib = _build.load("fused_mlp_int4", _SIGNATURE4)
+        err = getattr(lib, c_name)(
+            *map(_build.ptr, (xm, *args, part, out)), m, h, i, tile, group_in,
+            spt, r, _ACTS[activation], _build.stream_of(x))
+        _build.check(err, fn_name)
+    return out.reshape(*x.shape[:-1], h), m > 0
+
+
+def gated_mlp_int4(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
+                   tile=None):
+    """The int4 Llama MLP, -> [..., H] f32.  CPU tensors take the plain
+    version; CUDA tensors launch csrc/fused_mlp_int4.cu."""
+    if x.device.type == "cpu":
+        return gated_mlp_int4_plain(x, wg, sg, wu, su, wd, sd, activation,
+                                    tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"gated_mlp_int4: unsupported device {x.device}")
+    if wu.shape != wg.shape or su.shape != sg.shape:
+        raise ValueError("gated_mlp_int4: gate and up do not fit")
+    out, launched = _launch_int4("gated_mlp_int4", "tsk_gated_mlp_int4", x,
+                                 (wg, sg, wu, su, wd, sd), activation, tile)
+    gated_mlp_int4.launches += launched
+    return out
+
+
+def ffn_int4(x, w1, s1, b1, w2, s2, b2, activation: str = "swish", tile=None):
+    """The int4 conformer FFN, -> [..., D] f32.  CPU tensors take the plain
+    version; CUDA tensors launch csrc/fused_mlp_int4.cu."""
+    if x.device.type == "cpu":
+        return ffn_int4_plain(x, w1, s1, b1, w2, s2, b2, activation, tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"ffn_int4: unsupported device {x.device}")
+    if b1.shape != (w1.shape[1],) or b2.shape != (x.shape[-1],):
+        raise ValueError("ffn_int4: biases do not fit")
+    out, launched = _launch_int4("ffn_int4", "tsk_ffn_int4", x,
+                                 (w1, s1, b1, w2, s2, b2), activation, tile)
+    ffn_int4.launches += launched
+    return out
+
+
+gated_mlp_int4.launches = 0
+ffn_int4.launches = 0

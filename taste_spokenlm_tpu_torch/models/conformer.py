@@ -4,18 +4,20 @@ attention (counterpart of the JAX models/conformer.py).
 Ported: `RelPositionAttention` (full sequence and cached decode, with
 precomputed position projections), the positionwise FFN, and
 `ConformerEncoder` with the `linear` / `linear_legacy` input layers, in the
-float layout and the int8 serving layouts of EncoderStackConfig:
-`quantized_serving` (QDense projections), `fused_qkv_serving` (one
-linear_qkv) and `fused_mlp_serving` (the FFN as one kernel call,
-kernels/fused_mlp.py).  The Pallas rel-pos causal-attention branch belongs
-to training (the JAX package takes it only on the TPU); the port takes the
-JAX package's own non-kernel branch.  The convolution module, macaron FFN,
-conv subsampling stems and the int4 tier are not ported yet.
+float layout and the int8 / int4 serving layouts of EncoderStackConfig:
+`quantized_serving` (QDense / QDense4 projections), `fused_qkv_serving`
+(one linear_qkv) and `fused_mlp_serving` (the FFN as one kernel call,
+kernels/fused_mlp.py; int4 packs w_2 per tile).  The Pallas rel-pos
+causal-attention branch belongs to training (the JAX package takes it only
+on the TPU); the port takes the JAX package's own non-kernel branch.  The
+convolution module, macaron FFN and conv subsampling stems are not ported
+yet.
 
 Names follow the reference state dict: embed.out.{0,1}, encoders.{i}.
 self_attn.linear_{q,k,v,out,pos} (or linear_qkv), pos_bias_u/v,
 feed_forward.w_1/w_2, norm_mha/norm_ff (or norm1/norm2 for linear_legacy),
-after_norm; a QDense holds kernel_q [in, out], scale and bias.  Decode
+after_norm; a QDense holds kernel_q [in, out], scale and bias, a QDense4
+kernel_q4 [in/2, out], scale [in/g, out] and bias.  Decode
 caches are written in place.
 """
 
@@ -33,7 +35,6 @@ from taste_spokenlm_tpu_torch.config import EncoderStackConfig
 from taste_spokenlm_tpu_torch.ops.masking import chunk_causal_mask, length_mask
 from taste_spokenlm_tpu_torch.ops.quantized import (dense, fused_ffn_apply,
                                                     qmode)
-from taste_spokenlm_tpu_torch.quant import QUEUE_B
 
 NEG_F32 = torch.finfo(torch.float32).min / 2
 
@@ -144,9 +145,9 @@ class RelPositionAttention(nn.Module):
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_2(act(w_1 x)); with `fused` and an int8 layout, one fused_ffn_apply
-    over the two QDense weights (the kernel's plain version when
-    `use_kernels` is False)."""
+    """w_2(act(w_1 x)); with `fused` and a quantized layout, one
+    fused_ffn_apply over the two QDense / QDense4 weights (the kernel's plain
+    version when `use_kernels` is False)."""
 
     def __init__(self, d_model: int, hidden: int, activation: str = "relu",
                  quantized=False, fused: bool = False):
@@ -154,14 +155,17 @@ class PositionwiseFeedForward(nn.Module):
         self.w_1 = dense(d_model, hidden, quantized)
         self.w_2 = dense(hidden, d_model, quantized)
         self.activation, self.act = activation, _ACT[activation]
-        self.fused = fused and qmode(quantized) is not None
+        self.mode = qmode(quantized)
+        self.fused = fused and self.mode is not None
         self.use_kernels = True
 
     def forward(self, x):
         if self.fused:
-            triple = lambda m: (m.kernel_q, m.scale, m.bias)  # noqa: E731
+            w = "kernel_q4" if self.mode == "int4" else "kernel_q"
+            triple = lambda m: (getattr(m, w), m.scale, m.bias)  # noqa: E731
             return fused_ffn_apply(x, triple(self.w_1), triple(self.w_2),
-                                   x.dtype, self.activation, self.use_kernels)
+                                   self.mode, x.dtype, self.activation,
+                                   self.use_kernels)
         return self.w_2(self.act(self.w_1(x)))
 
 
@@ -212,8 +216,6 @@ class ConformerEncoder(nn.Module):
             raise NotImplementedError(f"input_layer {cfg.input_layer!r}")
         if cfg.use_cnn_module or cfg.macaron_style:
             raise NotImplementedError("conformer conv module / macaron FFN")
-        if qmode(cfg.quantized_serving) == "int4":
-            raise NotImplementedError(QUEUE_B)
         self.max_len = max_len
         self.embed = _Embed(cfg.input_size, cfg.output_size)
         conformer_names = cfg.input_layer != "linear_legacy"

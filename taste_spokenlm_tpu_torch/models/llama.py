@@ -1,15 +1,18 @@
-"""Llama-3.2 backbone with LoRA, GQA, llama3 rope scaling and the int8
-serving layouts (counterpart of the JAX models/llama.py).
+"""Llama-3.2 backbone with LoRA, GQA, llama3 rope scaling and the int8 /
+int4 serving layouts (counterpart of the JAX models/llama.py).
 
 State-dict names follow HF Llama (embed_tokens, layers.{i}.self_attn.q_proj,
 input_layernorm, post_attention_layernorm, mlp.gate_proj/up_proj/down_proj,
 norm).  A float projection holds `weight` [out, in] (and peft-shaped
 `lora_A` [r, in], `lora_B` [out, r]); the int8 layout holds `base_q` [in,
-out] and `base_scale`.  The serving flags of LlamaConfig pick the layout:
-`fused_qkv_serving` one qkv_proj (and gateup_proj), `fused_mlp_serving` the
-whole MLP as one kernel call (kernels/fused_mlp.py), and
+out] and `base_scale` [out], the int4 layout `base_q4` [in/2, out]
+(nibble-packed) and `base_scale` [in/g, out], run through the int4 kernel
+(kernels/int4_matmul.py).  The serving flags of LlamaConfig pick the
+layout: `quantized_serving` "int8" or "int4", `fused_qkv_serving` one
+qkv_proj (and gateup_proj), `fused_mlp_serving` the whole MLP as one kernel
+call (kernels/fused_mlp.py; int4 packs down_proj per tile), and
 `quantized_embed_serving` an int8 table whose "int4head" tied head runs the
-int4 kernel (kernels/int4_matmul.py).  KV caches are written in place.
+int4 kernel.  KV caches are written in place.
 """
 
 from __future__ import annotations
@@ -25,27 +28,33 @@ import torch.nn.functional as F
 from taste_spokenlm_tpu_torch.config import LlamaConfig, LoraConfig
 from taste_spokenlm_tpu_torch.ops.quantized import (F32Buffers, QEmbed,
                                                     fused_gated_mlp_apply,
-                                                    qmode)
-from taste_spokenlm_tpu_torch.quant import QUEUE_B
+                                                    int4_apply,
+                                                    int4_param_shapes, qmode)
 
 NEG_F32 = torch.finfo(torch.float32).min / 2
 
 
 class LoraDense(F32Buffers):
     """y = x W (+ b) + (alpha / r) (x A) B, or with `quantized` the int8
-    base (x @ base_q) * base_scale, computed in the input's dtype."""
+    base (x @ base_q) * base_scale or the int4 base x @ dequant(base_q4,
+    base_scale) (the int4 kernel, its plain version when `use_kernels` is
+    False), computed in the input's dtype."""
 
     def __init__(self, in_dim: int, features: int,
                  lora: Optional[LoraConfig] = None, use_bias: bool = False,
                  quantized=False):
         super().__init__()
-        mode = qmode(quantized)
-        self.quantized = mode is not None
-        if mode == "int4":
-            raise NotImplementedError(QUEUE_B)
-        if self.quantized:
-            if use_bias:
-                raise ValueError("LoraDense(quantized) has no bias")
+        self.mode = qmode(quantized)
+        self.quantized = self.mode is not None
+        if self.quantized and use_bias:
+            raise ValueError("LoraDense(quantized) has no bias")
+        if self.mode == "int4":
+            self.use_kernels = True
+            wp_shape, s_shape = int4_param_shapes(in_dim, features)
+            self.register_buffer("base_q4", torch.zeros(wp_shape,
+                                                        dtype=torch.uint8))
+            self.register_buffer("base_scale", torch.ones(s_shape))
+        elif self.quantized:
             self.register_buffer("base_q", torch.zeros(in_dim, features,
                                                        dtype=torch.int8))
             self.register_buffer("base_scale", torch.ones(features))
@@ -61,7 +70,10 @@ class LoraDense(F32Buffers):
             self.lora_B = nn.Parameter(torch.zeros(features, self.lora.r))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.quantized:
+        if self.mode == "int4":
+            y = int4_apply(x, self.base_q4, self.base_scale, x.dtype,
+                           self.use_kernels)
+        elif self.quantized:
             dt = x.dtype
             y = (x @ self.base_q.to(dt)) * self.base_scale.to(dt)
         else:
@@ -188,10 +200,12 @@ class LlamaMLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused_mlp:
-            pair = lambda m: (m.base_q, m.base_scale)  # noqa: E731
+            mode = self.down_proj.mode
+            w = "base_q4" if mode == "int4" else "base_q"
+            pair = lambda m: (getattr(m, w), m.base_scale)  # noqa: E731
             return fused_gated_mlp_apply(x, pair(self.gate_proj),
                                          pair(self.up_proj),
-                                         pair(self.down_proj), x.dtype,
+                                         pair(self.down_proj), mode, x.dtype,
                                          use_kernel=self.use_kernels)
         if self.gateup:
             gate, up = self.gateup_proj(x).chunk(2, dim=-1)
@@ -222,8 +236,6 @@ class LlamaModel(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.config, self.dtype = cfg, dtype
-        if qmode(cfg.quantized_serving) == "int4":
-            raise NotImplementedError(QUEUE_B)
         if cfg.quantized_embed_serving:
             head = "int4" if cfg.quantized_embed_serving == "int4head" else "int8"
             self.embed_tokens = QEmbed(cfg.vocab_size, cfg.hidden_size, dtype,

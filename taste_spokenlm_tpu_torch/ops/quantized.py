@@ -1,16 +1,19 @@
-"""Weight-only int8 modules and the fused-MLP / int4-head dispatch
+"""Weight-only int8 / int4 modules and the fused-MLP / int4 dispatch
 (counterpart of the JAX ops/quantized.py).
 
 Quantized kernels are [in, out] int8 buffers beside float32 per-output-
-channel scales (and biases), in the layout quant.py and convert.py produce.
-The scales and biases stay float32 when the model is cast to bf16, as the
-JAX parameters do.  Products run in the dtype of their input, as JAX's
-`dtype` argument has them.
+channel scales, or nibble-packed [in/2, out] uint8 buffers beside float32
+group-wise scales [in/g, out] (kernels/int4_matmul.py), and float32 biases,
+in the layout quant.py and convert.py produce.  The scales and biases stay
+float32 when the model is cast to bf16, as the JAX parameters do.  Products
+run in the dtype of their input, as JAX's `dtype` argument has them.
 
-Dispatch rules as in JAX: a fused MLP of at most FUSED_MLP_MAX_ROWS rows is
-one kernel call (kernels/fused_mlp.py), a larger one the unfused math on the
-same weights; the int4 tied head always takes kernels/int4_matmul.py.  The
-int4 tier (QDense4, the int4 fused MLPs) is ROADMAP.md queue B.
+Dispatch rules as in JAX: an int4 product of at most INT4_KERNEL_MAX_ROWS
+rows takes kernels/int4_matmul.py, a larger one one dequantization and a
+plain product; a fused MLP of at most FUSED_MLP_MAX_ROWS rows is one kernel
+call (kernels/fused_mlp.py), a larger one the unfused math on the same
+weights; the int4 tied head always takes the int4 kernel.  Each kernel's
+plain version runs instead where a module's `use_kernels` is False.
 """
 
 from __future__ import annotations
@@ -19,7 +22,6 @@ import torch
 import torch.nn as nn
 
 from taste_spokenlm_tpu_torch.kernels import fused_mlp, int4_matmul
-from taste_spokenlm_tpu_torch.quant import QUEUE_B
 
 FUSED_MLP_MAX_ROWS = 256
 INT4_KERNEL_MAX_ROWS = 256
@@ -70,52 +72,98 @@ class QDense(F32Buffers):
         return y if self.bias is None else y + self.bias.to(dt)
 
 
+def int4_param_shapes(in_dim: int, features: int):
+    """(packed kernel shape, scale shape) of the int4 serving layout."""
+    n_scales = in_dim // int4_matmul._group(in_dim)
+    return (in_dim // 2, features), (n_scales, features)
+
+
+class QDense4(F32Buffers):
+    """int4 Dense: kernel_q4 uint8 [in/2, out] (nibble-packed), scale f32
+    [in/g, out] (group-wise), bias f32 [out] (use_bias).  y = x @
+    dequant(kernel_q4, scale) + bias through int4_apply, in x's dtype."""
+
+    def __init__(self, in_dim: int, features: int, use_bias: bool = True):
+        super().__init__()
+        wp_shape, s_shape = int4_param_shapes(in_dim, features)
+        self.use_kernels = True
+        self.register_buffer("kernel_q4", torch.zeros(wp_shape,
+                                                      dtype=torch.uint8))
+        self.register_buffer("scale", torch.ones(s_shape))
+        self.register_buffer("bias", torch.zeros(features) if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = int4_apply(x, self.kernel_q4, self.scale, x.dtype, self.use_kernels)
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
 def dense(in_dim: int, features: int, quantized=False, use_bias: bool = True
           ) -> nn.Module:
-    """nn.Linear or QDense by the serving flag."""
+    """nn.Linear, QDense or QDense4 by the serving flag."""
     mode = qmode(quantized)
     if mode == "int4":
-        raise NotImplementedError(QUEUE_B)
+        return QDense4(in_dim, features, use_bias)
     if mode == "int8":
         return QDense(in_dim, features, use_bias)
     return nn.Linear(in_dim, features, bias=use_bias)
 
 
 def int4_apply(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor,
-               dtype: torch.dtype) -> torch.Tensor:
-    """x [..., D] @ dequant(wp, scale): the kernel up to 256 rows, above it
-    one dequantization and a plain product."""
+               dtype: torch.dtype, use_kernel: bool = True) -> torch.Tensor:
+    """x [..., D] @ dequant(wp, scale): the kernel (its plain version when
+    not `use_kernel`) up to 256 rows, above it one dequantization and a
+    plain product."""
     if _rows(x) <= INT4_KERNEL_MAX_ROWS:
-        return int4_matmul.matmul_int4(x, wp, scale).to(dtype)
+        fn = (int4_matmul.matmul_int4 if use_kernel
+              else int4_matmul.matmul_int4_plain)
+        return fn(x, wp, scale).to(dtype)
     return x.to(dtype) @ int4_matmul.dequantize_int4(wp, scale).to(dtype)
 
 
-def fused_gated_mlp_apply(x, gate, up, down, dtype, activation: str = "silu",
-                          use_kernel: bool = True):
-    """The Llama MLP over (int8 [in, out], scale) pairs: one kernel call for
+def fused_gated_mlp_apply(x, gate, up, down, mode: str, dtype,
+                          activation: str = "silu", use_kernel: bool = True):
+    """The Llama MLP over (weights, scale) pairs in `mode` "int8" ([in, out]
+    int8) or "int4" (packed, down per tile): one kernel call for
     decode-sized inputs (its plain version when not `use_kernel`), the
     unfused math above FUSED_MLP_MAX_ROWS."""
     if _rows(x) <= FUSED_MLP_MAX_ROWS:
-        fn = (fused_mlp.gated_mlp_int8 if use_kernel
-              else fused_mlp.gated_mlp_int8_plain)
+        fn = {("int8", True): fused_mlp.gated_mlp_int8,
+              ("int8", False): fused_mlp.gated_mlp_int8_plain,
+              ("int4", True): fused_mlp.gated_mlp_int4,
+              ("int4", False): fused_mlp.gated_mlp_int4_plain}[mode, use_kernel]
         return fn(x, gate[0], gate[1], up[0], up[1], down[0], down[1],
                   activation).to(dtype)
     act = fused_mlp.act_fn(activation)
+    if mode == "int4":
+        g = int4_apply(x, gate[0], gate[1], dtype)
+        u = int4_apply(x, up[0], up[1], dtype)
+        wd = fused_mlp.dequantize_int4_tiled(
+            down[0], down[1], fused_mlp.mlp_tile(gate[0].shape[1])).to(dtype)
+        return (act(g) * u).to(dtype) @ wd
     x = x.to(dtype)
     g = (x @ gate[0].to(dtype)) * gate[1].to(dtype)
     u = (x @ up[0].to(dtype)) * up[1].to(dtype)
     return ((act(g) * u) @ down[0].to(dtype)) * down[1].to(dtype)
 
 
-def fused_ffn_apply(x, w1, w2, dtype, activation: str = "swish",
+def fused_ffn_apply(x, w1, w2, mode: str, dtype, activation: str = "swish",
                     use_kernel: bool = True):
-    """The conformer FFN over (int8 [in, out], scale, bias) triples: one
-    kernel call for decode-sized inputs (its plain version when not
-    `use_kernel`), the unfused math above FUSED_MLP_MAX_ROWS."""
+    """The conformer FFN over (weights, scale, bias) triples in `mode` "int8"
+    or "int4" (w2 packed per tile): one kernel call for decode-sized inputs
+    (its plain version when not `use_kernel`), the unfused math above
+    FUSED_MLP_MAX_ROWS."""
     if _rows(x) <= FUSED_MLP_MAX_ROWS:
-        fn = fused_mlp.ffn_int8 if use_kernel else fused_mlp.ffn_int8_plain
+        fn = {("int8", True): fused_mlp.ffn_int8,
+              ("int8", False): fused_mlp.ffn_int8_plain,
+              ("int4", True): fused_mlp.ffn_int4,
+              ("int4", False): fused_mlp.ffn_int4_plain}[mode, use_kernel]
         return fn(x, *w1, *w2, activation).to(dtype)
     act = fused_mlp.act_fn(activation)
+    if mode == "int4":
+        h = int4_apply(x, w1[0], w1[1], dtype) + w1[2].to(dtype)
+        w = fused_mlp.dequantize_int4_tiled(
+            w2[0], w2[1], fused_mlp.mlp_tile(w1[0].shape[1])).to(dtype)
+        return act(h).to(dtype) @ w + w2[2].to(dtype)
     x = x.to(dtype)
     h = (x @ w1[0].to(dtype)) * w1[1].to(dtype) + w1[2].to(dtype)
     return (act(h) @ w2[0].to(dtype)) * w2[1].to(dtype) + w2[2].to(dtype)

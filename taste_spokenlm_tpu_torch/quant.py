@@ -1,22 +1,21 @@
 """Weight-only int8 / int4 serving layouts, as transforms of the port's state
-dicts (the port's copy of the slice's parts of the JAX package's
-utils/quant.py, which works on flax trees).
+dicts (the port's copy of the JAX package's utils/quant.py, which works on
+flax trees).
 
 From the same float weights the quantized arrays are byte-identical to the
 JAX package's and the scales equal: symmetric per-output-channel int8
-(scale = max|w| / 127, ties rounded to even), and for the tied Llama head
-the transposed table nibble-packed with group-wise int4 scales
-(kernels/int4_matmul.py).  Quantized kernels are stored [in, out] as in
-JAX, not transposed like a torch Linear weight.
+(scale = max|w| / 127, ties rounded to even); int4 nibble-packed along the
+contraction with group-wise scales (kernels/int4_matmul.py), also for the
+transposed table of the tied Llama head; and, for the second projection of
+a fused int4 MLP, the same packed per tile of the fused kernel
+(kernels/fused_mlp.py, `quantize_int4_tiled`).  Quantized kernels are
+stored [in, out] as in JAX, not transposed like a torch Linear weight.
 
     lm = spoken_lm.language_model                 # a float LlamaModel
     sd = merge_lora_params(lm.state_dict(), lora.alpha, lora.r)
-    sd = quantize_llama_params(sd, include_embed=True,
+    sd = quantize_llama_params(sd, include_embed=True, mode="int4",
                                embed_head_mode="int4head", fuse_qkv=True,
-                               fused_mlp=True)    # -> the int8 LlamaModel's
-
-The int4 tier (int4 projections, int4-tiled MLP packing) is ROADMAP.md
-queue B.
+                               fused_mlp=True)    # -> the int4 LlamaModel's
 """
 
 from __future__ import annotations
@@ -25,6 +24,8 @@ from typing import Dict
 
 import torch
 
+from taste_spokenlm_tpu_torch.kernels.fused_mlp import (mlp_tile,
+                                                        quantize_int4_tiled)
 from taste_spokenlm_tpu_torch.kernels.int4_matmul import quantize_int4
 
 _PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
@@ -33,8 +34,6 @@ _FUSED = {"self_attn": ("qkv_proj", ("q_proj", "k_proj", "v_proj")),
           "mlp": ("gateup_proj", ("gate_proj", "up_proj"))}
 _ENCODER_DENSE = ("linear_q", "linear_k", "linear_v", "linear_out",
                   "linear_pos", "w_1", "w_2")
-QUEUE_B = ("the int4 tier (QDense4, gated_mlp_int4, ffn_int4) is not ported: "
-           "ROADMAP.md queue B")
 
 
 def _f32(t) -> torch.Tensor:
@@ -42,11 +41,18 @@ def _f32(t) -> torch.Tensor:
 
 
 def quantize_kernel(w, mode: str = "int8") -> Dict[str, torch.Tensor]:
-    """[in, out] float kernel -> {"base_q" int8 [in, out], "base_scale" f32
-    [out]}, symmetric per-output-channel scales."""
-    if mode != "int8":
-        raise NotImplementedError(QUEUE_B)
+    """[in, out] float kernel -> the weight-only layout: int8 {"base_q" int8
+    [in, out], "base_scale" f32 [out]} (per-output-channel scales); int4
+    {"base_q4" uint8 [in/2, out], "base_scale" f32 [in/g, out]}
+    (group-wise); int4_tiled the same shapes packed per mlp_tile(in) rows,
+    for the second projection of a fused int4 MLP."""
     w = _f32(w)
+    if mode in ("int4", "int4_tiled"):
+        packed, scale = (quantize_int4(w) if mode == "int4"
+                         else quantize_int4_tiled(w, mlp_tile(w.shape[0])))
+        return {"base_q4": packed, "base_scale": scale}
+    if mode != "int8":
+        raise ValueError(f"quantization mode {mode!r}")
     scale = torch.clamp(w.abs().amax(dim=0), min=1e-8) / 127.0
     q = torch.clamp(torch.round(w / scale[None, :]), -127, 127).to(torch.int8)
     return {"base_q": q, "base_scale": scale}
@@ -69,10 +75,13 @@ def quantize_embed(table, head_mode: str = "int8") -> Dict[str, torch.Tensor]:
 
 
 def quantize_dense_leaf(sd: Dict, prefix: str, mode: str = "int8") -> Dict:
-    """{prefix.weight [out, in], prefix.bias?} -> {prefix.kernel_q [in, out],
-    prefix.scale, prefix.bias?} (ops/quantized.QDense)."""
+    """{prefix.weight [out, in], prefix.bias?} -> {prefix.kernel_q [in, out]
+    (int8) or prefix.kernel_q4 (int4, int4_tiled), prefix.scale,
+    prefix.bias?} (ops/quantized.QDense / QDense4)."""
     qd = quantize_kernel(_f32(sd[f"{prefix}.weight"]).T, mode)
-    out = {f"{prefix}.kernel_q": qd["base_q"], f"{prefix}.scale": qd["base_scale"]}
+    q = "q4" if "base_q4" in qd else "q"
+    out = {f"{prefix}.kernel_{q}": qd[f"base_{q}"],
+           f"{prefix}.scale": qd["base_scale"]}
     if f"{prefix}.bias" in sd:
         out[f"{prefix}.bias"] = _f32(sd[f"{prefix}.bias"])
     return out
@@ -110,9 +119,9 @@ def quantize_llama_params(sd: Dict, include_embed: bool = False,
     `base_scale`.  `include_embed` also quantizes embed_tokens (the tied
     head) for quantized_embed_serving; `fuse_qkv` emits `qkv_proj` and
     `gateup_proj` (fused_qkv_serving); `fused_mlp` keeps gate / up / down
-    separate (fused_mlp_serving overrides the gateup half of fuse_qkv)."""
-    if mode != "int8":
-        raise NotImplementedError(QUEUE_B)
+    separate (fused_mlp_serving overrides the gateup half of fuse_qkv) and,
+    in int4, packs down_proj per tile.  `mode` "int4" stores `base_q4` and
+    group-wise `base_scale` instead."""
     if any(k.endswith(".lora_A") for k in sd):
         raise ValueError("quantize_llama_params needs merged LoRA "
                          "(merge_lora_params first)")
@@ -131,14 +140,13 @@ def quantize_llama_params(sd: Dict, include_embed: bool = False,
                     pre = ".".join(parts[:3])
                     kern = torch.cat([_f32(sd[f"{pre}.{n}.weight"]).T
                                       for n in members], dim=1)
-                    qd = quantize_kernel(kern, mode)
-                    out[f"{pre}.{fused_name}.base_q"] = qd["base_q"]
-                    out[f"{pre}.{fused_name}.base_scale"] = qd["base_scale"]
+                    out.update({f"{pre}.{fused_name}.{k}": v for k, v in
+                                quantize_kernel(kern, mode).items()})
                 continue
-            qd = quantize_kernel(_f32(val).T, mode)
-            base = ".".join(parts[:4])
-            out[f"{base}.base_q"] = qd["base_q"]
-            out[f"{base}.base_scale"] = qd["base_scale"]
+            tiled = fused_mlp and mode == "int4" and parts[3] == "down_proj"
+            out.update({f"{'.'.join(parts[:4])}.{k}": v for k, v in
+                        quantize_kernel(_f32(val).T, "int4_tiled" if tiled
+                                        else mode).items()})
         else:
             out[key] = val
     return out
@@ -152,9 +160,8 @@ def quantize_encoder_params(sd: Dict, mode: str = "int8",
     `scale`, `bias`); `fuse_qkv` concatenates linear_q/k/v into one
     `linear_qkv` (kernels, biases and per-channel scales concatenate
     losslessly).  `fused_mlp` changes nothing in int8: the fused FFN reads
-    the QDense layout of w_1 / w_2."""
-    if mode != "int8":
-        raise NotImplementedError(QUEUE_B)
+    the QDense layout of w_1 / w_2; in int4 it packs w_2 per tile.  `mode`
+    "int4" gives the QDense4 layout (`kernel_q4`, group-wise `scale`)."""
     out: Dict = {}
     done = set()
     for key, val in sd.items():
@@ -179,5 +186,6 @@ def quantize_encoder_params(sd: Dict, mode: str = "int8",
                         quantize_dense_leaf(fused, "linear_qkv", mode).items()})
             done.update(f"{pre}.{n}" for n in names)
             continue
-        out.update(quantize_dense_leaf(sd, base, mode))
+        tiled = fused_mlp and mode == "int4" and parts[3] == "w_2"
+        out.update(quantize_dense_leaf(sd, base, "int4_tiled" if tiled else mode))
     return out

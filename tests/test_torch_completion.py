@@ -1,19 +1,22 @@
 """The port's completion slice (joint text + taste decode -> S3 -> mel ->
 wav) against the same composition in JAX at TasteConfig.tiny(), float32 on
-the CPU, in the float layout (LoRA adapters) and in the int8 fused serving
-layout (merged LoRA, int8 Llama with the int4 tied head, fused qkv and
-fused MLPs, int8 S3 llm stack), both from the JAX package's weights through
+the CPU, in the float layout (LoRA adapters) and in three serving layouts
+(merged LoRA, the int4 tied head, fused qkv, the S3 llm stack quantized as
+the Llama): "int8" (int8 with fused MLPs), "int4_fused" (int4 with fused
+MLPs, bench.py's BENCH_QUANT=4 BENCH_FUSED_MLP=1) and "int4" (int4 with a
+gateup_proj, BENCH_FUSED_MLP=0), all from the JAX package's weights through
 taste_spokenlm_tpu_torch.convert (strict=True).
 
 generate_completion runs greedy (text_top_p 0, taste_top_p 0), the S3
 decode greedy (sampling_k 1), and the voice generator takes the JAX split
 chain's noise.  The text, word, taste and S3 trajectories must be equal
 exactly, the waveform within 1e-3 absolute (the sine source's f32 phase
-cumsum runs in another summation order).  In the int8 layout the JAX side
-runs its Pallas kernels in interpret mode, and a spy on the port's plain
-kernel versions shows that the fused-MLP and int4-head branches ran.
+cumsum runs in another summation order).  In the serving layouts the JAX
+side runs its Pallas kernels in interpret mode, and a spy on the port's
+plain kernel versions shows which kernel branches ran.
 """
 
+import copy
 import functools
 
 import jax
@@ -45,14 +48,20 @@ def _float_variables():
     return jax.tree.map(np.asarray, tiny_pair()[2])
 
 
+# serving layout -> (quantized_serving, fused_mlp_serving)
+LAYOUTS = {"int8": ("int8", True), "int4_fused": ("int4", True),
+           "int4": ("int4", False)}
+
+
 @functools.lru_cache(maxsize=None)
 def _pair(layout: str):
     if layout == "float":
         return tiny_pair()
-    jcfg = serving_config(tiny_pair()[0])
-    variables = quantize_variables_jax(jcfg, _float_variables())
+    mode, fused = LAYOUTS[layout]
+    jcfg = serving_config(tiny_pair()[0], mode, fused)
+    variables = quantize_variables_jax(jcfg, _float_variables(), mode, fused)
     return jcfg, JaxTaste(jcfg), jax.tree.map(jnp.asarray, variables), \
-        port_model(serving_config(TasteConfig.tiny()), variables)
+        port_model(serving_config(TasteConfig.tiny(), mode, fused), variables)
 
 
 def _spy(monkeypatch):
@@ -61,6 +70,8 @@ def _spy(monkeypatch):
     calls = {}
     for mod, name in ((fused_mlp, "gated_mlp_int8_plain"),
                       (fused_mlp, "ffn_int8_plain"),
+                      (fused_mlp, "gated_mlp_int4_plain"),
+                      (fused_mlp, "ffn_int4_plain"),
                       (int4_matmul, "matmul_int4_plain")):
         fn = getattr(mod, name)
 
@@ -71,13 +82,16 @@ def _spy(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("layout", ["float", "int8"])
+@pytest.mark.parametrize("layout", ["float", "int8", "int4_fused", "int4"])
 def test_completion_and_synthesis_match_jax(monkeypatch, layout):
     jcfg, model, variables, port = _pair(layout)
     calls = _spy(monkeypatch)
     v = jcfg.spoken_lm.llama.vocab_size
     tables_np = build_sampler_tables(VocabScan(), v)
-    lm = lm_inputs(jcfg)
+    # a prefix on which the int4 layouts' greedy text crosses word starts
+    # (from the default one it repeats one subword)
+    int4 = layout.startswith("int4")
+    lm = lm_inputs(jcfg, 8 if int4 else 1)
 
     out_j = jax.jit(lambda var, *a: model.apply(
         var, jax.random.PRNGKey(0), JaxSamplerConfig(**SAMPLER),
@@ -98,8 +112,9 @@ def test_completion_and_synthesis_match_jax(monkeypatch, layout):
                                       err_msg=key)
     n_taste = out_p["num_taste_words"].numpy()
     assert (n_taste >= 2).all() and (out_p["num_tokens"].numpy() >= 2).all()
-    # stopped early: the sampler's countdown ended the decode
-    assert int(out_p["steps"]) < MAX_STEPS
+    # stopped early: the sampler's countdown ended the decode (the int4
+    # layouts' random-weight text runs to max_steps)
+    assert int(out_p["steps"]) < MAX_STEPS or int4
 
     # host glue as bench.py: dense per-word taste, asr tokens 2 per word
     q = jcfg.audio_tower.quantizer
@@ -133,15 +148,30 @@ def test_completion_and_synthesis_match_jax(monkeypatch, layout):
     assert np.isfinite(wav_p).all() and np.abs(wav_p).max() > 1e-4
     assert np.max(np.abs(wav_p - wav_j)) <= 1e-3
 
-    if layout == "int8":
-        # the fused MLPs and the int4 head ran (no width gate: tiny sizes
-        # take the same branches as full width)
-        llama, s3 = jcfg.spoken_lm.llama, jcfg.speech_decoder.llm
+    # the fused MLPs and the int4 products ran (no width gate: tiny sizes
+    # take the same branches as full width)
+    llama, s3 = jcfg.spoken_lm.llama, jcfg.speech_decoder.llm
+    steps, s3_steps = int(out_p["steps"]), int(syn_p["speech_token_lengths"].max())
+    if layout == "float":
+        assert not calls
+    elif layout == "int8":
         assert calls.get("gated_mlp_int8_plain", 0) >= llama.num_hidden_layers * 2
         assert calls.get("ffn_int8_plain", 0) >= s3.num_blocks * 2
-        assert calls.get("matmul_int4_plain", 0) == int(out_p["steps"])
+        assert calls.get("matmul_int4_plain", 0) == steps
     else:
-        assert not calls
+        fused = layout == "int4_fused"
+        mlp = (calls.get("gated_mlp_int4_plain", 0),
+               calls.get("ffn_int4_plain", 0))
+        assert mlp >= (llama.num_hidden_layers * 2, s3.num_blocks * 2) \
+            if fused else mlp == (0, 0)
+        assert not calls.get("gated_mlp_int8_plain") \
+            and not calls.get("ffn_int8_plain")
+        # qkv, o (+ gateup, down) per Llama layer and step, the tied head,
+        # qkv, out (+ w_1, w_2) per S3 layer and step, the S3 head
+        per_layer = 2 if fused else 4
+        assert calls.get("matmul_int4_plain", 0) >= (
+            per_layer * llama.num_hidden_layers * steps + steps
+            + per_layer * s3.num_blocks * s3_steps + s3_steps)
 
 
 # ---------------------------------------------------------------------------
@@ -162,10 +192,12 @@ def _assert_same_state(got, ref):
         np.testing.assert_array_equal(g, r, err_msg=k)
 
 
-@pytest.mark.parametrize("fuse_qkv,fused_mlp,head", [(True, True, "int4"),
-                                                     (True, False, "int8"),
-                                                     (False, False, "int4")])
-def test_quantizer_is_byte_identical_to_jax(fuse_qkv, fused_mlp, head):
+@pytest.mark.parametrize("mode,fuse_qkv,fused_mlp,head", [
+    ("int8", True, True, "int4"), ("int8", True, False, "int8"),
+    ("int8", False, False, "int4"), ("int4", True, True, "int4"),
+    ("int4", True, False, "int8"), ("int4", False, True, "int4"),
+    ("int4", False, False, "int4")])
+def test_quantizer_is_byte_identical_to_jax(mode, fuse_qkv, fused_mlp, head):
     from taste_spokenlm_tpu.utils import quant as jq
     jcfg, tree = _lm_tree()
     lora = jcfg.spoken_lm.lora
@@ -179,22 +211,22 @@ def test_quantizer_is_byte_identical_to_jax(fuse_qkv, fused_mlp, head):
         np.testing.assert_allclose(merged_p[k].numpy(), ref[k], rtol=1e-6,
                                    atol=1e-7, err_msg=k)
     # from the same float weights, the same bytes and scales
-    q_j = jq.quantize_llama_params(merged_j, include_embed=True,
+    q_j = jq.quantize_llama_params(merged_j, include_embed=True, mode=mode,
                                    embed_head_mode=head, fuse_qkv=fuse_qkv,
                                    fused_mlp=fused_mlp)
     q_p = quant.quantize_llama_params(
-        convert.to_torch(ref), include_embed=True,
+        convert.to_torch(ref), include_embed=True, mode=mode,
         embed_head_mode="int4head" if head == "int4" else head,
         fuse_qkv=fuse_qkv, fused_mlp=fused_mlp)
     _assert_same_state({k: v.numpy() for k, v in q_p.items()},
                        convert.llama_state(jax.tree.map(np.asarray, q_j), ""))
 
     llm = _float_variables()["params"]["speech_decoder"]["llm"]
-    enc_j = jq.quantize_encoder_params(llm, fuse_qkv=fuse_qkv,
+    enc_j = jq.quantize_encoder_params(llm, mode=mode, fuse_qkv=fuse_qkv,
                                        fused_mlp=fused_mlp)
     enc_p = quant.quantize_encoder_params(
-        convert.to_torch(convert.conformer_state(llm, "")), fuse_qkv=fuse_qkv,
-        fused_mlp=fused_mlp)
+        convert.to_torch(convert.conformer_state(llm, "")), mode=mode,
+        fuse_qkv=fuse_qkv, fused_mlp=fused_mlp)
     _assert_same_state({k: v.numpy() for k, v in enc_p.items()},
                        convert.conformer_state(jax.tree.map(np.asarray, enc_j),
                                                ""))
@@ -210,14 +242,17 @@ def _llama_pair(layout: str):
     if layout == "merged":                # LoRA merged, float weights
         tree, lora = jq.merge_lora_params(tree, lora.alpha, lora.r), None
     elif layout != "float":
+        # int8: unfused, int8 head; int4: fused qkv and gateup_proj;
+        # *-fused: fused qkv and fused MLPs; both int4 layouts the int4 head
         tree = jq.merge_lora_params(tree, lora.alpha, lora.r)
-        fused = layout == "int8-fused"
-        flags = dict(quantized_serving="int8", fused_qkv_serving=fused,
+        mode, fused = layout[:4], layout.endswith("-fused")
+        qkv, head4 = fused or mode == "int4", fused or mode == "int4"
+        flags = dict(quantized_serving=mode, fused_qkv_serving=qkv,
                      fused_mlp_serving=fused,
-                     quantized_embed_serving="int4head" if fused else True)
-        tree = jq.quantize_llama_params(tree, include_embed=True,
-                                        embed_head_mode="int4" if fused else "int8",
-                                        fuse_qkv=fused, fused_mlp=fused)
+                     quantized_embed_serving="int4head" if head4 else True)
+        tree = jq.quantize_llama_params(tree, include_embed=True, mode=mode,
+                                        embed_head_mode="int4" if head4 else "int8",
+                                        fuse_qkv=qkv, fused_mlp=fused)
         lcfg, pcfg, lora = lcfg.replace(**flags), pcfg.replace(**flags), None
     tree = jax.tree.map(np.asarray, tree)
     port = LlamaModel(pcfg, None if lora is None else
@@ -227,7 +262,8 @@ def _llama_pair(layout: str):
     return JaxLlama(lcfg, lora), jax.tree.map(jnp.asarray, tree), port.eval()
 
 
-@pytest.mark.parametrize("layout", ["float", "merged", "int8", "int8-fused"])
+@pytest.mark.parametrize("layout", ["float", "merged", "int8", "int8-fused",
+                                    "int4", "int4-fused"])
 def test_llama_prefill_and_cached_decode_match_jax(monkeypatch, layout):
     """Full-sequence forward with ragged lengths, then a cache prefill and
     two single-token steps at per-row rope offsets, and the tied head."""
@@ -270,16 +306,57 @@ def test_llama_prefill_and_cached_decode_match_jax(monkeypatch, layout):
                        key_valid=kv)
             steps_p.append(out["last_hidden"])
         logits_p = port.logits(steps_p[-1])
-    tol = 1e-4 if layout != "int8-fused" else 1e-3
+    # past a kernel's bf16 cast of x: 1e-3
+    tol = 1e-4 if layout in ("float", "merged", "int8") else 1e-3
     for row, n in enumerate(lens):      # padded query rows are junk
         assert rel_err(full_p[row, :n].numpy(), full_j[row, :n]) <= tol
         assert rel_err(steps_p[0][row, :n].numpy(), steps_j[0][row, :n]) <= tol
     for got, ref in zip(steps_p[1:], steps_j[1:]):
         assert rel_err(got.numpy(), ref) <= tol
     assert rel_err(logits_p.numpy(), logits_j) <= tol
+    # 4 passes over 2 layers; the int4 layouts' qkv, o (+ gateup, down)
+    # per layer and pass, and the int4 head once
     if layout == "int8-fused":
         assert calls["gated_mlp_int8_plain"] == 4 * 2
         assert calls["matmul_int4_plain"] == 1
+    elif layout == "int4-fused":
+        assert calls["gated_mlp_int4_plain"] == 4 * 2
+        assert calls["matmul_int4_plain"] == 2 * 4 * 2 + 1
+    elif layout == "int4":
+        assert calls["matmul_int4_plain"] == 4 * 4 * 2 + 1
+        assert "gated_mlp_int4_plain" not in calls
+
+
+@pytest.mark.parametrize("layout", ["int4", "int4-fused"])
+def test_llama_int4_prefill_over_256_rows_matches_jax(monkeypatch, layout):
+    """A 2 x 130-row prefill takes the dequantizing branches (no kernel), the
+    next cached step the kernels, on both sides."""
+    jlm, params, port = _llama_pair(layout)
+    calls = _spy(monkeypatch)
+    r = np.random.RandomState(23)
+    ids = r.randint(0, 512, (2, 130)).astype(np.int32)
+    nxt = r.randint(0, 512, (2, 1)).astype(np.int32)
+
+    def run_jax(m, ids, nxt):
+        out = m(input_ids=ids, caches=m.init_cache(2, 131),
+                cache_index=jnp.int32(0))
+        step = m(input_ids=nxt, caches=out["caches"],
+                 cache_index=jnp.int32(130), position_offset=130)
+        return out["last_hidden"], step["last_hidden"]
+    pre_j, step_j = jax.jit(lambda p, *a: jlm.apply(
+        {"params": p}, *a, method=run_jax))(params, ids, nxt)
+    with torch.no_grad():
+        out = port(input_ids=t(ids).long(), caches=port.init_cache(2, 131),
+                   cache_index=0)
+        pre_p = out["last_hidden"]
+        assert not calls                    # 260 rows: no kernel
+        step_p = port(input_ids=t(nxt).long(), caches=out["caches"],
+                      cache_index=130, position_offset=130)["last_hidden"]
+    assert rel_err(pre_p.numpy(), pre_j) <= 1e-4
+    assert rel_err(step_p.numpy(), step_j) <= 1e-3
+    assert calls["matmul_int4_plain"] == (2 if layout == "int4-fused" else 4) * 2
+    assert calls.get("gated_mlp_int4_plain", 0) == \
+        (2 if layout == "int4-fused" else 0)
 
 
 def test_bridges_match_jax():
@@ -332,12 +409,16 @@ def test_bridges_match_jax():
             assert rel_err(got.numpy(), ref) <= 1e-4
 
 
-@pytest.mark.parametrize("t_len", [7, 130])
-def test_quantized_conformer_matches_jax(monkeypatch, t_len):
-    """The int8 fused-qkv / fused-FFN S3 llm stack: a full forward (14 rows
-    take the fused FFN, 260 the unfused math on the same weights) and
-    cached decode steps."""
-    jcfg, model, variables, port = _pair("int8")
+@pytest.mark.parametrize("layout,t_len", [("int8", 7), ("int8", 130),
+                                          ("int4_fused", 7),
+                                          ("int4_fused", 130), ("int4", 7),
+                                          ("int4", 130)])
+def test_quantized_conformer_matches_jax(monkeypatch, layout, t_len):
+    """The quantized fused-qkv S3 llm stack, its FFN fused (int8,
+    int4_fused) or not (int4): a full forward (14 rows take the fused FFN
+    and the int4 kernel, 260 the unfused, dequantizing math on the same
+    weights) and cached decode steps."""
+    jcfg, model, variables, port = _pair(layout)
     calls = _spy(monkeypatch)
     sd = jcfg.speech_decoder
     r = np.random.RandomState(22)
@@ -350,8 +431,14 @@ def test_quantized_conformer_matches_jax(monkeypatch, t_len):
     with torch.no_grad():
         got = llm(t(x), t(lens).long())
     assert rel_err(got.numpy(), ref) <= 1e-3
-    assert calls.get("ffn_int8_plain", 0) == (sd.llm.num_blocks
-                                              if 2 * t_len <= 256 else 0)
+    small = 2 * t_len <= 256
+    ffn = {"int8": "ffn_int8_plain", "int4_fused": "ffn_int4_plain"}
+    assert calls.get(ffn.get(layout), 0) == (sd.llm.num_blocks if small
+                                             and layout in ffn else 0)
+    # the int4 projections: qkv, out, pos (+ w_1, w_2) per layer
+    per_layer = {"int8": 0, "int4_fused": 3, "int4": 5}[layout]
+    assert calls.get("matmul_int4_plain", 0) == (
+        per_layer * sd.llm.num_blocks if small else 0)
     if t_len > 7:
         return
 
@@ -375,18 +462,35 @@ def test_quantized_conformer_matches_jax(monkeypatch, t_len):
 
 def test_unported_layouts_name_their_roadmap_item():
     from taste_spokenlm_tpu_torch.models import bridges
-    llama = TasteConfig.tiny().spoken_lm.llama
-    with pytest.raises(NotImplementedError, match="queue B"):
-        LlamaModel(llama.replace(quantized_serving="int4"))
-    with pytest.raises(NotImplementedError, match="queue B"):
-        quant.quantize_kernel(torch.zeros(4, 4), "int4")
-    with pytest.raises(NotImplementedError, match="queue B"):
-        convert.llama_state({"layers_0": {"mlp": {"up_proj": {
-            "base_q4": np.zeros((2, 4), np.uint8)}}}}, "")
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         bridges.make_extract("multi_linear_last", 8, 4, 4, 2)
     with pytest.raises(NotImplementedError, match="queue A item 8"):
         bridges.make_fusion("reference_mix", 8, 4)
+
+
+@pytest.mark.parametrize("layout", ["int4_fused", "int4"])
+def test_jax_int4_tree_loads_and_keeps_its_types(layout):
+    """The JAX-quantized int4 tree loaded through convert.py (strict=True):
+    packed uint8 weights and 2-D float32 group scales, both kept through
+    a cast of the model to bfloat16."""
+    port = copy.deepcopy(_pair(layout)[3]).to(torch.bfloat16)
+    sd = port.state_dict()
+    fused = layout == "int4_fused"
+    pre = "spoken_lm.language_model.layers.0."
+    down = sd[pre + "mlp.down_proj.base_q4"]
+    llama = TasteConfig.tiny().spoken_lm.llama
+    assert down.dtype == torch.uint8
+    assert down.shape == (llama.intermediate_size // 2, llama.hidden_size)
+    assert (pre + "mlp.gateup_proj.base_q4" in sd) != fused
+    packed = [k for k in sd if k.endswith(("base_q4", "kernel_q4"))]
+    assert packed and all(sd[k].dtype == torch.uint8 for k in packed)
+    for k in packed:
+        scale = sd[k.rsplit(".", 1)[0] + (".scale" if k.endswith("kernel_q4")
+                                          else ".base_scale")]
+        assert scale.dtype == torch.float32 and scale.dim() == 2
+        assert scale.shape[1] == sd[k].shape[1]
+    head = sd["speech_decoder.llm_decoder.kernel_q4"]
+    assert head.shape[1] == TasteConfig.tiny().speech_decoder.speech_token_size + 1
 
 
 @pytest.mark.parametrize("delay,level", [(1, "word"), (2, "token"), (0, "word")])

@@ -166,7 +166,9 @@ def test_ffn_int8_matches_plain(dev, m):
 
 
 @pytest.mark.parametrize("m,d,n", [(1, 2048, 128256), (40, 2048, 4097),
-                                   (256, 1024, 4097), (3, 512, 1000)])
+                                   (256, 1024, 4097), (3, 512, 1000),
+                                   (1, 1024, 1024), (131, 1024, 3072),
+                                   (42, 2048, 3072), (200, 8192, 2048)])
 def test_matmul_int4_matches_plain(dev, m, d, n):
     g = torch.Generator().manual_seed(6)
     wp, scale = int4_matmul.quantize_int4(
@@ -196,3 +198,59 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
     wp = torch.zeros(32, 96, dtype=torch.uint8, device=dev)
     with pytest.raises(TypeError):         # float16 scales
         int4_matmul.matmul_int4(x, wp, torch.ones(2, 96, device=dev).half())
+    w1 = torch.zeros(32, 48, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):        # tile 48 is not a multiple of 32
+        fused_mlp.ffn_int4(x, w1, torch.ones(2, 48, device=dev),
+                           torch.zeros(48, device=dev),
+                           torch.zeros(24, 64, dtype=torch.uint8, device=dev),
+                           torch.ones(2, 64, device=dev),
+                           torch.zeros(64, device=dev))
+
+
+def _q4(g, n_in, n_out, dev, tile=None):
+    """Fan-in scaled random weights through the port's int4 packing (per
+    tile of `tile` rows when given)."""
+    w = torch.randn(n_in, n_out, generator=g) * n_in ** -0.5
+    q = (fused_mlp.quantize_int4_tiled(w, tile) if tile
+         else int4_matmul.quantize_int4(w))
+    return q[0].to(dev), q[1].to(dev)
+
+
+@pytest.mark.parametrize("m,h,i", [(1, 2048, 8192), (42, 2048, 8192),
+                                   (256, 2048, 8192), (3, 256, 1024),
+                                   (5, 64, 128)])
+def test_gated_mlp_int4_matches_plain(dev, m, h, i):
+    g = torch.Generator().manual_seed(7)
+    tile = fused_mlp.mlp_tile(i)
+    (wg, sg), (wu, su) = _q4(g, h, i, dev), _q4(g, h, i, dev)
+    wd, sd = _q4(g, i, h, dev, tile)
+    x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+    args = (x, wg, sg, wu, su, wd, sd)
+    out = fused_mlp.gated_mlp_int4(*args)
+    ref = fused_mlp.gated_mlp_int4_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 2e-2
+    assert torch.equal(out, fused_mlp.gated_mlp_int4(*args))   # no atomics
+    # each half of the per-tile packing reaches the output
+    swapped = ((wd >> 4) | (wd << 4)).contiguous()
+    moved = fused_mlp.gated_mlp_int4(x, wg, sg, wu, su, swapped, sd)
+    assert _rel(moved, ref) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("m,d,i,act", [(1, 1024, 2048, "swish"),
+                                       (131, 1024, 2048, "swish"),
+                                       (7, 256, 1024, "relu"),
+                                       (2, 32, 64, "swish")])
+def test_ffn_int4_matches_plain(dev, m, d, i, act):
+    g = torch.Generator().manual_seed(8)
+    tile = fused_mlp.mlp_tile(i)
+    w1, s1 = _q4(g, d, i, dev)
+    w2, s2 = _q4(g, i, d, dev, tile)
+    b1 = (0.1 * torch.randn(i, generator=g)).to(dev)
+    b2 = (0.1 * torch.randn(d, generator=g)).to(dev)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    args = (x, w1, s1, b1, w2, s2, b2, act)
+    out = fused_mlp.ffn_int4(*args)
+    ref = fused_mlp.ffn_int4_plain(*args)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 2e-2

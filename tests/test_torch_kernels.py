@@ -149,9 +149,17 @@ def test_cpu_tensors_launch_no_kernel():
     int4_matmul.matmul_int4(torch.randn(1, 64),
                             torch.zeros(32, 8, dtype=torch.uint8),
                             torch.ones(2, 8))
+    packed = torch.zeros(32, 64, dtype=torch.uint8)
+    fused_mlp.gated_mlp_int4(torch.randn(1, 64), packed, torch.ones(2, 64),
+                             packed, torch.ones(2, 64), packed,
+                             torch.ones(2, 64))
+    fused_mlp.ffn_int4(torch.randn(3, 64), packed, torch.ones(2, 64),
+                       torch.zeros(64), packed, torch.ones(2, 64),
+                       torch.zeros(64))
     assert launch_counts() == {"flash_attention": 0, "fused_dit_block": 0,
                                "conv1d_same": 0, "gated_mlp_int8": 0,
-                               "ffn_int8": 0, "matmul_int4": 0}
+                               "ffn_int8": 0, "gated_mlp_int4": 0,
+                               "ffn_int4": 0, "matmul_int4": 0}
 
 
 def _q8(r, n_in, n_out):
@@ -245,3 +253,92 @@ def test_int4_apply_dispatch_matches_jax(rows):
     got = int4_apply(torch.from_numpy(x), torch.from_numpy(np.array(wp)),
                      torch.from_numpy(np.array(scale)), torch.float32)
     assert _rel(got.numpy(), ref) <= 1e-3
+
+
+def _q4(r, n_in, n_out, tile=None):
+    """Fan-in scaled weights through the JAX package's int4 packing (per
+    tile of `tile` rows when given)."""
+    w = jnp.asarray(r.randn(n_in, n_out).astype(np.float32) / np.sqrt(n_in))
+    q = (jax_fused_mlp.quantize_int4_tiled(w, tile) if tile
+         else jax_int4.quantize_int4(w))
+    return np.array(q[0]), np.array(q[1])
+
+
+# (M, H, I, tile): one tile, and 4 / 8 tiles, where a wrong tile mapping of
+# the second projection shows
+@pytest.mark.parametrize("m,h,i,block", [(1, 256, 1024, 256), (3, 128, 512, 512),
+                                         (17, 64, 1024, 128)])
+def test_gated_mlp_int4_plain_matches_pallas(m, h, i, block):
+    r = np.random.RandomState(15)
+    (wg, sg), (wu, su), (wd, sd) = _q4(r, h, i), _q4(r, h, i), _q4(r, i, h, block)
+    x = r.randn(m, h).astype(np.float32)
+    args = (x, wg, sg, wu, su, wd, sd)
+    ref = jax_fused_mlp.gated_mlp_int4(*map(jnp.asarray, args), block_i=block,
+                                       interpret=True)
+    got = fused_mlp.gated_mlp_int4(*map(torch.from_numpy, args), tile=block)
+    assert _rel(got.numpy(), ref) <= 1e-3
+
+
+@pytest.mark.parametrize("m,d,i,block,act", [(1, 128, 1024, 256, "swish"),
+                                             (3, 64, 512, 512, "relu"),
+                                             (17, 32, 256, 64, "swish"),
+                                             (3, 64, 512, 128, "relu")])
+def test_ffn_int4_plain_matches_pallas(m, d, i, block, act):
+    r = np.random.RandomState(16)
+    (w1, s1), (w2, s2) = _q4(r, d, i), _q4(r, i, d, block)
+    b1 = (0.1 * r.randn(i)).astype(np.float32)
+    b2 = (0.1 * r.randn(d)).astype(np.float32)
+    x = r.randn(2, m, d).astype(np.float32)           # leading batch dims
+    args = (x, w1, s1, b1, w2, s2, b2)
+    ref = jax_fused_mlp.ffn_int4(*map(jnp.asarray, args), activation=act,
+                                 block_i=block, interpret=True)
+    got = fused_mlp.ffn_int4(*map(torch.from_numpy, args), activation=act,
+                             tile=block)
+    assert got.shape == (2, m, d)
+    assert _rel(got.numpy(), ref) <= 1e-3
+
+
+@pytest.mark.parametrize("i,h,tile,group", [(1024, 128, 256, None),
+                                            (8192, 16, 512, None),
+                                            (192, 40, 64, 16), (96, 8, 96, None)])
+def test_int4_tiled_packing_is_byte_identical_to_jax(i, h, tile, group):
+    r = np.random.RandomState(17)
+    w = r.randn(i, h).astype(np.float32)
+    jp, js = jax_fused_mlp.quantize_int4_tiled(jnp.asarray(w), tile, group)
+    pp, ps = fused_mlp.quantize_int4_tiled(torch.from_numpy(w), tile, group)
+    np.testing.assert_array_equal(pp.numpy(), np.asarray(jp))
+    np.testing.assert_array_equal(ps.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        fused_mlp.dequantize_int4_tiled(pp, ps, tile).numpy(),
+        np.asarray(jax_fused_mlp.dequantize_int4_tiled(jp, js, tile)))
+
+
+@pytest.mark.parametrize("fn", ["gated", "ffn"])
+def test_fused_int4_dispatch_over_256_rows_matches_jax(fn):
+    """Past 256 rows both sides take the unfused math on the same weights:
+    the int4 first projection dequantized, the per-tile second projection
+    dequantized tile by tile."""
+    from taste_spokenlm_tpu.ops import quantized as jq
+    from taste_spokenlm_tpu_torch.ops import quantized as pq
+    r = np.random.RandomState(18)
+    h, i = 64, 1024                       # two tiles of 512
+    x = r.randn(300, h).astype(np.float32)
+    first = [_q4(r, h, i) for _ in range(2)]
+    wd, sd = _q4(r, i, h, 512)
+    b1 = (0.1 * r.randn(i)).astype(np.float32)
+    b2 = (0.1 * r.randn(h)).astype(np.float32)
+    j, p = (lambda *a: tuple(map(jnp.asarray, a)),
+            lambda *a: tuple(map(torch.from_numpy, a)))
+    if fn == "gated":
+        ref = jq.fused_gated_mlp_apply(jnp.asarray(x), j(*first[0]),
+                                       j(*first[1]), j(wd, sd), "int4",
+                                       jnp.float32)
+        got = pq.fused_gated_mlp_apply(torch.from_numpy(x), p(*first[0]),
+                                       p(*first[1]), p(wd, sd), "int4",
+                                       torch.float32)
+    else:
+        ref = jq.fused_ffn_apply(jnp.asarray(x), j(*first[0], b1),
+                                 j(wd, sd, b2), "int4", jnp.float32)
+        got = pq.fused_ffn_apply(torch.from_numpy(x), p(*first[0], b1),
+                                 p(wd, sd, b2), "int4", torch.float32)
+    assert _rel(got.numpy(), ref) <= 1e-4

@@ -136,22 +136,23 @@ def rel_err(got, ref) -> float:
 
 
 # ---------------------------------------------------------------------------
-# the completion slice: the spoken LM in the float and the int8 layouts
+# the completion slice: the spoken LM in the float and the serving layouts
 # ---------------------------------------------------------------------------
 
 
-def serving_config(cfg):
-    """The int8 fused serving layout of a TasteConfig (either package's):
-    merged LoRA, int8 Llama with the int4 tied head, fused qkv and fused
-    MLPs, and the S3 llm stack likewise."""
+def serving_config(cfg, mode: str = "int8", fused_mlp: bool = True):
+    """A serving layout of a TasteConfig (either package's), as bench.py
+    builds it: merged LoRA, the Llama in `mode` ("int8" / "int4") with the
+    int4 tied head and fused qkv, the S3 llm stack likewise; `fused_mlp`
+    the fused MLPs (BENCH_FUSED_MLP=1), else gate / up as one gateup_proj."""
     sd, lm = cfg.speech_decoder, cfg.spoken_lm
     return cfg.replace(
         spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
-            quantized_serving="int8", quantized_embed_serving="int4head",
-            fused_qkv_serving=True, fused_mlp_serving=True)),
+            quantized_serving=mode, quantized_embed_serving="int4head",
+            fused_qkv_serving=True, fused_mlp_serving=fused_mlp)),
         speech_decoder=sd.replace(llm=sd.llm.replace(
-            quantized_serving="int8", fused_qkv_serving=True,
-            fused_mlp_serving=True)))
+            quantized_serving=mode, fused_qkv_serving=True,
+            fused_mlp_serving=fused_mlp)))
 
 
 def lm_inputs(cfg, seed: int = 1):
@@ -197,9 +198,10 @@ def _fill_spoken_lm(path, leaf, r):
     return r.randn(*shape).astype(np.float32)
 
 
-def quantize_variables_jax(cfg, variables):
-    """The int8 fused serving tree by the JAX package's own quantizer, from
-    the float variables (numpy leaves)."""
+def quantize_variables_jax(cfg, variables, mode: str = "int8",
+                           fused_mlp: bool = True):
+    """The serving tree of serving_config(cfg, mode, fused_mlp) by the JAX
+    package's own quantizer, from the float variables (numpy leaves)."""
     from taste_spokenlm_tpu.utils.quant import (_quantize_dense_leaf,
                                                 merge_lora_params,
                                                 quantize_encoder_params,
@@ -209,13 +211,13 @@ def quantize_variables_jax(cfg, variables):
     slm = dict(params["spoken_lm"])
     lm = merge_lora_params(slm["language_model"], lora.alpha, lora.r)
     slm["language_model"] = jax.tree.map(np.asarray, quantize_llama_params(
-        lm, include_embed=True, embed_head_mode="int4", fuse_qkv=True,
-        fused_mlp=True))
+        lm, include_embed=True, mode=mode, embed_head_mode="int4",
+        fuse_qkv=True, fused_mlp=fused_mlp))
     sdec = dict(params["speech_decoder"])
     sdec["llm"] = jax.tree.map(np.asarray, quantize_encoder_params(
-        sdec["llm"], fuse_qkv=True, fused_mlp=True))
+        sdec["llm"], mode=mode, fuse_qkv=True, fused_mlp=fused_mlp))
     sdec["llm_decoder"] = jax.tree.map(
-        np.asarray, _quantize_dense_leaf(sdec["llm_decoder"]))
+        np.asarray, _quantize_dense_leaf(sdec["llm_decoder"], mode))
     params.update(spoken_lm=slm, speech_decoder=sdec)
     return dict(variables, params=params)
 
