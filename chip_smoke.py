@@ -1,11 +1,12 @@
-"""Drive the PyTorch/CUDA port on one GPU: reconstruction, and completion in
-the int8 and the int4 serving tiers.
+"""Drive the PyTorch/CUDA port on one GPU: reconstruction, completion in the
+int8 and the int4 serving tiers, and the stage-1 training step.
 
     python3 chip_smoke.py
 
 Needs one CUDA device and the CUDA toolkit (nvcc).  Two models in the
 bench's serving layouts (`bench.py:755-811` with BENCH_FUSED_MLP=1; the
-second with BENCH_QUANT=4) drive the paths: TasteConfig.full() with the f32
+second with BENCH_QUANT=4) drive the serving paths, a third in bf16 the
+training step (step 7): TasteConfig.full() with the f32
 tower, everything else bf16, LoRA merged, the Llama int8 (int4) with the
 int4 tied head, fused qkv and fused MLPs, the S3 llm stack and its head
 int8 (int4) with fused qkv and fused FFN, fused DiT blocks and kernel
@@ -18,9 +19,13 @@ quantizer (quant.py).  In order it:
    nvcc per source, all started together) and prints the seconds each took;
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
-   runs the same completion on it (step 6).  Each counted run has every
-   launch count set to 0 just before it and read just after, and prints
-   its peak device memory;
+   runs the same completion on it (step 6); frees that, builds the bf16
+   training model and runs the stage-1 step (step 7).  Each counted run
+   has every launch count set to 0 just before it and read just after, and
+   prints its peak device memory.  The serving paths' conformers run at
+   40 and 128 asr tokens and their S3 decode through the KV cache, below
+   or off the rel-pos kernel (T >= 256, no cache), so they must launch it
+   0 times;
 4. reconstruction: B=1, 40 asr tokens and the whisper log-mel of a seeded
    wav; it checks that it went through every kernel the expected number of
    times, that the S3 decode ran at least 64 steps, that the waveform is
@@ -50,7 +55,24 @@ quantizer (quant.py).  In order it:
    qkv / out, the S3 head) runs matmul_int4; it must launch the int8 MLPs
    0 times.  It prints its greedy text agreement with the int8 tier (not a
    gate: JAX's floor for the int4 tier is against f32);
-7. holds each kernel against its plain PyTorch version at the shapes the
+7. the stage-1 training step as bench.py:186-300 runs it: TasteConfig.full()
+   in bf16 (segmenter and RVQ f32) from the same seed-0 float weights,
+   per-layer remat, the rvq phase (whisper encoder frozen), Adam lr 1e-4
+   clipped at a global norm of 5, B = 8 rows of 30 s (3000 mel frames, 96
+   asr tokens at 2 per word, 1500 S3 tokens); one warm-up step and three
+   counted ones on other random batches.  Checks: finite loss, commit loss
+   and grad norm on every step; per step exactly 14 rel-pos forwards (7 S3
+   layers, each recomputed by remat), 7 rel-pos backwards and 32 flash
+   launches (the frozen encoder under no_grad), every other kernel 0; the
+   frozen encoder bit-identical after the steps; every trainable group
+   (whisper decoder, RVQ projections, the three S3 stacks, the head) and
+   the codebook EMA buffers moved; taste indices in range; one step's
+   gradients from the same state and batch with kernels and with plain
+   versions (all 8 rows): loss within 1e-3 relative, grad norm and the S3
+   stack's layer-0 linear_pos / linear_q / linear_k gradients within 2e-2
+   of max|plain|.  It prints the step wall (the min of the three),
+   frames/s and peak memory;
+8. holds each kernel against its plain PyTorch version at the shapes the
    three counted runs gave it, and times kernel, plain version and a
    library call that computes the same function (CUDA events, median of 20
    after warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both
@@ -68,16 +90,22 @@ quantizer (quant.py).  In order it:
    (their bf16 activation can differ by one bf16 step where the f32 sums
    differ); and swapped nibble planes, a zeroed gate or first projection,
    and (int4) a second projection packed untiled must each move the output
-   by more than 5x the tolerance;
-8. prints a {"kernels": [...]} line, then, as the last line,
+   by more than 5x the tolerance.  The rel-pos attention at the training
+   shape (B=8, T=1599, H=8, dk=128), bf16 and f32, ragged lengths: o within
+   2e-2 of max|plain| (bf16) or 1e-4 abs (f32), the LSE within 1e-4, the
+   five gradients at the same tolerances of max|plain|, the backward
+   bit-identical twice; p zeroed, p shifted by one row, the lengths
+   ignored and dp from one batch row must each move it past 5x the
+   tolerance.  Times are at the path's lengths;
+9. prints a {"kernels": [...]} line, then, as the last line,
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
 
-adds torch.profiler traces of one reconstruction and, in each tier, one
-joint decode and one synthesis: the device's busy time, its idle share of
-the wall time, the kernels with the most device time, and whether the trace
-holds every launch that the kernels' counters saw.
+adds torch.profiler traces of one reconstruction, in each tier one joint
+decode and one synthesis, and one training step: the device's busy time,
+its idle share of the wall time, the kernels with the most device time, and
+whether the trace holds every launch that the kernels' counters saw.
 
 Any failed check ends the run with a non-zero exit code and no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -104,6 +132,7 @@ from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               flash_attention, fused_dit,
                                               fused_mlp, int4_matmul,
                                               launch_counts,
+                                              relpos_attention,
                                               reset_launch_counts)
 from taste_spokenlm_tpu_torch.models.llama import RMSNorm
 from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
@@ -112,6 +141,8 @@ from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
 from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
+from taste_spokenlm_tpu_torch.ops.remat import apply_remat
+from taste_spokenlm_tpu_torch.train import optim, train_step
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
 # cores, bf16 on the tensor cores
@@ -172,12 +203,13 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float):
 # ---------------------------------------------------------------------------
 
 
-def flash_shapes(cfg: TasteConfig, n_frames: int):
+def flash_shapes(cfg: TasteConfig, n_frames: int, b: int = B,
+                 dtype: str = "float32"):
     w = cfg.audio_tower.whisper
     t = (n_frames + 1) // 2
     if not flash_attention.can_use_flash(t, t):
         return {}
-    return {(B, t, w.encoder_heads, w.d_model // w.encoder_heads):
+    return {(b, t, w.encoder_heads, w.d_model // w.encoder_heads, dtype):
             w.encoder_layers}
 
 
@@ -242,21 +274,27 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    # flash attention, f32 (the tower's dtype)
+    # flash attention: f32 in the serving tower, bf16 in the training one
     shapes = []
-    for (b, t, h, d), n in launches["flash_attention"].items():
-        q, k, v = (randn(b, t, h, d, dtype=torch.float32) for _ in range(3))
+    for (b, t, h, d, dt), n in sorted(launches["flash_attention"].items()):
+        f32 = dt == "float32"
+        q, k, v = (randn(b, t, h, d, dtype=getattr(torch, dt))
+                   for _ in range(3))
         out = flash_attention.flash_attention(q, k, v)
         ref = flash_attention.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
-        check(err <= 1e-4, f"flash_attention max abs err {err} > 1e-4")
+        err = (out.float() - ref.float()).abs().max().item()
+        rel = err / ref.float().abs().max().item()
+        if f32:
+            check(err <= 1e-4, f"flash_attention max abs err {err} > 1e-4")
+        else:
+            check(rel <= 2e-2, f"flash_attention rel err {rel} > 2e-2 (bf16)")
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        bnd, by = bound_ms(4 * 4 * b * t * h * d, 4 * b * h * t * t * d,
-                           F32_FLOPS)
+        bnd, by = bound_ms((4 if f32 else 2) * 4 * b * t * h * d,
+                           4 * b * h * t * t * d,
+                           F32_FLOPS if f32 else BF16_FLOPS)
         shapes.append({
-            "shape": [b, t, h, d], "dtype": "float32", "launches": n,
+            "shape": [b, t, h, d], "dtype": dt, "launches": n,
             "max_abs_err": err, "rel_err": rel,
             "ms": time_ms(lambda: flash_attention.flash_attention(q, k, v)),
             "plain_ms": time_ms(
@@ -266,7 +304,8 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
             "bound_ms": bnd, "bound_by": by})
     rows.append(("flash_attention", "taste_spokenlm_tpu_torch/csrc/flash_attention.cu",
                  "taste_spokenlm_tpu/ops/pallas/flash_attention.py:120",
-                 "max abs err <= 1e-4 (f32)", shapes))
+                 "max abs err <= 1e-4 (f32); rel err <= 2e-2 of max|plain| "
+                 "(bf16)", shapes))
 
     # fused DiT block, bf16.  Fan-in scaled weights with q/k at gain 2, so
     # the softmax is peaked and the attention branch is as large as the MLP
@@ -370,6 +409,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
                  "taste_spokenlm_tpu/ops/pallas/conv1d.py:45",
                  "rel err <= 2e-2 (bf16)", shapes))
     rows.extend(quantized_kernel_rows(cfg, dev, gen, launches, randn))
+    rows.extend(relpos_kernel_rows(dev, gen, launches))
     return rows
 
 
@@ -529,6 +569,144 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     return out
 
 
+def relpos_kernel_rows(dev, gen, launches: dict):
+    """The rel-pos attention forward and backward against their plain
+    versions at the training path's shape (B, T, H, 128), bf16 (the path's
+    type) and f32, with ragged lengths: o within 1e-4 abs (f32) or 2e-2 of
+    max|plain| (bf16: the online softmax rounds each tile's probabilities
+    to bf16 against its own running max), the LSE within 1e-4, the five
+    gradients at the same tolerances relative to max|plain|, and the
+    backward twice bit-identical.  Reach, each past 5x the tolerance: p
+    zeroed, p shifted by one row (an off-by-one diagonal), the lengths
+    ignored (the ragged rows unmasked), and dp from one batch row only.
+    -> the forward's and the backward's rows."""
+    fwd_shapes, bwd_shapes = [], []
+    (b, t, h, dk, _), n_fwd = max(launches["relpos_causal_attention"].items())
+    n_bwd = sum(launches["relpos_causal_attention_bwd"].values())
+    lens_list = [t, 3 * t // 4, 7 * t // 16, t // 6, t - 1, 5 * t // 8,
+                 5 * t // 16, 3 * t // 16][:b]
+    lens = torch.tensor(lens_list, dtype=torch.int32, device=dev)
+    full = torch.full_like(lens, t)
+    # the checks take ragged lengths; the times are taken at the path's
+    # own (every row T long), so that launches x ms is the path's time
+    pairs = b * h * t * (t + 1) // 2
+    plain_fwd = relpos_attention.relpos_causal_attention_plain
+    plain_bwd = relpos_attention.relpos_causal_attention_bwd_plain
+
+    def rel(out, ref):
+        return ((out.float() - ref.float()).abs().max()
+                / ref.float().abs().max()).item()
+
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        tol = 1e-4 if f32 else 2e-2
+        # q_u, q_v, k and p at 1.5 give scores of std ~3: a peaked softmax,
+        # so that keys past a row's length, unmasked, move its output
+        xs = [(torch.randn((b, t, h, dk), generator=gen, device=dev) * g
+               ).to(dtype) for g in (1.5, 1.5, 1.5, 1.0)]
+        xs.append((torch.randn((2 * t - 1, h, dk), generator=gen, device=dev)
+                   * 1.5).to(dtype))
+        o, lse = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
+        o_ref, lse_ref = plain_fwd(*xs, lens)
+        torch.cuda.synchronize()
+        o_abs = (o.float() - o_ref.float()).abs().max().item()
+        o_err = o_abs if f32 else rel(o, o_ref)
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(o_err <= tol, f"relpos forward {dtype} err {o_err} > {tol}")
+        check(lse_err <= 1e-4, f"relpos LSE err {lse_err} > 1e-4")
+        scale = o_ref.float().abs().max().item() if f32 else 1.0
+
+        def moved(out):      # the forward check's measure, of a broken input
+            err = (out.float() - o_ref.float()).abs().max().item()
+            return err if f32 else err / o_ref.float().abs().max().item()
+        shifted = torch.cat([xs[4][1:], xs[4][:1]])
+        reach_fwd = {
+            "p zeroed": moved(plain_fwd(*xs[:4], torch.zeros_like(xs[4]),
+                                        lens)[0]),
+            "p shifted by one row": moved(plain_fwd(*xs[:4], shifted,
+                                                    lens)[0]),
+            "lengths ignored": moved(plain_fwd(*xs, full)[0])}
+        for what, r in reach_fwd.items():
+            check(r > 5 * tol, f"relpos forward check too blunt ({dtype}): "
+                               f"{what} moves it only {r}")
+        do = (torch.randn((b, t, h, dk), generator=gen, device=dev)
+              ).to(dtype)
+        grads = relpos_attention.relpos_causal_attention_bwd(
+            *xs, lens, o, lse, do)
+        refs = plain_bwd(*xs, lens, o, lse, do)
+        again = relpos_attention.relpos_causal_attention_bwd(
+            *xs, lens, o, lse, do)
+        torch.cuda.synchronize()
+        g_err = {name: rel(g, r) for name, g, r in
+                 zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, refs)}
+        for name, e in g_err.items():
+            check(e <= tol, f"relpos backward {name} ({dtype}) rel err {e} "
+                            f"> {tol}")
+        check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+              f"relpos backward ({dtype}) is not bit-identical twice")
+        check(bool((grads[4][t:] == 0).all()), "relpos dp rows >= T not 0")
+        one_row = plain_bwd(*(x[:1] for x in xs[:4]), xs[4], lens[:1],
+                            o[:1], lse[:h], do[:1])[4]
+        reach_bwd = {"dp from one batch row": rel(one_row, refs[4])}
+        check(reach_bwd["dp from one batch row"] > 5 * tol,
+              f"relpos backward check too blunt ({dtype}): dp from one "
+              f"batch row moves it only {reach_bwd}")
+        width = 2 if not f32 else 4
+        n_el, p_el = b * t * h * dk, (2 * t - 1) * h * dk
+        in_bytes = width * (4 * n_el + p_el) + 4 * b    # q_u q_v k v p len
+        peak = F32_FLOPS if f32 else BF16_FLOPS
+        n_f = n_fwd if not f32 else 0
+        n_b = n_bwd if not f32 else 0
+        common = {"shape": [b, t, h, dk], "lengths": lens_list,
+                  "dtype": str(dtype).split(".")[-1],
+                  "timed_at_lengths": t, "causal_pairs": pairs}
+        # forward: + o and the LSE written; 3 products of 2 dk flops a pair
+        bnd, by = bound_ms(in_bytes + width * n_el + 4 * b * h * t,
+                           6 * dk * pairs, peak)
+        fwd_shapes.append({
+            **common, "launches": n_f, "max_abs_err": o_abs,
+            "rel_err": o_err / scale, "lse_err": lse_err,
+            "broken_input": reach_fwd,
+            "ms": time_ms(lambda: relpos_attention.relpos_causal_attention_fwd(*xs, full)),
+            "plain_ms": time_ms(lambda: plain_fwd(*xs, full), reps=5),
+            "ragged_ms": time_ms(lambda: relpos_attention.relpos_causal_attention_fwd(*xs, lens)),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by})
+        o_full, lse_full = relpos_attention.relpos_causal_attention_fwd(*xs, full)
+        # backward: + o, dO and the LSE read, five gradients written; 8
+        # products a pair (the scores' two again, dO.v, dv, dk, dq_u, dq_v,
+        # dp)
+        bnd, by = bound_ms(in_bytes + 2 * width * n_el + 4 * b * h * t
+                           + width * (4 * n_el + p_el), 16 * dk * pairs, peak)
+        bwd_shapes.append({
+            **common, "launches": n_b,
+            "max_abs_err": max((g.float() - r.float()).abs().max().item()
+                               for g, r in zip(grads, refs)),
+            "rel_err": g_err, "repeat_identical": True,
+            "broken_input": reach_bwd,
+            "ms": time_ms(lambda: relpos_attention.relpos_causal_attention_bwd(
+                *xs, full, o_full, lse_full, do)),
+            "plain_ms": time_ms(lambda: plain_bwd(*xs, full, o_full, lse_full,
+                                                  do), reps=5),
+            "ragged_ms": time_ms(
+                lambda: relpos_attention.relpos_causal_attention_bwd(
+                    *xs, lens, o, lse, do)),
+            "library_ms": None, "bound_ms": bnd, "bound_by": by})
+        del xs, o, lse, o_ref, lse_ref, grads, refs, again, do, o_full, \
+            lse_full
+        torch.cuda.empty_cache()
+    tol = ("bf16: rel err <= 2e-2 of max|plain|; f32: max abs err <= 1e-4; "
+           "LSE <= 1e-4")
+    src = "taste_spokenlm_tpu_torch/csrc/relpos_attention.cu"
+    return [("relpos_causal_attention", src,
+             "taste_spokenlm_tpu/ops/pallas/relpos_attention.py:114",
+             tol, fwd_shapes),
+            ("relpos_causal_attention_bwd", src,
+             "taste_spokenlm_tpu/ops/pallas/relpos_attention.py:155",
+             "each gradient " + tol.replace("max abs err", "rel err")
+             .replace("; LSE <= 1e-4", "") + "; bit-identical twice",
+             bwd_shapes)]
+
+
 def increment_err(out, ref, x, lengths):
     """(max abs err, the same over the largest |ref - x|) of out against ref
     over each row's valid positions: the error of a residual block's
@@ -622,6 +800,7 @@ def reconstruct(model, x, gen):
         mel_len_max=MEL_LEN_MAX, generator=gen)
 
 
+@torch.no_grad()
 def stage_times(model, x, out, gen):
     """Seconds of each stage of one reconstruction, each ending in a
     synchronize."""
@@ -699,11 +878,18 @@ def device_profile(run, wall_s: float):
         n, us = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    # one kernel name per counted launch: flash attention is attn_kernel
+    # with the one-pass schedule (the fused DiT's is the two-pass one); a
+    # rel-pos backward is one dq_kernel among its four launches
     expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
                 "mlp4_pass1": counts["gated_mlp_int4"] + counts["ffn_int4"],
                 "int4_kernel": counts["matmul_int4"],
-                "attn_kernel<float": counts["flash_attention"]}
-    seen = {key: sum(1 for k in kernels if key in k.name) for key in expected}
+                "attn_kernel<, false>": counts["flash_attention"],
+                "fwd_kernel<": counts["relpos_causal_attention"],
+                "dq_kernel<": counts["relpos_causal_attention_bwd"]}
+    seen = {key: sum(1 for k in kernels
+                     if all(part in k.name for part in key.split(",")))
+            for key in expected}
     return {"busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall_s,
             "n_kernel_launches": len(kernels), "trace_complete": seen == expected,
             "traced_launches": seen, "counted_launches": expected,
@@ -1050,6 +1236,205 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
     return launches, counts, tok_k["llm_token_ids"][0], n
 
 
+# ---------------------------------------------------------------------------
+# the stage-1 training step
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_TOK, TRAIN_SPEECH, TRAIN_MEL = 8, 96, 1500, 3000
+TRAIN_GROUPS = {           # each trainable group and a prefix of its names
+    "whisper decoder": "audio_tower.audio_joint_encoder_segmenter."
+                       "audio_segmenter.decoder.",
+    "vq projections": "audio_tower.vq.rvq.project_",
+    "S3 text encoder": "speech_decoder.text_encoder.",
+    "S3 audio encoder": "speech_decoder.audio_token_encoder.",
+    "S3 llm stack": "speech_decoder.llm.",
+    "S3 head": "speech_decoder.llm_decoder."}
+ENCODER = "audio_tower.audio_joint_encoder_segmenter.audio_encoder."
+
+
+def stage1_batch(cfg: TasteConfig, dev, seed: int) -> dict:
+    """bench.py:222-238: B rows of 30 s, 96 asr tokens at 2 per word, 1500
+    S3 tokens, random from `seed`."""
+    r = np.random.RandomState(seed)
+    words = np.minimum(np.arange(TRAIN_TOK) // 2, TRAIN_TOK - 1)
+    vocab = cfg.audio_tower.whisper.vocab_size
+    n = lambda x: torch.from_numpy(np.asarray(x)).to(dev)  # noqa: E731
+    return {
+        "speaker_embeds": n(r.randn(TRAIN_B, cfg.speech_decoder.spk_embed_dim)
+                            .astype(np.float32)),
+        "asr_token_ids": n(r.randint(100, 20000, (TRAIN_B, TRAIN_TOK)) % vocab),
+        "asr_token_lengths": n([TRAIN_TOK] * TRAIN_B),
+        "asr_word_ids": n(words[None].repeat(TRAIN_B, 0)),
+        "audio_features": n((r.randn(TRAIN_B, cfg.audio_tower.whisper.n_mels,
+                                     TRAIN_MEL) * 0.3).astype(np.float32)),
+        "speech_token_ids": n(r.randint(0, cfg.speech_decoder.speech_token_size,
+                                        (TRAIN_B, TRAIN_SPEECH))),
+        "speech_token_lengths": n([TRAIN_SPEECH] * TRAIN_B)}
+
+
+def train_launches(cfg: TasteConfig, steps: int) -> dict:
+    """{kernel: {shape: launches}} of `steps` stage-1 steps, from the
+    config: the frozen whisper encoder's self-attention once a layer (under
+    no_grad, not recomputed); the S3 llm stack's rel-pos attention over
+    [sos | spk | T_tok | task | S3] twice a layer (the forward, and its
+    recompute under per-layer remat in the backward) and its backward once.
+    The text and audio encoders run at T = 96 < 256, off the kernel."""
+    s3 = cfg.speech_decoder.llm
+    t = 3 + TRAIN_TOK + TRAIN_SPEECH
+    dk = s3.output_size // s3.attention_heads
+    check(relpos_attention.can_use_relpos_flash(t, dk)
+          and not relpos_attention.can_use_relpos_flash(TRAIN_TOK, dk),
+          "the training shapes are not the relpos kernel's")
+    key = (TRAIN_B, t, s3.attention_heads, dk, "bfloat16")
+    flash = flash_shapes(cfg, TRAIN_MEL, TRAIN_B, "bfloat16")
+    return {"flash_attention": {k: v * steps for k, v in flash.items()},
+            "relpos_causal_attention": {key: 2 * s3.num_blocks * steps},
+            "relpos_causal_attention_bwd": {key: s3.num_blocks * steps}}
+
+
+def train_grads(model, batch, names, use_kernels: bool, seed: int = 7):
+    """One forward + backward of the stage-1 loss (the RVQ's draws from a
+    generator seeded `seed`) -> (loss, global grad norm, {name: grad})."""
+    dev = batch["speaker_embeds"].device
+    model.set_use_kernels(use_kernels)
+    for p in model.parameters():
+        p.grad = None
+    out = model.forward_speech_autoencoder(
+        *(batch[k] for k in train_step.BATCH_KEYS), train=True,
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    out["loss"].backward()
+    params = dict(model.named_parameters())
+    norm = optim.global_norm([p.grad for p in params.values()
+                              if p.grad is not None]).item()
+    grads = {n: params[n].grad.float().clone() for n in names}
+    model.set_use_kernels(True)
+    for p in model.parameters():
+        p.grad = None
+    return out["loss"].item(), norm, grads
+
+
+def train_path(dev, profile: bool):
+    """The stage-1 step at full width (bench.py:186-300): bf16, per-layer
+    remat, the rvq phase (whisper encoder frozen), Adam lr 1e-4 clipped at
+    5, B = 8 x 30 s.  One warm-up step, three counted ones with exact
+    launch counts, then the checks.  -> ({kernel: {shape: launches}}, the
+    counts over the three steps)."""
+    float_cfg, _ = configs()
+    cfg = apply_remat(float_cfg, True)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = TasteForCausalLM(cfg, dtype=torch.bfloat16, device=dev)
+    # the same float weights as the serving models: the first draws of a
+    # generator seeded 0, in the same order
+    model.load_state_dict(random_state_dict(
+        model, torch.Generator(device=dev).manual_seed(0)), strict=True)
+    mask = optim.trainable_mask(model, optim.STAGE1_PHASES["rvq"])
+    opt = optim.make_optimizer(model, 1e-4, mask=mask, grad_clip=5.0)
+    step = train_step.make_stage1_step(model, opt, trainable_mask=mask)
+    params = dict(model.named_parameters())
+    frozen_enc = {n: p.detach().clone() for n, p in params.items()
+                  if n.startswith(ENCODER)}
+    check(frozen_enc and not any(mask[n] for n in frozen_enc),
+          "the whisper encoder is not frozen in the rvq phase")
+    before = {n: p.detach().clone() for n, p in params.items() if mask[n]}
+    rvq = model.audio_tower.vq.rvq
+    ema_before = {k: v.clone() for k, v in rvq.state_dict().items()
+                  if k.endswith("embed")}
+    k_codes = cfg.audio_tower.quantizer.codebook_size
+    seen = []
+    hook = rvq.register_forward_hook(
+        lambda mod, args, out: seen.append(out["quantized_indices"]))
+    torch.cuda.synchronize()
+    log({"train_model_init_s": time.perf_counter() - t0,
+         "trainable_params": sum(p.numel() for n, p in params.items()
+                                 if mask[n]),
+         "params": sum(p.numel() for p in params.values())})
+
+    warm = stage1_batch(cfg, dev, 0)
+    metrics = step(warm)
+    float(metrics["loss"])
+    batches = [stage1_batch(cfg, dev, i + 1) for i in range(3)]
+    per_step = train_launches(cfg, 1)
+    torch.cuda.reset_peak_memory_stats()
+    walls, runs, all_counts = [], [], []
+    for bt in batches:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(bt)
+        loss = float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check_counts(counts, {k: sum(v.values()) for k, v in per_step.items()},
+                     "stage-1 step")
+        row = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in row.values()),
+              f"stage-1 step: non-finite metrics {row}")
+        runs.append(row)
+        all_counts.append(counts)
+        del loss
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    hook.remove()
+    for idx in seen:
+        check(bool(((idx >= -1) & (idx < k_codes)).all())
+              and bool((idx[..., 0] >= 0).all()),
+              "stage-1 step: taste indices out of range")
+    params = dict(model.named_parameters())
+    check(all(torch.equal(params[n], v) for n, v in frozen_enc.items()),
+          "stage-1 step: the frozen whisper encoder moved")
+    groups = {}
+    for group, prefix in TRAIN_GROUPS.items():
+        names = [n for n in before if n.startswith(prefix)]
+        groups[group] = sum(not torch.equal(params[n], before[n])
+                            for n in names)
+        check(names and groups[group] > 0,
+              f"stage-1 step: the trainable group {group!r} did not move")
+    ema_moved = {k: not torch.equal(rvq.state_dict()[k], v)
+                 for k, v in ema_before.items()}
+    check(all(ema_moved.values()),
+          f"stage-1 step: codebook EMA buffers did not move: {ema_moved}")
+    wall = min(walls)
+    counts = {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+    log({"stage1_train": {
+        "batch": f"{TRAIN_B}x30s", "step_walls_s": walls, "step_s": wall,
+        "frames_per_s": TRAIN_B * TRAIN_MEL / wall,
+        "audio_s_per_s": TRAIN_B * 30.0 / wall, "peak_mem_gb": peak_gb,
+        "metrics": runs, "moved_tensors": groups,
+        "launches_per_step": all_counts[0]}})
+    del before, frozen_enc
+
+    # the same state and batch, one step's gradients with the kernels and
+    # with the plain versions (the RVQ's EMA update restored in between)
+    s3 = "speech_decoder.llm.encoders.0.self_attn."
+    names = [s3 + w for w in ("linear_pos.weight", "linear_q.weight",
+                              "linear_k.weight")]
+    buffers = {k: v.clone() for k, v in rvq.state_dict().items()}
+    opt.zero_grad()
+    loss_k, norm_k, g_k = train_grads(model, batches[0], names, True)
+    rvq.load_state_dict(buffers)
+    loss_p, norm_p, g_p = train_grads(model, batches[0], names, False)
+    rvq.load_state_dict(buffers)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    norm_rel = abs(norm_k - norm_p) / norm_p
+    grad_rel = {n.split(".")[-2]: ((g_k[n] - g_p[n]).abs().max()
+                                   / g_p[n].abs().max()).item() for n in names}
+    log({"stage1_kernels_vs_plain": {
+        "rows": TRAIN_B, "loss": [loss_k, loss_p], "loss_rel_err": loss_rel,
+        "grad_norm": [norm_k, norm_p], "grad_norm_rel_err": norm_rel,
+        "llm_layer0_grad_rel_err": grad_rel}})
+    check(loss_rel <= 1e-3, f"stage-1 loss kernels vs plain {loss_rel} > 1e-3")
+    check(norm_rel <= 2e-2, f"stage-1 grad norm kernels vs plain {norm_rel} "
+                            "> 2e-2")
+    for n, e in grad_rel.items():
+        check(e <= 2e-2, f"stage-1 {n} gradient kernels vs plain {e} > 2e-2")
+    if profile:
+        log({"stage1_train_device_profile": device_profile(
+            lambda: step(batches[1]), wall)})
+    del model, opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return train_launches(cfg, len(batches)), counts
+
+
 def merge_launches(*paths: dict) -> dict:
     """{kernel: {shape: launches}} summed over paths."""
     out = {}
@@ -1194,6 +1579,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    # ---- the stage-1 training step ----
+    launches, counts = train_path(dev, opts.profile)
+    paths.append(launches)
+    all_counts.append(counts)
+
     launches = merge_launches(*paths)
     counts = {name: sum(c[name] for c in all_counts) for name in all_counts[0]}
     for name, shapes in launches.items():
@@ -1216,9 +1606,9 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "the three counted runs (reconstruction, int8 and int4 "
-                   "completion): per-launch times x launches; per-shape rows "
-                   "in 'shapes'",
+            "per": "the four counted runs (reconstruction, int8 and int4 "
+                   "completion, three stage-1 steps): per-launch times x "
+                   "launches; per-shape rows in 'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})
     log({"kernels": kernels})

@@ -3,19 +3,28 @@
 Each module holds a plain version (same signature, same numerics, JAX
 layout), a wrapper that runs the plain version for a CPU tensor and the
 CUDA kernel for a CUDA tensor (never a fallback between the two), and a
-launch counter on the wrapper (`wrapper.launches`).
+launch counter on the wrapper (`wrapper.launches`), one per kernel call:
+`flash_attention.launches`, `fused_dit_block.launches`,
+`conv1d_same.launches`, `gated_mlp_int8.launches`, `ffn_int8.launches`,
+`gated_mlp_int4.launches`, `ffn_int4.launches`, `matmul_int4.launches`,
+`relpos_causal_attention.launches` (the rel-pos forward) and
+`relpos_causal_attention_bwd.launches` (its backward, one per backward
+call of the autograd function).  `launch_counts()` maps each wrapper's
+name to its count.
 """
 
 from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               fused_dit, fused_mlp,
-                                              int4_matmul)
+                                              int4_matmul, relpos_attention)
 
 KERNEL_SOURCES = ("flash_attention", "fused_dit", "conv1d", "fused_mlp",
-                  "fused_mlp_int4", "int4_matmul")
+                  "fused_mlp_int4", "int4_matmul", "relpos_attention")
 _WRAPPERS = (flash_attention.flash_attention, fused_dit.fused_dit_block,
              conv1d.conv1d_same, fused_mlp.gated_mlp_int8, fused_mlp.ffn_int8,
              fused_mlp.gated_mlp_int4, fused_mlp.ffn_int4,
-             int4_matmul.matmul_int4)
+             int4_matmul.matmul_int4,
+             relpos_attention.relpos_causal_attention,
+             relpos_attention.relpos_causal_attention_bwd)
 
 
 def reset_launch_counts() -> None:

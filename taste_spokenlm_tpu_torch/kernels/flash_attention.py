@@ -66,7 +66,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q [B, Tq, H, D], k/v [B, Tk, H, D] -> [B, Tq, H, D].  `kv_lengths`
     [B] are the true key lengths when k/v are padded past them (the Pallas
     kernel's valid_len).  CPU tensors take the plain version; CUDA tensors
-    launch csrc/flash_attention.cu."""
+    launch csrc/flash_attention.cu.  Neither takes inputs that require
+    grad: the kernel has no backward, nor has the Pallas kernel it
+    replaces."""
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError("flash_attention has no backward: call it on "
+                           "inputs that do not require grad (a frozen "
+                           "encoder under torch.no_grad())")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, kv_lengths)
     if q.device.type != "cuda":

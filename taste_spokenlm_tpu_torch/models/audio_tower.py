@@ -3,7 +3,11 @@ JAX models/audio_tower.py joint encoder-segmenter path).
 
 mel -> whisper encoder (final hidden + a middle layer's hidden) -> whisper
 decoder over [prompt | asr tokens | eos] with split K/V cross-attention ->
-drop prompt and eos -> word-level mean pooling -> residual VQ.
+drop prompt and eos -> word-level mean pooling -> residual VQ.  The
+forward trains (`train`: the RVQ's quantize dropout, EMA update and
+dead-code expiry, and the batch-level audio dropout); an encoder whose
+parameters are all frozen runs under no_grad, as JAX's stop_gradient and
+dead-code elimination leave it.
 
 Module names follow the reference TasteAudioTower
 (audio_joint_encoder_segmenter.audio_encoder.encoder.*,
@@ -14,7 +18,7 @@ ported yet.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -66,7 +70,10 @@ class TasteAudioTower(nn.Module):
         cfg = self.config
         b = asr_token_ids.shape[0]
         dev = asr_token_ids.device
-        enc = self.encoder(mel, collect_layer=cfg.encoder_target_hidden_layer)
+        frozen = not any(p.requires_grad for p in self.encoder.parameters())
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+            enc = self.encoder(mel,
+                               collect_layer=cfg.encoder_target_hidden_layer)
         prompt = torch.tensor(cfg.whisper.decoder_prompt, dtype=torch.long,
                               device=dev)[None].expand(b, -1)
         eos = torch.full((b, 1), cfg.whisper.eos_token_id, dtype=torch.long,
@@ -83,18 +90,45 @@ class TasteAudioTower(nn.Module):
         return feats
 
     def forward(self, mel, asr_token_ids, asr_token_lengths,
-                asr_word_ids=None) -> Dict[str, torch.Tensor]:
-        """mel [B, n_mels, 3000]; asr ids/word ids [B, T]; lengths [B]."""
+                asr_word_ids=None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                skip_vq: bool = False, draws: Optional[Dict] = None
+                ) -> Dict[str, torch.Tensor]:
+        """mel [B, n_mels, 3000]; asr ids/word ids [B, T]; lengths [B].
+        `draws` may hold the train forward's random draws (the RVQ's
+        "drop_after", "gumbel" and "dead_picks"; the audio dropout's
+        "audio_keep" [B] bool and "audio_noise" [B, T, C] standard normal);
+        the rest come from `generator`."""
         cfg = self.config
+        draws = draws or {}
         feats = self._segment(mel, asr_token_ids, asr_token_lengths,
                               asr_word_ids)
         result = {"audio_unit_lengths": asr_token_lengths}
-        if cfg.quantization_on:
+        if cfg.quantization_on and not skip_vq:
             vq_out = self.vq.rvq(
-                feats, mask=length_mask(asr_token_lengths, feats.shape[1]))
-            result["audio_unit_embeds"] = vq_out["quantized_feats"]
+                feats, mask=length_mask(asr_token_lengths, feats.shape[1]),
+                train=train, generator=generator,
+                drop_after=draws.get("drop_after"), gumbel=draws.get("gumbel"),
+                dead_picks=draws.get("dead_picks"))
+            embeds = vq_out["quantized_feats"]
             result["quantized_indices"] = vq_out["quantized_indices"]
             result["commit_loss"] = vq_out["commit_loss"]
         else:
-            result["audio_unit_embeds"] = feats
+            embeds = feats
+        if train and cfg.audio_dropout_ratio > 0.0:
+            # batch-level audio dropout (modeling_taste.py:188-199): a row
+            # dropped with probability p becomes noise at the batch std
+            b = embeds.shape[0]
+            keep = draws.get("audio_keep")
+            if keep is None:
+                keep = torch.rand((b,), device=embeds.device,
+                                  generator=generator) >= cfg.audio_dropout_ratio
+            noise = draws.get("audio_noise")
+            if noise is None:
+                noise = torch.randn(embeds.shape, device=embeds.device,
+                                    generator=generator)
+            std = embeds.float().std(unbiased=False)
+            embeds = torch.where(keep.to(embeds.device)[:, None, None], embeds,
+                                 (noise.to(embeds.device) * std).to(embeds.dtype))
+        result["audio_unit_embeds"] = embeds
         return result

@@ -7,11 +7,16 @@ precomputed position projections), the positionwise FFN, and
 float layout and the int8 / int4 serving layouts of EncoderStackConfig:
 `quantized_serving` (QDense / QDense4 projections), `fused_qkv_serving`
 (one linear_qkv) and `fused_mlp_serving` (the FFN as one kernel call,
-kernels/fused_mlp.py; int4 packs w_2 per tile).  The Pallas rel-pos
-causal-attention branch belongs to training (the JAX package takes it only
-on the TPU); the port takes the JAX package's own non-kernel branch.  The
-convolution module, macaron FFN and conv subsampling stems are not ported
-yet.
+kernels/fused_mlp.py; int4 packs w_2 per tile).  A strict-causal
+full-sequence pass (`causal_scores`, no cache, Tq == Tk > 1) of T >= 256 with
+a head dim of 128 on a CUDA tensor runs the rel-pos attention kernel,
+forward and backward (kernels/relpos_attention.py), where the JAX package
+takes its Pallas kernel on the TPU: the S3 stack's stage-1 training pass,
+and the text and audio encoders on a long transcript.  Everything else,
+and every CPU tensor, takes the JAX package's non-kernel branch.  With
+`remat` set in the stack's config, each layer is checkpointed
+(ops/remat.py).  The convolution module, macaron FFN and conv subsampling
+stems are not ported yet.
 
 Names follow the reference state dict: embed.out.{0,1}, encoders.{i}.
 self_attn.linear_{q,k,v,out,pos} (or linear_qkv), pos_bias_u/v,
@@ -32,9 +37,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.config import EncoderStackConfig
+from taste_spokenlm_tpu_torch.kernels.relpos_attention import (
+    can_use_relpos_flash, relpos_causal_attention)
 from taste_spokenlm_tpu_torch.ops.masking import chunk_causal_mask, length_mask
 from taste_spokenlm_tpu_torch.ops.quantized import (dense, fused_ffn_apply,
                                                     qmode)
+from taste_spokenlm_tpu_torch.ops.remat import call_layer
 
 NEG_F32 = torch.finfo(torch.float32).min / 2
 
@@ -70,7 +78,10 @@ def rel_shift(x: torch.Tensor) -> torch.Tensor:
 
 
 class RelPositionAttention(nn.Module):
-    """scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(dk)."""
+    """scores = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(dk).
+
+    `use_kernels = False` keeps a CUDA tensor on the non-kernel branch, to
+    hold the kernel path against the plain one."""
 
     def __init__(self, d_model: int, num_heads: int, quantized=False,
                  fused_qkv: bool = False):
@@ -91,6 +102,7 @@ class RelPositionAttention(nn.Module):
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, dk))
         nn.init.xavier_uniform_(self.pos_bias_u)
         nn.init.xavier_uniform_(self.pos_bias_v)
+        self.use_kernels = True
 
     def forward(self, x, pos_emb, mask=None,
                 cache: Optional[Dict[str, torch.Tensor]] = None,
@@ -113,14 +125,27 @@ class RelPositionAttention(nn.Module):
             k, v = cache["k"], cache["v"]
         if pos_proj is None:
             pos_proj = self.linear_pos(pos_emb)
+        tk, tq = k.shape[1], t
+        if pos_proj.shape[0] != tq + tk - 1:
+            raise ValueError(f"pos_emb rows {pos_proj.shape[0]} != Tq + Tk - 1"
+                             f" = {tq + tk - 1}")
+        strict_causal = causal_scores and cache is None and tq == tk and tq > 1
+        if (strict_causal and self.use_kernels and x.is_cuda
+                and can_use_relpos_flash(tq, dk)):
+            # the causal_scores contract: mask = strict causal and key-valid,
+            # so its last row carries each row's key count
+            lengths = (None if mask is None else mask[:, 0, -1, :].sum(-1)
+                       .to(torch.int32).expand(b).contiguous())
+            out = relpos_causal_attention(
+                (q + self.pos_bias_u[None, None]).contiguous(),
+                (q + self.pos_bias_v[None, None]).contiguous(),
+                k.contiguous(), v.contiguous(),
+                pos_proj.reshape(-1, h, dk).contiguous(), lengths)
+            return self.linear_out(out.reshape(b, t, self.d_model)), cache
         p = pos_proj.reshape(-1, h, dk).float()
         q_u = (q + self.pos_bias_u[None, None]).float()
         q_v = (q + self.pos_bias_v[None, None]).float()
-        tk, tq = k.shape[1], t
-        if p.shape[0] != tq + tk - 1:
-            raise ValueError(f"pos_emb rows {p.shape[0]} != Tq + Tk - 1 = "
-                             f"{tq + tk - 1}")
-        if causal_scores and cache is None and tq == tk and tq > 1:
+        if strict_causal:
             # strict-causal scores never read the future half of the table:
             # q_v p[:T]^T stored in the model dtype, then the pad-left-1 skew
             bd = torch.einsum("bqhd,phd->bhqp", q_v, p[:tq]).to(dt)
@@ -255,7 +280,7 @@ class ConformerEncoder(nn.Module):
             valid = length_mask(lengths, t)
             mask = mask & valid[:, None, None, :]
         for layer in self.encoders:
-            x, _ = layer(x, pe, mask, causal_scores=sc)
+            x, _ = call_layer(layer, cfg.remat, x, pe, mask, causal_scores=sc)
         return self.after_norm(x)
 
     def init_cache(self, batch: int, max_len: int) -> List[Dict[str, torch.Tensor]]:

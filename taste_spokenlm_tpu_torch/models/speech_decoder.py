@@ -1,5 +1,6 @@
 """TASTE speech decoder: (taste units + text) -> S3 speech tokens
-(counterpart of the JAX models/speech_decoder.py inference path).
+(counterpart of the JAX models/speech_decoder.py teacher-forced forward and
+inference path).
 
   text ids  -> embed -> causal conformer -> affine
   taste emb -> affine -> causal conformer -> affine
@@ -7,9 +8,12 @@
   prefix = [sos | spk | fused | task], packed left-padded
   KV-cached AR decode of the llm conformer -> head (V+1, last = EOS)
 
-Module names follow the reference TasteSpeechDecoder state dict.  The
-training forward (loss), `generate_stream_resume` and the concat fusions
-are not ported yet.
+The teacher-forced forward (stage-1 training) packs [sos | spk | fused |
+task | S3] raggedly, runs one causal pass of the llm conformer and scores
+the head against [IGNORE x (2 + T) | S3 | EOS] with the label-smoothing CE
+and the top-1 accuracy.  Module names follow the reference
+TasteSpeechDecoder state dict.  `generate_stream_resume` and the concat
+fusions are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ import torch.nn as nn
 
 from taste_spokenlm_tpu_torch.config import SpeechDecoderConfig
 from taste_spokenlm_tpu_torch.models.conformer import ConformerEncoder
+from taste_spokenlm_tpu_torch.ops.losses import (IGNORE_ID, label_smoothing_ce,
+                                                 masked_accuracy)
 from taste_spokenlm_tpu_torch.ops.quantized import dense
 from taste_spokenlm_tpu_torch.ops.sampling import sample
 from taste_spokenlm_tpu_torch.ops.segment import ragged_concat
@@ -109,6 +115,44 @@ class TasteSpeechDecoder(nn.Module):
         sos = rows[0][None, None].expand(b, 1, -1)
         task = rows[1][None, None].expand(b, 1, -1)
         return sos, spk, fused, task, fused_lengths
+
+    # ------------------------------------------------------------------
+    # training forward
+    # ------------------------------------------------------------------
+
+    def forward(self, speaker_embeds, audio_unit_embeds, audio_unit_lengths,
+                asr_token_ids, asr_token_lengths, speech_token_ids,
+                speech_token_lengths, skip_audio: bool = False
+                ) -> Dict[str, torch.Tensor]:
+        """Teacher-forced S3 prediction: -> loss, logits [B, 3+T+S, V+1],
+        labels and speech_token_accuracy.  Rows with no speech tokens carry
+        no target at all, not even the EOS."""
+        cfg = self.config
+        b = asr_token_ids.shape[0]
+        s = speech_token_ids.shape[1]
+        dev = asr_token_ids.device
+        sos, spk, fused, task, fused_lengths = self.prepare_conditional_embeds(
+            speaker_embeds, audio_unit_embeds, audio_unit_lengths,
+            asr_token_ids, asr_token_lengths, skip_audio)
+        speech_emb = self.speech_embedding(speech_token_ids.long())
+        tf = fused.shape[1]
+        out_len = 3 + tf + s
+        lm_input, lm_len = ragged_concat(
+            [(sos, None), (spk, None), (fused, fused_lengths), (task, None),
+             (speech_emb, speech_token_lengths)], out_len)
+        ign = torch.full((b, 2 + tf), IGNORE_ID, dtype=torch.long, device=dev)
+        eos = torch.where(speech_token_lengths > 0, cfg.speech_token_size,
+                          IGNORE_ID).long()[:, None]
+        lm_target, _ = ragged_concat(
+            [(ign, fused_lengths + 2), (speech_token_ids.long(),
+                                        speech_token_lengths), (eos, None)],
+            out_len, pad_value=IGNORE_ID)
+        lm_out = self.llm(lm_input, lm_len)
+        logits = self.llm_decoder(lm_out)
+        loss = label_smoothing_ce(logits, lm_target, smoothing=cfg.lsm_weight,
+                                  normalize_length=cfg.length_normalized_loss)
+        return {"loss": loss, "logits": logits, "labels": lm_target,
+                "speech_token_accuracy": masked_accuracy(logits, lm_target)}
 
     # ------------------------------------------------------------------
     # autoregressive generation (KV-cached)

@@ -1,13 +1,14 @@
-"""TasteForCausalLM at inference (counterpart of the JAX models/taste.py
-`extract_vq`, `inference_reconstruction`, `vocode`, `generate_completion`
-and `synthesize_from_taste`).
+"""TasteForCausalLM (counterpart of the JAX models/taste.py `extract_vq`,
+`inference_reconstruction`, `vocode`, `generate_completion`,
+`synthesize_from_taste` and the stage-1 `forward_speech_autoencoder`).
 
 Holds the audio tower, the speech decoder, the spoken LM and the voice
 generator.  Reconstruction: wav -> taste -> S3 -> mel -> wav.  Completion:
 `generate_completion` (the joint text + taste decode) and then, after the
-host's tokenizer round trip, `synthesize_from_taste`.  The teacher-forced
-spoken-LM forward, and with it reconstruction in mode "SpokenLLM", belongs
-to training (ROADMAP.md queue A item 8).
+host's tokenizer round trip, `synthesize_from_taste`.  Training: the
+stage-1 teacher-forced forward (tokenizer + S3 decoder, train/train_step.py)
+is ported; the stage-2 teacher-forced spoken-LM forward, and with it
+reconstruction in mode "SpokenLLM", is not (ROADMAP.md queue A item 11).
 
 Entry points run on the CUDA device unless the constructor is given
 ``device="cpu"``; without CUDA they raise.  Random draws come from a
@@ -40,9 +41,11 @@ class TasteForCausalLM(nn.Module):
 
     def __init__(self, config: TasteConfig, dtype: torch.dtype = torch.float32,
                  tower_dtype: Optional[torch.dtype] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 weight_commit_loss: float = 1.0):
         super().__init__()
         self.config = config
+        self.weight_commit_loss = weight_commit_loss
         self.device = resolve_device(device)
         self.audio_tower = TasteAudioTower(
             config.audio_tower, dtype=tower_dtype or dtype)
@@ -67,6 +70,36 @@ class TasteForCausalLM(nn.Module):
 
     def _cb(self) -> Codebook:
         return self.audio_tower.vq.rvq.codebook()
+
+    def forward_speech_autoencoder(
+        self, speaker_embeds, asr_token_ids, asr_token_lengths, asr_word_ids,
+        audio_features, speech_token_ids, speech_token_lengths,
+        train: bool = False, generator: Optional[torch.Generator] = None,
+        skip_vq: bool = False, skip_audio_in_decoder: bool = False,
+        draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
+        """Stage 1: tokenize the audio and reconstruct its S3 tokens ->
+        loss (decoder CE + weight_commit_loss x commit), speech logits,
+        labels, speech_token_accuracy and, unless `skip_vq`, commit_loss and
+        quantized_indices.  `train` runs the RVQ's train forward (its draws
+        from `draws` or `generator`, as TasteAudioTower.forward says)."""
+        encoded = self.audio_tower(
+            audio_features, asr_token_ids, asr_token_lengths, asr_word_ids,
+            train=train, generator=generator, skip_vq=skip_vq, draws=draws)
+        decoded = self.speech_decoder(
+            speaker_embeds, encoded["audio_unit_embeds"],
+            encoded["audio_unit_lengths"], asr_token_ids, asr_token_lengths,
+            speech_token_ids, speech_token_lengths,
+            skip_audio=skip_audio_in_decoder)
+        loss = decoded["loss"]
+        out = {"speech_logits": decoded["logits"],
+               "speech_labels": decoded["labels"],
+               "speech_token_accuracy": decoded["speech_token_accuracy"]}
+        if "commit_loss" in encoded:
+            loss = loss + self.weight_commit_loss * encoded["commit_loss"]
+            out["commit_loss"] = encoded["commit_loss"]
+            out["quantized_indices"] = encoded["quantized_indices"]
+        out["loss"] = loss
+        return out
 
     @torch.no_grad()
     def extract_vq(self, asr_token_ids, asr_token_lengths, asr_word_ids,
@@ -100,7 +133,7 @@ class TasteForCausalLM(nn.Module):
         if mode == "SpokenLLM":
             raise NotImplementedError(
                 "mode 'SpokenLLM' needs the teacher-forced spoken-LM forward: "
-                "ROADMAP.md queue A item 8")
+                "ROADMAP.md queue A item 11")
         if mode != "SpeechAutoEncoder":
             raise ValueError(mode)
         encoded = self.audio_tower(audio_features, asr_token_ids,

@@ -3,7 +3,11 @@ models/whisper.py `WhisperAttention`, `WhisperEncoder`, `WhisperDecoder`).
 
 Module names follow HF whisper (q_proj/k_proj/v_proj/out_proj, fc1/fc2,
 *_layer_norm, embed_positions), so an HF or TASTE state dict loads with
-strict=True.  Activations are [B, T, C].  `WhisperForASR` is not ported yet.
+strict=True.  Activations are [B, T, C].  With `remat` set in the config,
+every encoder and decoder layer is checkpointed when autograd records
+(ops/remat.py).  The flash-attention kernel has no backward (nor has the
+Pallas kernel it replaces): a trainable encoder must not reach it.
+`WhisperForASR` is not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from taste_spokenlm_tpu_torch.kernels.flash_attention import (
     can_use_flash, flash_attention, flash_attention_plain)
 from taste_spokenlm_tpu_torch.ops.attention import multi_head_attention
 from taste_spokenlm_tpu_torch.ops.masking import causal_mask, combine_masks, length_mask
+from taste_spokenlm_tpu_torch.ops.remat import call_layer
 
 
 class WhisperAttention(nn.Module):
@@ -118,7 +123,7 @@ class WhisperEncoder(nn.Module):
         for i, layer in enumerate(self.layers):
             if collect_layer is not None and i == collect_layer:
                 collected = x
-            x = layer(x)
+            x = call_layer(layer, self.config.remat, x)
         out = {"last_hidden": self.layer_norm(x)}
         if collected is not None:
             out["target_hidden"] = collected
@@ -185,9 +190,12 @@ class WhisperDecoder(nn.Module):
             enc_value = enc_key
         new_caches = []
         for i, layer in enumerate(self.layers):
-            x, c = layer(x, enc_key, enc_value, self_mask=self_mask,
-                         cache=None if caches is None else caches[i],
-                         cache_index=cache_index)
+            if caches is None:
+                x, c = call_layer(layer, self.config.remat, x, enc_key,
+                                  enc_value, self_mask)
+            else:
+                x, c = layer(x, enc_key, enc_value, self_mask=self_mask,
+                             cache=caches[i], cache_index=cache_index)
             new_caches.append(c)
         x = self.layer_norm(x)
         return x, (new_caches if caches is not None else None)

@@ -11,7 +11,7 @@ import torch
 
 from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               fused_dit, fused_mlp,
-                                              int4_matmul)
+                                              int4_matmul, relpos_attention)
 from taste_spokenlm_tpu_torch.quant import quantize_kernel
 
 pytestmark = pytest.mark.cuda
@@ -254,3 +254,70 @@ def test_ffn_int4_matches_plain(dev, m, d, i, act):
     ref = fused_mlp.ffn_int4_plain(*args)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= 2e-2
+
+
+def _relpos_inputs(g, b, t, h, dtype, dev):
+    mk = lambda *shape: _rand(g, *shape, scale=0.3, dtype=dtype).to(dev)  # noqa: E731
+    return (mk(b, t, h, 128), mk(b, t, h, 128), mk(b, t, h, 128),
+            mk(b, t, h, 128), mk(2 * t - 1, h, 128))
+
+
+@pytest.mark.parametrize("b,t,h,lens,dtype", [
+    (1, 256, 3, (256,), torch.float32),
+    (3, 1599, 1, (1599, 1200, 257), torch.float32),
+    (3, 1599, 1, (1599, 700, 300), torch.bfloat16),
+    (3, 2048, 3, (2048, 1999, 64), torch.bfloat16),
+])
+def test_relpos_attention_matches_plain(dev, b, t, h, lens, dtype):
+    """Forward (o and LSE) and the five gradients against the plain
+    versions, ragged lengths and an odd B*H; the backward twice gives the
+    same bits (no atomics)."""
+    g = torch.Generator().manual_seed(11)
+    xs = _relpos_inputs(g, b, t, h, dtype, dev)
+    lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    o, lse = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
+    o_ref, lse_ref = relpos_attention.relpos_causal_attention_plain(*xs, lens)
+    torch.cuda.synchronize()
+    err = (o.float() - o_ref.float()).abs().max().item()
+    if dtype == torch.float32:
+        assert err <= tol, err
+    else:
+        assert err <= tol * o_ref.float().abs().max().item(), err
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    do = _rand(g, b, t, h, 128, dtype=dtype).to(dev)
+    grads = relpos_attention.relpos_causal_attention_bwd(*xs, lens, o, lse, do)
+    refs = relpos_attention.relpos_causal_attention_bwd_plain(
+        *xs, lens, o, lse, do)
+    for name, got, ref in zip(("dq_u", "dq_v", "dk", "dv", "dp"), grads, refs):
+        assert _rel(got.float(), ref.float()) <= tol, name
+    assert bool((grads[4][t:] == 0).all())
+    again = relpos_attention.relpos_causal_attention_bwd(*xs, lens, o, lse, do)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+def test_relpos_attention_autograd_counts(dev):
+    g = torch.Generator().manual_seed(12)
+    xs = [x.requires_grad_() for x in
+          _relpos_inputs(g, 2, 300, 2, torch.float32, dev)]
+    relpos_attention.relpos_causal_attention.launches = 0
+    relpos_attention.relpos_causal_attention_bwd.launches = 0
+    o = relpos_attention.relpos_causal_attention(
+        *xs, torch.tensor([300, 200], device=dev))
+    o.square().sum().backward()
+    assert relpos_attention.relpos_causal_attention.launches == 1
+    assert relpos_attention.relpos_causal_attention_bwd.launches == 1
+    assert all(x.grad is not None and bool(x.grad.abs().sum() > 0) for x in xs)
+
+
+def test_relpos_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    g = torch.Generator().manual_seed(13)
+    xs = _relpos_inputs(g, 1, 256, 1, torch.float32, dev)
+    with pytest.raises(ValueError):        # T < 256
+        relpos_attention.relpos_causal_attention(
+            *(x[:, :200] for x in xs[:4]), xs[4][:399])
+    with pytest.raises(TypeError):         # float16
+        relpos_attention.relpos_causal_attention(*(x.half() for x in xs))
+    with pytest.raises(ValueError):        # dk 64
+        relpos_attention.relpos_causal_attention(
+            *(x[..., :64].contiguous() for x in xs))

@@ -13,6 +13,7 @@ against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,10 +25,12 @@ from taste_spokenlm_tpu.ops.pallas import fused_mlp as jax_fused_mlp
 from taste_spokenlm_tpu.ops.pallas import int4_matmul as jax_int4
 from taste_spokenlm_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention)
+from taste_spokenlm_tpu.ops.pallas import relpos_attention as jax_relpos
 from taste_spokenlm_tpu.utils.quant import quantize_kernel as jax_quantize_kernel
 from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               fused_dit, fused_mlp,
                                               int4_matmul, launch_counts,
+                                              relpos_attention,
                                               reset_launch_counts)
 
 torch.set_num_threads(2)
@@ -156,10 +159,15 @@ def test_cpu_tensors_launch_no_kernel():
     fused_mlp.ffn_int4(torch.randn(3, 64), packed, torch.ones(2, 64),
                        torch.zeros(64), packed, torch.ones(2, 64),
                        torch.zeros(64))
+    xs = [torch.randn(1, 300, 1, 128, requires_grad=True) for _ in range(4)]
+    xs.append(torch.randn(599, 1, 128, requires_grad=True))
+    relpos_attention.relpos_causal_attention(*xs).sum().backward()
     assert launch_counts() == {"flash_attention": 0, "fused_dit_block": 0,
                                "conv1d_same": 0, "gated_mlp_int8": 0,
                                "ffn_int8": 0, "gated_mlp_int4": 0,
-                               "ffn_int4": 0, "matmul_int4": 0}
+                               "ffn_int4": 0, "matmul_int4": 0,
+                               "relpos_causal_attention": 0,
+                               "relpos_causal_attention_bwd": 0}
 
 
 def _q8(r, n_in, n_out):
@@ -342,3 +350,71 @@ def test_fused_int4_dispatch_over_256_rows_matches_jax(fn):
         got = pq.fused_ffn_apply(torch.from_numpy(x), p(*first[0], b1),
                                  p(wd, sd, b2), "int4", torch.float32)
     assert _rel(got.numpy(), ref) <= 1e-4
+
+
+def _relpos_inputs(b, t, h, seed=0):
+    r = np.random.RandomState(seed)
+    mk = lambda *shape: (0.3 * r.randn(*shape)).astype(np.float32)  # noqa: E731
+    return (mk(b, t, h, 128), mk(b, t, h, 128), mk(b, t, h, 128),
+            mk(b, t, h, 128), mk(2 * t - 1, h, 128))
+
+
+@pytest.mark.parametrize("b,t,lens", [(2, 200, (200, 150)), (1, 130, None)])
+def test_relpos_attention_plain_matches_pallas(b, t, lens):
+    """The plain forward (o and its LSE) and the five gradients of the
+    autograd function (the plain backward on the CPU) against the Pallas
+    kernel in interpret mode with its custom VJP, as
+    tests/test_relpos_flash.py runs it; 1e-4 of each tensor's largest
+    value (f32)."""
+    xs = _relpos_inputs(b, t, 2)
+    w = np.random.RandomState(7).randn(b, t, 2, 128).astype(np.float32)
+    jl = None if lens is None else jnp.asarray(lens, jnp.int32)
+    tl = None if lens is None else torch.tensor(lens)
+    jax_relpos._INTERPRET[0] = True
+    try:
+        o_ref = jax_relpos.relpos_causal_attention(*map(jnp.asarray, xs), jl)
+        g_ref = jax.grad(lambda *a: jnp.sum(
+            jax_relpos.relpos_causal_attention(*a, jl) * w),
+            argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, xs))
+        lse_ref = jax_relpos._fwd_call(
+            *map(jnp.asarray, xs),
+            jnp.full((b,), t, jnp.int32) if jl is None else jl)[1][-1]
+    finally:
+        jax_relpos._INTERPRET[0] = False
+    ts = [torch.from_numpy(x).requires_grad_() for x in xs]
+    o = relpos_attention.relpos_causal_attention(*ts, tl)
+    (o * torch.from_numpy(w)).sum().backward()
+    rel = lambda a, ref: (np.max(np.abs(a - ref))  # noqa: E731
+                          / max(np.max(np.abs(ref)), 1e-12))
+    assert rel(o.detach().numpy(), np.asarray(o_ref)) <= 1e-4
+    _, lse = relpos_attention.relpos_causal_attention_plain(
+        *(x.detach() for x in ts), tl)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref)[:, 0, :t],
+                               atol=1e-4, rtol=0)
+    for name, x, g in zip(("q_u", "q_v", "k", "v", "p"), ts, g_ref):
+        assert rel(x.grad.numpy(), np.asarray(g)) <= 1e-4, name
+    assert launch_counts()["relpos_causal_attention"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_relpos_attention_bwd_plain_matches_autograd(dtype):
+    """The plain backward (recomputed from the LSE, the kernel's cast
+    points) against torch's autograd of the plain forward, at T = 600 (two
+    of the Pallas kernel's 512-wide key chunks), ragged lengths; 1e-4 of
+    each gradient's largest value in f32, 2e-2 in bf16 (prob and g are
+    rounded to bf16 before the products)."""
+    b, t, h = 2, 600, 1
+    xs = [torch.from_numpy(x).to(dtype).requires_grad_()
+          for x in _relpos_inputs(b, t, h, seed=3)]
+    lens = torch.tensor([600, 333])
+    o, lse = relpos_attention.relpos_causal_attention_plain(*xs, lens)
+    do = torch.from_numpy(np.random.RandomState(4).randn(b, t, h, 128)
+                          .astype(np.float32)).to(dtype)
+    auto = torch.autograd.grad(o, xs, do)
+    got = relpos_attention.relpos_causal_attention_bwd_plain(
+        *(x.detach() for x in xs), lens, o.detach(), lse.detach(), do)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for name, a, g in zip(("q_u", "q_v", "k", "v", "p"), auto, got):
+        err = (a.float() - g.float()).abs().max() / a.float().abs().max()
+        assert err.item() <= tol, name
+    assert bool((got[4][t:] == 0).all())

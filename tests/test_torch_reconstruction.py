@@ -114,5 +114,5 @@ def test_vocode_matches_jax_and_clamps_markers(pair):
 
 def test_spoken_llm_mode_names_its_roadmap_item(pair):
     port, d = pair[3], pair[4]
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 11"):
         port.inference_reconstruction(*_port_args(d), mode="SpokenLLM")
