@@ -29,10 +29,10 @@
 //   fwd:      (B*H, query tile): online softmax, o in the operand dtype and
 //             lse = m + log(max(l, 1e-30)) in f32, acc / max(l, 1e-30) as
 //             the TPU kernel (a row with no valid key gives 0);
-//   bwd:      four launches and no float atomics, so the gradients repeat
+//   bwd:      five launches and no float atomics, so the gradients repeat
 //             bit for bit: delta = rowsum(dO . o) per row; dq_u, dq_v per
 //             (B*H, query tile); dk, dv per (B*H, key tile); dp per (B*H,
-//             tile of 64 diagonals delta = i - j) into dp_part[b], then dp =
+//             tile of 64 diagonals delta = i - j) into dp_part[b]; then dp =
 //             sum over b in order.  Each recomputes prob = exp(s - lse) and
 //             g = prob (dO . v - delta) / sqrt(dk) and rounds prob and g to
 //             the operand dtype before its products (the TPU kernel's cast

@@ -14,7 +14,7 @@ causal mask only rows 0..T-1 of p are ever read, so dp's rows T..2T-2 are
 exactly zero.  The forward is an online softmax over the key tiles j <= i
 that saves the LSE; the backward recomputes the scores against it, with the
 TPU kernel's cast points (prob and g rounded to the operand dtype before the
-dv, dk, dq_u, dq_v and dp products), in four launches and no float atomics,
+dv, dk, dq_u, dq_v and dp products), in five launches and no float atomics,
 so its gradients repeat bit for bit: delta = rowsum(dO . o); dq_u and dq_v
 per query tile; dk and dv per key tile; dp per (batch row, diagonal tile)
 into scratch, summed over the batch in a fixed order by the last launch.
@@ -183,7 +183,7 @@ def relpos_causal_attention_fwd(q_u, q_v, k, v, p, lengths):
 def relpos_causal_attention_bwd(q_u, q_v, k, v, p, lengths, o, lse, do):
     """(dq_u, dq_v, dk, dv, dp) from the forward's inputs, output and LSE
     and the output's gradient: the plain version for CPU tensors, the
-    kernels for CUDA tensors (four launches, counted as one backward)."""
+    kernels for CUDA tensors (five launches, counted as one backward)."""
     if q_u.device.type == "cpu":
         return relpos_causal_attention_bwd_plain(q_u, q_v, k, v, p, lengths,
                                                  o, lse, do)

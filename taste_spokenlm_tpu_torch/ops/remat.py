@@ -15,19 +15,6 @@ from typing import Any
 import torch
 from torch.utils.checkpoint import checkpoint
 
-VALID_REMAT = (False, True, "dots", "dots_no_batch")
-
-
-def parse_remat(value: str) -> Any:
-    """A CLI / env remat string -> a config field value; raises ValueError
-    on unknown names."""
-    rm = {"1": True, "true": True, "full": True, "on": True,
-          "0": False, "false": False, "off": False}.get(value.lower(), value)
-    if rm not in VALID_REMAT:
-        raise ValueError(f"unknown remat policy {value!r} "
-                         "(off | full | dots | dots_no_batch)")
-    return rm
-
 
 def apply_remat(cfg, rm):
     """Set the remat policy on every stack gradients flow through in the

@@ -6,12 +6,13 @@ uses schedule(0).  `trainable_mask` freezes by regex over the port's
 parameter names (the reference state-dict names), and `STAGE1_PHASES` holds
 the stage-1 curriculum presets that select the same parameters as the JAX
 package's flax-path patterns (scripts/train.py).  `make_optimizer` gives
-Adam / AdamW over the trainable parameters behind optax's
-`clip_by_global_norm`: gradients are left alone when their global norm is
-below the limit and scaled by limit / norm otherwise (torch's
-clip_grad_norm_ uses limit / (norm + 1e-6)).  Parameters stored in a
-narrower type than float32 (a bf16 model) are updated through float32
-master copies, as a float32 flax tree is under bf16 compute.
+optax's chain of `clip_by_global_norm` and Adam / AdamW over the trainable
+parameters: gradients are left alone when their global norm is below the
+limit and scaled by limit / norm otherwise (torch's clip_grad_norm_ uses
+limit / (norm + 1e-6)).  Each parameter is updated in place in its own
+dtype, with its moments in that dtype, one rounding per operation and the
+constants rounded to that dtype first, as optax's jitted update of a bf16
+tree (bench.py's train_main) does.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import math
 import re
 from typing import Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -120,22 +122,11 @@ STAGE1_PHASES = {
 }
 
 
-def trainable_mask(model: nn.Module,
-                   unfreeze_patterns: Optional[Sequence[str]] = None,
-                   freeze_patterns: Optional[Sequence[str]] = None
+def trainable_mask(model: nn.Module, unfreeze_patterns: Sequence[str]
                    ) -> Dict[str, bool]:
-    """{parameter name: trainable}.  With `unfreeze_patterns` only matching
-    names train; `freeze_patterns` then force-freeze (the reference's
-    run.py semantics)."""
-    def decide(name: str) -> bool:
-        train = True
-        if unfreeze_patterns is not None:
-            train = any(re.search(p, name) for p in unfreeze_patterns)
-        if freeze_patterns is not None and any(re.search(p, name)
-                                               for p in freeze_patterns):
-            train = False
-        return train
-    return {name: decide(name) for name, _ in model.named_parameters()}
+    """{parameter name: trainable}: the names that match a pattern train."""
+    return {name: any(re.search(p, name) for p in unfreeze_patterns)
+            for name, _ in model.named_parameters()}
 
 
 def apply_mask(model: nn.Module, mask: Dict[str, bool]) -> None:
@@ -149,41 +140,51 @@ def apply_mask(model: nn.Module, mask: Dict[str, bool]) -> None:
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor, in float32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    """optax.global_norm: sqrt of the sum over tensors, in order, of each
+    one's sum of squares in its own dtype (a bf16 tree gives a bf16
+    norm)."""
+    return torch.sqrt(sum((t * t).sum() for t in tensors))
 
 
 def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float,
                         norm: Optional[torch.Tensor] = None):
     """optax.clip_by_global_norm: each g unchanged when the global norm is
-    below `max_norm`, else (g / norm) * max_norm."""
+    below `max_norm`, else (g / norm) * max_norm in g's dtype.  Reads the
+    norm on the host."""
     if norm is None:
         norm = global_norm(grads)
-    keep = norm < max_norm
-    return [torch.where(keep, g, g / norm * max_norm) for g in grads]
+    if norm.item() < max_norm:
+        return list(grads)
+    return [g / norm.to(g.dtype) * _rounded(max_norm, g.dtype) for g in grads]
+
+
+def _rounded(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX applies it to an array: rounded to the
+    array's dtype first (torch then computes in float32 with it, which
+    rounds each result as the operation in that dtype would)."""
+    return torch.tensor(value, dtype=dtype).item()
 
 
 class Optimizer:
-    """Adam (AdamW with weight_decay) over named parameters, with an optional
-    global-norm clip and a learning-rate schedule of the update count.
-    `step()` reads each parameter's .grad (zero where it has none, as a
-    gradient of JAX would be), clips, updates and returns the global norm
-    of the raw gradients."""
+    """optax's chain(clip_by_global_norm, adam | adamw) over a list of
+    parameters, with a learning-rate schedule of the update count.  `step()`
+    reads each parameter's .grad (zero where it has none, as a gradient of
+    JAX would be), clips, updates the parameters in place and returns the
+    global norm of the raw gradients.  The update runs as foreach
+    operations over the parameters of each dtype."""
 
-    def __init__(self, named_params, learning_rate: Union[float, Schedule],
+    def __init__(self, params, learning_rate: Union[float, Schedule],
                  weight_decay: float = 0.0, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  grad_clip: Optional[float] = None):
-        self.names = [n for n, _ in named_params]
-        self.params = [p for _, p in named_params]
-        self.masters = [p if p.dtype == torch.float32
-                        else p.detach().float().clone() for p in self.params]
+        self.params = list(params)
         self.schedule = (learning_rate if callable(learning_rate)
                          else (lambda step, lr=learning_rate: lr))
+        self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1, b2,
+                                                         eps)
         self.grad_clip = grad_clip
-        cls = torch.optim.AdamW if weight_decay else torch.optim.Adam
-        self.inner = cls(self.masters, lr=self.schedule(0), betas=(b1, b2),
-                         eps=eps, weight_decay=weight_decay)
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
         self.count = 0
 
     def zero_grad(self) -> None:
@@ -192,21 +193,47 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        grads = [torch.zeros_like(m) if p.grad is None else p.grad.float()
-                 for p, m in zip(self.params, self.masters)]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                 for p in self.params]
         norm = global_norm(grads)
         if self.grad_clip:
             grads = clip_by_global_norm(grads, self.grad_clip, norm)
-        for m, g in zip(self.masters, grads):
-            m.grad = g
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.inner.step()
-        for p, m in zip(self.params, self.masters):
-            if p is not m:
-                p.copy_(m)
-                m.grad = None
+        lr = float(np.float32(self.schedule(self.count)))
         self.count += 1
+        # optax's bias corrections: 1 - decay**count in float32, then
+        # rounded to each moment's dtype
+        bc1 = float(1 - np.float32(self.b1) ** np.float32(self.count))
+        bc2 = float(1 - np.float32(self.b2) ** np.float32(self.count))
+        groups: Dict[torch.dtype, list] = {}
+        for i, p in enumerate(self.params):
+            groups.setdefault(p.dtype, []).append(i)
+        for dtype, idx in groups.items():
+            def c(v, dtype=dtype):
+                return _rounded(v, dtype)
+            ps = [self.params[i] for i in idx]
+            gs = [grads[i] for i in idx]
+            mus = [self.mu[i] for i in idx]
+            nus = [self.nu[i] for i in idx]
+            # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
+            torch._foreach_mul_(mus, c(self.b1))
+            torch._foreach_add_(mus, torch._foreach_mul(gs, c(1 - self.b1)))
+            sq = torch._foreach_mul(gs, gs)
+            torch._foreach_mul_(sq, c(1 - self.b2))
+            torch._foreach_mul_(nus, c(self.b2))
+            torch._foreach_add_(nus, sq)
+            del sq
+            # u = (mu / bc1) / (sqrt(nu / bc2) + eps) [+ wd p];  p += -lr u
+            u = torch._foreach_div(mus, c(bc1))
+            den = torch._foreach_div(nus, c(bc2))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, c(self.eps))
+            torch._foreach_div_(u, den)
+            del den
+            if self.weight_decay:
+                torch._foreach_add_(u, torch._foreach_mul(
+                    ps, c(self.weight_decay)))
+            torch._foreach_mul_(u, c(-lr))
+            torch._foreach_add_(ps, u)
         return norm
 
 
@@ -217,7 +244,7 @@ def make_optimizer(model: nn.Module, learning_rate: Union[float, Schedule],
                    grad_clip: Optional[float] = None) -> Optimizer:
     """The JAX make_optimizer: Adam / AdamW with an optional global-norm
     clip, over the parameters the mask marks trainable (all without one)."""
-    named = [(n, p) for n, p in model.named_parameters()
-             if mask is None or mask[n]]
-    return Optimizer(named, learning_rate, weight_decay, b1, b2, eps,
+    params = [p for n, p in model.named_parameters()
+              if mask is None or mask[n]]
+    return Optimizer(params, learning_rate, weight_decay, b1, b2, eps,
                      grad_clip)

@@ -8,7 +8,8 @@ update.  Frozen parameters get requires_grad_(False), so no gradient is
 formed for them; a fully frozen whisper encoder runs under no_grad, as the
 JAX step's stop_gradient and dead-code elimination leave it.  The JAX
 step's random draws come from its split key; here they come from the
-state's torch.Generator, or are passed in per step (`draws`, as
+state's torch.Generator (seeded 0, as the JAX state's key is
+PRNGKey(0) in bench.py), or are passed in per step (`draws`, as
 TasteAudioTower.forward takes them) so that a test can hand both sides the
 same draws.  The phases of the stage-1 curriculum: text_only sets
 skip_vq and skip_audio_in_decoder, no_vq sets skip_vq.
@@ -41,8 +42,7 @@ class TrainState:
 
 def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
                      skip_audio_in_decoder: bool = False,
-                     trainable_mask: Optional[Dict[str, bool]] = None,
-                     generator: Optional[torch.Generator] = None
+                     trainable_mask: Optional[Dict[str, bool]] = None
                      ) -> Callable[..., Dict[str, torch.Tensor]]:
     """-> step(batch, draws=None) -> metrics {loss, speech_token_accuracy,
     commit_loss (unless skip_vq), grad_norm}, 0-d tensors on the model's
@@ -53,9 +53,8 @@ def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
         trainable_mask = {n: id(p) in held for n, p in model.named_parameters()}
     apply_mask(model, trainable_mask)
     dev = next(model.parameters()).device
-    if generator is None:
-        generator = torch.Generator(device=dev).manual_seed(0)
-    state = TrainState(model, optimizer, 0, generator)
+    state = TrainState(model, optimizer, 0,
+                       torch.Generator(device=dev).manual_seed(0))
 
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()

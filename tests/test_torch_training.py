@@ -98,6 +98,61 @@ def test_clip_matches_optax(max_norm):
             np.testing.assert_array_equal(a.numpy(), g)
 
 
+@pytest.mark.parametrize("dtypes,weight_decay,schedule", [
+    (("float32",) * 3, 0.0, False),
+    (("bfloat16",) * 3, 0.0, False),
+    (("bfloat16", "float32", "bfloat16"), 0.0, True),
+    (("bfloat16",) * 3, 1e-2, False),
+    (("float32",) * 3, 1e-2, True)])
+def test_optimizer_matches_optax(dtypes, weight_decay, schedule):
+    """Three clipped Adam / AdamW updates of a small tree against optax's
+    jitted chain: in bf16 (bench.py's tree, whose parameters and moments
+    stay bf16) bit for bit; float32 leaves, alone or in a bf16 tree (the
+    port's f32 segmenter), within 1e-6 of each tensor's largest value (XLA
+    fuses the f32 update and rounds it in another order).  The clip acts
+    on steps 1 and 3."""
+    r = np.random.RandomState(2)
+    shapes = [(24, 16), (40,), (8, 4, 3)]
+    params = [(0.02 * r.randn(*s)).astype(np.float32) for s in shapes]
+    grads = [[(scale * r.randn(*s)).astype(np.float32) for s in shapes]
+             for scale in (0.3, 1e-3, 0.5)]
+    lr = jax_optim.cosine_lr(1e-3, 1, 10) if schedule else 1e-3
+    jd = [jnp.dtype(d) for d in dtypes]
+    tx = jax_optim.make_optimizer(lr, weight_decay=weight_decay,
+                                  grad_clip=1.0)
+    jp = [jnp.asarray(p, d) for p, d in zip(params, jd)]
+    state = tx.init(jp)
+
+    @jax.jit
+    def update(g, state, p):
+        u, state = tx.update(g, state, p)
+        return optax.apply_updates(p, u), state, optax.global_norm(g)
+
+    model = torch.nn.Module()
+    for i, (p, d) in enumerate(zip(params, dtypes)):
+        model.register_parameter(f"p{i}", torch.nn.Parameter(
+            t(p).to(getattr(torch, d))))
+    opt = optim.make_optimizer(
+        model, optim.cosine_lr(1e-3, 1, 10) if schedule else 1e-3,
+        weight_decay=weight_decay, grad_clip=1.0)
+    for g in grads:
+        jp, state, ref_norm = update(
+            [jnp.asarray(x, d) for x, d in zip(g, jd)], state, jp)
+        for x, p in zip(g, opt.params):
+            p.grad = t(x).to(p.dtype)
+        norm = opt.step()
+        assert rel_err(norm.item(), float(ref_norm)) <= 1e-6
+    adam = state[-1][0]
+    for got, ref, mu, ref_mu, nu, ref_nu in zip(opt.params, jp, opt.mu,
+                                                adam.mu, opt.nu, adam.nu):
+        assert got.dtype == mu.dtype == nu.dtype == getattr(torch, ref.dtype.name)
+        for a, b in ((got, ref), (mu, ref_mu), (nu, ref_nu)):
+            b = np.asarray(b, np.float32)
+            tol = 0.0 if a.dtype == torch.bfloat16 else 1e-6 * np.max(np.abs(b))
+            np.testing.assert_allclose(a.detach().float().numpy(), b, rtol=0,
+                                       atol=tol)
+
+
 @pytest.mark.parametrize("name,args", [
     ("warmuplr", (1e-3, 10)), ("constantlr", (1e-3, 10)),
     ("cosine", (2e-4, 5, 40, 1e-5)), ("square_annealing", (1e-3, 5, 40)),
