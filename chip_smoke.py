@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU: reconstruction, completion in the
-int8 and the int4 serving tiers, and the stage-1 training step.
+int8 and the int4 serving tiers, the stage-1 training step, and the
+decode-layout tools (profile_lmhead, profile_fusion).
 
     python3 chip_smoke.py
 
@@ -20,7 +21,8 @@ quantizer (quant.py).  In order it:
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, builds the bf16
-   training model and runs the stage-1 step (step 7).  Each counted run
+   training model and runs the stage-1 step (step 7); frees that and runs
+   the decode-layout tools (step 8).  Each counted run
    has every launch count set to 0 just before it and read just after, and
    prints its peak device memory.  The serving paths' conformers run at
    40 and 128 asr tokens and their S3 decode through the KV cache, below
@@ -72,8 +74,23 @@ quantizer (quant.py).  In order it:
    stack's layer-0 linear_pos / linear_q / linear_k gradients within 2e-2
    of max|plain|.  It prints the step wall (the min of the three),
    frames/s and peak memory;
-8. holds each kernel against its plain PyTorch version at the shapes the
-   three counted runs gave it, and times kernel, plain version and a
+8. the decode-layout tools (taste_spokenlm_tpu_torch/scripts), each loop
+   a CUDA graph of its decode steps and two eager loops:
+   profile_lmhead at V = 128,256, D = 2048, M = 1, 64 steps (the
+   fused-convert, logits_int8 and int4 heads), and profile_fusion at the
+   Llama-1B shapes (16 layers, 64 steps) and the S3 shapes (7 layers, 512
+   steps) in the layouts A, B, P (matmul_int8), Q (matmul_int4), R
+   (gated_mlp_int8), S (gated_mlp_int4 + matmul_int4) and C, 5 graph
+   replays each.  Checks: each eager loop's launches exactly, the path's
+   totals, the int8 head's first-step logits within 1e-3 of the
+   fused-convert head's max (argmax where the top-2 gap exceeds twice the
+   error), and a one-layer step of every layout finite and within 2e-2 of
+   max|plain| of the same step on the plain versions, P within 2e-2 of B.
+   It prints each layout's graph and eager ms a step and the share of its
+   weight bytes' HBM bound (the tools' weights make x overflow to inf /
+   NaN after a few layers; the timing does not depend on the values);
+9. holds each kernel against its plain PyTorch version at the shapes the
+   five counted runs gave it, and times kernel, plain version and a
    library call that computes the same function (CUDA events, median of 20
    after warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both
    sides do true f32 arithmetic in another summation order; the bf16 conv
@@ -96,8 +113,13 @@ quantizer (quant.py).  In order it:
    five gradients at the same tolerances of max|plain|, the backward
    bit-identical twice; p zeroed, p shifted by one row, the lengths
    ignored and dp from one batch row must each move it past 5x the
-   tolerance.  Times are at the path's lengths;
-9. prints a {"kernels": [...]} line, then, as the last line,
+   tolerance.  Times are at the path's lengths.  logits_int8 and
+   matmul_int8 at every shape of step 8 and at M = 8: 1e-3 relative to
+   max|plain| (the same exact bf16 x int8 products with f32 sums, in
+   another order), bit-identical twice; the scale rolled by one, the
+   head's last 256 rows zeroed and the contraction of the first slice only
+   must each move the output past 5x the tolerance;
+10. prints a {"kernels": [...]} line, then, as the last line,
    {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --profile
@@ -132,7 +154,7 @@ from taste_spokenlm_tpu_torch.config import TasteConfig
 from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               flash_attention, fused_dit,
                                               fused_mlp, int4_matmul,
-                                              launch_counts,
+                                              int8_matmul, launch_counts,
                                               relpos_attention,
                                               reset_launch_counts)
 from taste_spokenlm_tpu_torch.models.llama import RMSNorm
@@ -143,6 +165,7 @@ from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
+from taste_spokenlm_tpu_torch.scripts import profile_fusion, profile_lmhead
 from taste_spokenlm_tpu_torch.train import optim, train_step
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
@@ -434,12 +457,15 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
         return ((wp >> 4) | (wp << 4)).contiguous()
 
     def row(kernel, plain, args, broken, tol, n, n_bytes, flops,
-            library=None, **extra):
+            library=None, repeat=False, **extra):
         out, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
         err = rel(out, ref)
         m = args[0].shape[0]
         check(err <= tol, f"{kernel.__name__} rel err {err} > {tol} at M={m}")
+        if repeat:
+            check(torch.equal(kernel(*args), out),
+                  f"{kernel.__name__} is not bit-identical twice at M={m}")
         reach = {}
         for what, broken_args in broken.items():
             reach[what] = rel(plain(*broken_args), ref)
@@ -454,20 +480,27 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 "library_ms": None if library is None else time_ms(library),
                 "bound_ms": bnd, "bound_by": by, **extra}
 
+    def by_weight(kernel):
+        """{(d_in, d_out): {rows: launches}} from {(rows, d_in, d_out): n}."""
+        grouped = {}
+        for (m, d_in, d_out), n in launches[kernel].items():
+            grouped.setdefault((d_in, d_out), {})[m] = n
+        return sorted(grouped.items())
+
     out = []
-    llama, s3 = cfg.spoken_lm.llama, cfg.speech_decoder.llm
-    h, i = llama.hidden_size, llama.intermediate_size
-    (wg, sg), (wu, su), (wd, sd) = q8(h, i), q8(h, i), q8(i, h)
+    s3 = cfg.speech_decoder.llm
     shapes = []
-    for m, n in sorted(launches["gated_mlp_int8"].items()):
-        x = randn(m, h)
-        shapes.append(row(
-            fused_mlp.gated_mlp_int8, fused_mlp.gated_mlp_int8_plain,
-            (x, wg, sg, wu, su, wd, sd),
-            {"zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su, wd,
-                                     sd)}, 2e-2, n,
-            3 * h * i + 4 * (2 * i + h) + m * h * (2 + 4), 3 * 2 * m * h * i,
-            shape=[m, h, i]))
+    for (h, i), per_m in by_weight("gated_mlp_int8"):
+        (wg, sg), (wu, su), (wd, sd) = q8(h, i), q8(h, i), q8(i, h)
+        for m, n in sorted(per_m.items()):
+            x = randn(m, h)
+            shapes.append(row(
+                fused_mlp.gated_mlp_int8, fused_mlp.gated_mlp_int8_plain,
+                (x, wg, sg, wu, su, wd, sd),
+                {"zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su,
+                                         wd, sd)}, 2e-2, n,
+                3 * h * i + 4 * (2 * i + h) + m * h * (2 + 4),
+                3 * 2 * m * h * i, shape=[m, h, i]))
     out.append(("gated_mlp_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:102",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
@@ -503,23 +536,23 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     def nbytes4(n_in, n_out):         # packed nibbles and their f32 scales
         return n_in * n_out // 2 + 4 * n_in * n_out // int4_matmul._group(n_in)
 
-    i = llama.intermediate_size
-    (wg, sg), (wu, su) = q4(h, i), q4(h, i)
-    wd, sd, wd_flat, sd_flat, n_tiles = q4(i, h, tiled=True)
     shapes = []
-    for m, n in sorted(launches["gated_mlp_int4"].items()):
-        x = randn(m, h)
-        shapes.append(row(
-            fused_mlp.gated_mlp_int4, fused_mlp.gated_mlp_int4_plain,
-            (x, wg, sg, wu, su, wd, sd), {
-                "zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su,
-                                        wd, sd),
-                "swapped nibble planes of wd": (x, wg, sg, wu, su, swap(wd),
-                                                sd),
-                f"wd packed untiled ({n_tiles} tiles)": (
-                    x, wg, sg, wu, su, wd_flat, sd_flat)}, 2e-2, n,
-            2 * nbytes4(h, i) + nbytes4(i, h) + m * h * (2 + 4),
-            3 * 2 * m * h * i, shape=[m, h, i]))
+    for (h, i), per_m in by_weight("gated_mlp_int4"):
+        (wg, sg), (wu, su) = q4(h, i), q4(h, i)
+        wd, sd, wd_flat, sd_flat, n_tiles = q4(i, h, tiled=True)
+        for m, n in sorted(per_m.items()):
+            x = randn(m, h)
+            shapes.append(row(
+                fused_mlp.gated_mlp_int4, fused_mlp.gated_mlp_int4_plain,
+                (x, wg, sg, wu, su, wd, sd), {
+                    "zeroed gate weights": (x, torch.zeros_like(wg), sg, wu,
+                                            su, wd, sd),
+                    "swapped nibble planes of wd": (x, wg, sg, wu, su,
+                                                    swap(wd), sd),
+                    f"wd packed untiled ({n_tiles} tiles)": (
+                        x, wg, sg, wu, su, wd_flat, sd_flat)}, 2e-2, n,
+                2 * nbytes4(h, i) + nbytes4(i, h) + m * h * (2 + 4),
+                3 * 2 * m * h * i, shape=[m, h, i]))
     out.append(("gated_mlp_int4",
                 "taste_spokenlm_tpu_torch/csrc/fused_mlp_int4.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:192",
@@ -547,10 +580,7 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
 
     shapes = []
-    by_weight = {}
-    for (m, d, n_out), n in launches["matmul_int4"].items():
-        by_weight.setdefault((d, n_out), {})[m] = n
-    for (d, n_out), per_m in sorted(by_weight.items()):
+    for (d, n_out), per_m in by_weight("matmul_int4"):
         wp, scale = q4(d, n_out)
         w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
         for m, n in sorted(per_m.items()):
@@ -567,6 +597,65 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     out.append(("matmul_int4", "taste_spokenlm_tpu_torch/csrc/int4_matmul.cu",
                 "taste_spokenlm_tpu/ops/pallas/int4_matmul.py:114",
                 "rel err <= 1e-3 of max|plain|", shapes))
+
+    # int8 weight-only products: int8 in [-127, 127] with the tools' scales
+    # (the head's abs(N) * 0.01 + 0.005, the projections' (U + 0.5) / 127),
+    # at every shape of the decode-layout path and at M = 8.  Reach: the
+    # scale rolled by one; the head's last 256 table rows zeroed (the
+    # ragged end of V = 125 * 1024 + 256); the contraction of the first
+    # slice only (what the second pass gives if it sums one slice)
+    def i8(n_rows, n_cols):
+        return torch.randint(-127, 128, (n_rows, n_cols), generator=gen,
+                             device=dev, dtype=torch.int8)
+
+    shapes = []
+    for (d, v), per_m in by_weight("logits_int8"):
+        table = i8(v, d)
+        scale = torch.randn(v, generator=gen, device=dev).abs() * 0.01 + 0.005
+        zeroed = table.clone()
+        zeroed[-256:] = 0
+        w16 = (table.float() * scale[:, None]).to(torch.bfloat16)
+        for m, n in sorted({8: 0, **per_m}.items()):
+            x = randn(m, d, scale=0.1)
+            shapes.append(row(
+                int8_matmul.logits_int8, int8_matmul.logits_int8_plain,
+                (x, table, scale), {
+                    "scale rolled by one": (x, table, scale.roll(1)),
+                    "last 256 table rows zeroed": (x, zeroed, scale)},
+                1e-3, n, v * d + 4 * v + m * (2 * d + 4 * v), 2 * m * d * v,
+                library=lambda: F.linear(x, w16), repeat=True,
+                shape=[m, d, v],
+                library_call="F.linear(x_bf16, W_bf16) (dequantized once)"))
+        del table, zeroed, w16
+    out.append(("logits_int8", "taste_spokenlm_tpu_torch/csrc/int8_matmul.cu",
+                "taste_spokenlm_tpu/ops/pallas/int8_matmul.py:46",
+                "rel err <= 1e-3 of max|plain|; bit-identical twice", shapes))
+
+    shapes = []
+    for (d, n_out), per_m in by_weight("matmul_int8"):
+        w = i8(d, n_out)
+        scale = (torch.rand(n_out, generator=gen, device=dev) + 0.5) / 127.0
+        w16 = (w.float() * scale).to(torch.bfloat16)
+        for m, n in sorted({8: 0, **per_m}.items()):
+            x = randn(m, d)
+            rows = int8_matmul.split_rows(m, d, n_out, dev)
+            broken = {"scale rolled by one": (x, w, scale.roll(1))}
+            if rows < d:
+                first = x.clone()
+                first[:, rows:] = 0
+                broken[f"first of {-(-d // rows)} slices only"] = (first, w,
+                                                                   scale)
+            shapes.append(row(
+                int8_matmul.matmul_int8, int8_matmul.matmul_int8_plain,
+                (x, w, scale), broken, 1e-3, n,
+                d * n_out + 4 * n_out + m * (2 * d + 4 * n_out),
+                2 * m * d * n_out, library=lambda: x @ w16, repeat=True,
+                shape=[m, d, n_out], slice_rows=rows,
+                library_call="x_bf16 @ W_bf16 (dequantized once)"))
+        del w, w16
+    out.append(("matmul_int8", "taste_spokenlm_tpu_torch/csrc/int8_matmul.cu",
+                "taste_spokenlm_tpu/ops/pallas/int8_matmul.py:90",
+                "rel err <= 1e-3 of max|plain|; bit-identical twice", shapes))
     return out
 
 
@@ -1110,8 +1199,9 @@ def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
     per_s3 = {1: s3.num_blocks * n_s3, s3_rows: s3.num_blocks}
     h = llama.hidden_size
     mm = {(1, h, llama.vocab_size): steps}
+    gated = {(m, h, llama.intermediate_size): n for m, n in per_lm.items()}
     if tier == "int8":
-        return {"gated_mlp_int8": per_lm, "ffn_int8": per_s3, "matmul_int4": mm}
+        return {"gated_mlp_int8": gated, "ffn_int8": per_s3, "matmul_int4": mm}
     heads = llama.num_attention_heads * llama.head_dim
     qkv = heads + 2 * llama.num_key_value_heads * llama.head_dim
     d = s3.output_size
@@ -1121,7 +1211,7 @@ def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
             mm[(m, d_in, d_out)] = n
     mm[(1, cfg.speech_decoder.llm_output_size,
         cfg.speech_decoder.speech_token_size + 1)] = n_s3
-    return {"gated_mlp_int4": per_lm, "ffn_int4": per_s3, "matmul_int4": mm}
+    return {"gated_mlp_int4": gated, "ffn_int4": per_s3, "matmul_int4": mm}
 
 
 def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
@@ -1436,6 +1526,125 @@ def train_path(dev, profile: bool):
     return train_launches(cfg, len(batches)), counts
 
 
+# ---------------------------------------------------------------------------
+# the decode-layout tools
+# ---------------------------------------------------------------------------
+
+FUSION_ITERS = 5           # graph replays a layout (the tool's default: 20)
+LAYOUT_TOL = 2e-2          # one layer with kernels against plain, and P / B
+
+
+def rel_err(out, ref) -> float:
+    return ((out.float() - ref.float()).abs().max()
+            / ref.float().abs().max()).item()
+
+
+def layout_kernels(h: int, kv: int, i: int) -> dict:
+    """{layout: [(kernel, shape), ...]}: each kernel call of one layer of a
+    decode step, by layout (A, B and C call none)."""
+    fused = [(1, *sh) for sh in profile_fusion.shapes(h, kv, i)[1]]
+    return {"P": [("matmul_int8", sh) for sh in fused],
+            "Q": [("matmul_int4", sh) for sh in fused],
+            "R": [("gated_mlp_int8", (1, h, i))],
+            "S": [("gated_mlp_int4", (1, h, i)), ("matmul_int4", fused[0]),
+                  ("matmul_int4", fused[1])]}
+
+
+def layout_checks(stack: dict, dev) -> dict:
+    """One step through a one-layer stack of every layout (the tool's
+    recipe, x0 = randn): finite, and with the kernels within LAYOUT_TOL of
+    max|plain| of the same step on the plain versions; and P (matmul_int8)
+    against B (the XLA formulation) on the same int8 weights."""
+    h, kv, i = stack["h"], stack["kv"], stack["i"]
+    sets = profile_fusion.WeightSets(h, kv, i, 1, dev, seed=1)
+    x0 = torch.randn(1, h, generator=torch.Generator(device=dev).manual_seed(1),
+                     device=dev)
+    errs = {}
+    for letter, _, key in profile_fusion.LAYOUTS:
+        step, ws = profile_fusion.STEPS[letter], sets.get(key)
+        out, ref = step(x0, ws), step(x0, ws, profile_fusion.PLAIN)
+        check(bool(torch.isfinite(out).all() and torch.isfinite(ref).all()),
+              f"layout {letter} at H={h}: one layer is not finite")
+        errs[letter] = rel_err(out, ref)
+        check(errs[letter] <= LAYOUT_TOL,
+              f"layout {letter} at H={h}: kernels against plain "
+              f"{errs[letter]} > {LAYOUT_TOL}")
+    ws_b = sets.get("b")
+    p_vs_b = rel_err(profile_fusion.step_p(x0, ws_b),
+                     profile_fusion.step_b(x0, ws_b))
+    check(p_vs_b <= LAYOUT_TOL, f"layout P against B at H={h}: {p_vs_b} > "
+                                f"{LAYOUT_TOL}")
+    return {"kernels_vs_plain_rel": errs, "p_vs_b_rel": p_vs_b}
+
+
+def decode_layouts_path(dev):
+    """Path 5: profile_lmhead at full width (64 steps) and profile_fusion
+    at the Llama shapes (16 layers, 64 steps) and the S3 shapes (7 layers,
+    512 steps), each layout a CUDA graph of the loop and two eager loops.
+    Checks: each eager loop's launches exactly (P 4 L steps matmul_int8, Q
+    4 L steps matmul_int4, R L steps gated_mlp_int8, S L steps
+    gated_mlp_int4 and 2 L steps matmul_int4, A / B / C none; the int8
+    head `steps` logits_int8, the int4 head `steps` matmul_int4); the
+    path's totals against the calls the tools made (warm-up, capture,
+    eager, the head's parity call); the int8 head's first-step logits
+    within 1e-3 of the fused-convert head's max, with the argmax where the
+    top-2 gap exceeds twice the error; then, outside the counted run, one
+    layer of every layout (layout_checks).  -> ({kernel: {shape:
+    launches}}, the path's counts)."""
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    head = profile_lmhead.main([])
+    stacks = {"llama": profile_fusion.main(["--iters", str(FUSION_ITERS)]),
+              "s3": profile_fusion.main(["--s3", "--iters",
+                                         str(FUSION_ITERS)])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = {}
+
+    def add(name, shape, n):
+        per = launches.setdefault(name, {})
+        per[shape] = per.get(shape, 0) + n
+
+    steps, shape = head["steps"], (head["m"], head["d"], head["v"])
+    for key, kernel in (("xla", None), ("int8", "logits_int8"),
+                        ("int4", "matmul_int4")):
+        res = head["heads"][key]
+        want = {kernel: steps} if kernel else {}
+        check(res["launches"] == want, f"lmhead {key}: one eager loop "
+                                       f"launched {res['launches']}, not {want}")
+        if kernel:
+            add(kernel, shape, res["calls"])
+    p8 = head["parity_int8"]
+    check(p8["rel_err"] <= 1e-3, f"int8 head against the fused-convert head: "
+                                 f"rel err {p8['rel_err']} > 1e-3")
+    if p8["ref_top2_gap"] > 2 * p8["max_abs_err"]:
+        check(p8["argmax_agree"] == 1.0, f"int8 head argmax agreement "
+                                         f"{p8['argmax_agree']} < 1")
+    for name, stack in stacks.items():
+        per_layer = layout_kernels(stack["h"], stack["kv"], stack["i"])
+        n_step = stack["layers"] * stack["steps"]
+        for letter, res in stack["layouts"].items():
+            want = {}
+            for kernel, _ in per_layer.get(letter, ()):
+                want[kernel] = want.get(kernel, 0) + n_step
+            check(res["launches"] == want,
+                  f"{name} layout {letter}: one eager loop launched "
+                  f"{res['launches']}, not {want}")
+            for kernel, kshape in per_layer.get(letter, ()):
+                add(kernel, kshape, stack["layers"] * res["calls"])
+    check_counts(counts, {k: sum(v.values()) for k, v in launches.items()},
+                 "decode layouts")
+    log({"decode_layouts": {"wall_s": wall, "launches": counts,
+                            "lmhead": head, **stacks}})
+    log({"decode_layouts_checks": {
+        "int8_head_vs_fused_convert": p8,
+        "int4_head_vs_fused_convert": head["parity_int4"],
+        **{name: layout_checks(stack, dev) for name, stack in stacks.items()}}})
+    return launches, counts
+
+
 def merge_launches(*paths: dict) -> dict:
     """{kernel: {shape: launches}} summed over paths."""
     out = {}
@@ -1585,6 +1794,11 @@ def main(argv=None) -> int:
     paths.append(launches)
     all_counts.append(counts)
 
+    # ---- the decode-layout tools ----
+    launches, counts = decode_layouts_path(dev)
+    paths.append(launches)
+    all_counts.append(counts)
+
     launches = merge_launches(*paths)
     counts = {name: sum(c[name] for c in all_counts) for name in all_counts[0]}
     for name, shapes in launches.items():
@@ -1607,9 +1821,10 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "the four counted runs (reconstruction, int8 and int4 "
-                   "completion, three stage-1 steps): per-launch times x "
-                   "launches; per-shape rows in 'shapes'",
+            "per": "the five counted runs (reconstruction, int8 and int4 "
+                   "completion, three stage-1 steps, the decode-layout "
+                   "tools): per-launch times x launches; per-shape rows in "
+                   "'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})
     log({"kernels": kernels})

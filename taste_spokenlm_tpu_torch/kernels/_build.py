@@ -17,6 +17,7 @@ every module and have no nvcc.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -135,6 +136,17 @@ F32 = ctypes.c_float
 
 def ptr(t) -> int:
     return t.data_ptr()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    import torch
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return _sm_count(device.index or 0)
 
 
 def stream_of(t) -> int:

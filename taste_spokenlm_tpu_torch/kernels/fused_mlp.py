@@ -25,8 +25,6 @@ TPU's sequential grid).  `launches` counts one per call (two CUDA launches).
 
 from __future__ import annotations
 
-import functools
-
 import torch
 import torch.nn.functional as F
 
@@ -94,16 +92,11 @@ def ffn_int8_plain(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
     return (b2.float() + (a @ w2.float()) * s2.float()).reshape(*lead, d)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _splits(m: int, i: int, device) -> int:
     """How many I ranges pass 1 splits into: the most (each a multiple of
     SUB columns) with about two blocks per SM over all row tiles."""
     tiles = 1 if m == 1 else -(-m // 8)
-    target = 2 * _sm_count(device.index or 0)
+    target = 2 * _build.sm_count(device)
     n_sub = i // SUB
     return max(d for d in range(1, n_sub + 1)
                if n_sub % d == 0 and (d * tiles <= target or d == 1))
@@ -292,7 +285,7 @@ def _unit_rows(m: int, i: int, tile: int, device) -> int:
     multiple of SUBR4 dividing tile/2, so a block stays in one tile) with
     about two blocks per SM over all row tiles."""
     tiles = 1 if m == 1 else -(-m // 8)
-    target = 2 * _sm_count(device.index or 0)
+    target = 2 * _build.sm_count(device)
     half = tile // 2
     for r in range(SUBR4, half + 1, SUBR4):
         if half % r == 0 and (i // 2 // r) * tiles <= target:

@@ -11,7 +11,8 @@ import torch
 
 from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               fused_dit, fused_mlp,
-                                              int4_matmul, relpos_attention)
+                                              int4_matmul, int8_matmul,
+                                              relpos_attention)
 from taste_spokenlm_tpu_torch.quant import quantize_kernel
 
 pytestmark = pytest.mark.cuda
@@ -321,3 +322,85 @@ def test_relpos_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):        # dk 64
         relpos_attention.relpos_causal_attention(
             *(x[..., :64].contiguous() for x in xs))
+
+
+def _i8(g, *shape):
+    return torch.randint(-127, 128, shape, generator=g, dtype=torch.int8)
+
+
+@pytest.mark.parametrize("m,v,d", [(1, 128256, 2048), (4, 1000, 256),
+                                   (8, 4097, 2048), (8, 300, 8192),
+                                   (3, 33, 16)])
+def test_logits_int8_matches_plain(dev, m, v, d):
+    """Ragged V (no multiple of the 32 rows a block takes), M in {1, 3, 4,
+    8}, and D = 8192, where 8 rows of x do not fit in shared memory and
+    the kernel takes two row tiles."""
+    g = torch.Generator().manual_seed(14)
+    table = _i8(g, v, d).to(dev)
+    scale = (torch.randn(v, generator=g).abs() * 0.01 + 0.005).to(dev)
+    x = (0.1 * torch.randn(m, d, generator=g)).to(dev, torch.bfloat16)
+    out = int8_matmul.logits_int8(x, table, scale)
+    ref = int8_matmul.logits_int8_plain(x, table, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (m, v) and out.dtype == torch.float32
+    assert _rel(out, ref) <= 1e-3
+    assert torch.equal(int8_matmul.logits_int8(x, table, scale), out)
+    # the last table rows and the scales reach the output
+    zeroed = table.clone()
+    zeroed[-1:] = 0
+    moved = int8_matmul.logits_int8(x, zeroed, scale)
+    assert _rel(moved[:, -1:], ref[:, -1:]) > 0.5
+    lead = int8_matmul.logits_int8(x.reshape(1, m, d), table, scale)
+    assert torch.equal(lead[0], out)
+
+
+@pytest.mark.parametrize("m,d,n", [(1, 2048, 3072), (1, 8192, 2048),
+                                   (4, 1024, 4096), (8, 1024, 4097),
+                                   (2, 100, 1000), (13, 2048, 2048),
+                                   (1, 16, 8)])
+def test_matmul_int8_matches_plain(dev, m, d, n):
+    """N no multiple of the 256-column tile (and, at 4097, of the 8-byte
+    load), D no multiple of 8, M past 8 (two row tiles), and one slice (D
+    below 64) where the first pass applies the scale itself."""
+    g = torch.Generator().manual_seed(15)
+    w = _i8(g, d, n).to(dev)
+    scale = ((torch.rand(n, generator=g) + 0.5) / 127.0).to(dev)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    out = int8_matmul.matmul_int8(x, w, scale)
+    ref = int8_matmul.matmul_int8_plain(x, w, scale)
+    torch.cuda.synchronize()
+    assert out.shape == (m, n) and out.dtype == torch.float32
+    assert _rel(out, ref) <= 1e-3
+    assert torch.equal(int8_matmul.matmul_int8(x, w, scale), out)
+    # every slice of the contraction reaches the output
+    rows = int8_matmul.split_rows(m, d, n, dev)
+    if rows < d:
+        last = x.clone()
+        last[:, -1:] = 0
+        moved = int8_matmul.matmul_int8(last, w, scale)
+        assert not torch.equal(moved, out)
+    lead = int8_matmul.matmul_int8(x.reshape(1, m, d), w, scale)
+    assert torch.equal(lead[0], out)
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x = torch.zeros(1, 64, dtype=torch.bfloat16, device=dev)
+    table = torch.zeros(100, 64, dtype=torch.int8, device=dev)
+    scale = torch.ones(100, device=dev)
+    with pytest.raises(TypeError):         # float weights
+        int8_matmul.logits_int8(x, table.float(), scale)
+    with pytest.raises(TypeError):         # float16 scales
+        int8_matmul.logits_int8(x, table, scale.half())
+    with pytest.raises(ValueError):        # D % 16 != 0
+        int8_matmul.logits_int8(x[:, :40], table[:, :40].contiguous(), scale)
+    with pytest.raises(ValueError):        # scale does not fit
+        int8_matmul.logits_int8(x, table, scale[:99])
+    with pytest.raises(ValueError):        # weights on the CPU
+        int8_matmul.logits_int8(x, table.cpu(), scale)
+    w = torch.zeros(64, 100, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):        # not contiguous
+        int8_matmul.matmul_int8(x, table.T, scale)
+    with pytest.raises(ValueError):        # D does not fit
+        int8_matmul.matmul_int8(x[:, :32], w, scale)
+    with pytest.raises(TypeError):         # uint8 weights
+        int8_matmul.matmul_int8(x, w.to(torch.uint8), scale)

@@ -23,14 +23,15 @@ from taste_spokenlm_tpu.ops.pallas import fused_dit as jax_fused_dit
 from taste_spokenlm_tpu.ops.pallas.conv1d import conv1d_same as jax_conv1d_same
 from taste_spokenlm_tpu.ops.pallas import fused_mlp as jax_fused_mlp
 from taste_spokenlm_tpu.ops.pallas import int4_matmul as jax_int4
+from taste_spokenlm_tpu.ops.pallas import int8_matmul as jax_int8
 from taste_spokenlm_tpu.ops.pallas.flash_attention import (
     flash_attention as jax_flash_attention)
 from taste_spokenlm_tpu.ops.pallas import relpos_attention as jax_relpos
 from taste_spokenlm_tpu.utils.quant import quantize_kernel as jax_quantize_kernel
 from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
                                               fused_dit, fused_mlp,
-                                              int4_matmul, launch_counts,
-                                              relpos_attention,
+                                              int4_matmul, int8_matmul,
+                                              launch_counts, relpos_attention,
                                               reset_launch_counts)
 
 torch.set_num_threads(2)
@@ -162,12 +163,19 @@ def test_cpu_tensors_launch_no_kernel():
     xs = [torch.randn(1, 300, 1, 128, requires_grad=True) for _ in range(4)]
     xs.append(torch.randn(599, 1, 128, requires_grad=True))
     relpos_attention.relpos_causal_attention(*xs).sum().backward()
+    int8_matmul.logits_int8(torch.randn(2, 64),
+                            torch.ones(40, 64, dtype=torch.int8),
+                            torch.ones(40))
+    int8_matmul.matmul_int8(torch.randn(1, 64),
+                            torch.ones(64, 40, dtype=torch.int8),
+                            torch.ones(40))
     assert launch_counts() == {"flash_attention": 0, "fused_dit_block": 0,
                                "conv1d_same": 0, "gated_mlp_int8": 0,
                                "ffn_int8": 0, "gated_mlp_int4": 0,
                                "ffn_int4": 0, "matmul_int4": 0,
                                "relpos_causal_attention": 0,
-                               "relpos_causal_attention_bwd": 0}
+                               "relpos_causal_attention_bwd": 0,
+                               "logits_int8": 0, "matmul_int8": 0}
 
 
 def _q8(r, n_in, n_out):
@@ -226,6 +234,44 @@ def test_matmul_int4_plain_matches_pallas(lead, d, n):
                                   torch.from_numpy(np.array(scale)))
     assert got.shape == (*lead, n)
     assert _rel(got.numpy(), ref) <= 1e-3
+
+
+def _int8_inputs(seed, lead, n_w, d_w, n_scale):
+    r = np.random.RandomState(seed)
+    x = (r.randn(*lead) * 0.1).astype(np.float32)
+    w_q = r.randint(-127, 128, (n_w, d_w)).astype(np.int8)
+    scale = (np.abs(r.randn(n_scale)) * 0.01 + 1e-3).astype(np.float32)
+    return x, w_q, scale
+
+
+@pytest.mark.parametrize("lead,v,d,block_v", [
+    ((1,), 512, 128, 256), ((4,), 1024, 256, 256),   # test_pallas_int8's
+    ((2, 3), 512, 128, 128),                          # leading dims
+    ((3,), 1000, 128, 1024)])   # ragged V: the JAX block search halves to 8
+def test_logits_int8_plain_matches_pallas(lead, v, d, block_v):
+    x, w_q, scale = _int8_inputs(20, (*lead, d), v, d, v)
+    ref = np.asarray(jax_int8.logits_int8(
+        jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale),
+        block_v=block_v, interpret=True))
+    got = int8_matmul.logits_int8(*map(torch.from_numpy, (x, w_q, scale)))
+    assert got.shape == (*lead, v) and got.dtype == torch.float32
+    assert _rel(got.numpy(), ref) <= 1e-3
+    np.testing.assert_array_equal(got.numpy().argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("lead,d,n,block_n", [
+    ((1,), 128, 512, 128), ((8,), 256, 384, 128),    # test_pallas_int8's
+    ((2, 3), 128, 512, 1024),                         # leading dims
+    ((5,), 200, 1000, 1024)])   # ragged N: the JAX block search halves to 8
+def test_matmul_int8_plain_matches_pallas(lead, d, n, block_n):
+    x, w_q, scale = _int8_inputs(21, (*lead, d), d, n, n)
+    ref = np.asarray(jax_int8.matmul_int8(
+        jnp.asarray(x), jnp.asarray(w_q), jnp.asarray(scale),
+        block_n=block_n, interpret=True))
+    got = int8_matmul.matmul_int8(*map(torch.from_numpy, (x, w_q, scale)))
+    assert got.shape == (*lead, n) and got.dtype == torch.float32
+    assert _rel(got.numpy(), ref) <= 1e-3
+    np.testing.assert_array_equal(got.numpy().argmax(-1), ref.argmax(-1))
 
 
 def test_int4_packing_is_byte_identical_to_jax():
