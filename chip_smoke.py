@@ -18,6 +18,8 @@ quantizer (quant.py).  In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
+   checks in the SASS of the flash library (cuobjdump) that every bf16
+   flash kernel issues tensor-core instructions and no f32 one does;
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, builds the bf16
@@ -93,7 +95,9 @@ quantizer (quant.py).  In order it:
    five counted runs gave it, and times kernel, plain version and a
    library call that computes the same function (CUDA events, median of 20
    after warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both
-   sides do true f32 arithmetic in another summation order; the bf16 conv
+   sides do true f32 arithmetic in another summation order, (bf16) 2e-2 of
+   max|plain|; V rolled by one key and the values of the ragged last key
+   tile scaled by 100 must each move it past 5x the tolerance; the bf16 conv
    2e-2 relative to the plain version's f32-accumulated result, as both
    round to bf16 at the same points but sum in another order; the bf16
    fused DiT block 2e-2 relative on its increment out - x (the residual
@@ -103,7 +107,9 @@ quantizer (quant.py).  In order it:
    increment by more than 5x the tolerance.  The int8 / int4 kernels, with
    fan-in scaled random weights through the port's quantizer: matmul_int4
    1e-3 relative to max|plain| (both sides form the same exact bf16 x int4
-   products with f32 sums, in another order), the fused MLPs 2e-2 relative
+   products with f32 sums, in another order), bit-identical twice, and at
+   M <= 8 the contraction of its first slice only must move it past 5x the
+   tolerance; the fused MLPs 2e-2 relative
    (their bf16 activation can differ by one bf16 step where the f32 sums
    differ); and swapped nibble planes, a zeroed gate or first projection,
    and (int4) a second projection packed untiled must each move the output
@@ -140,6 +146,7 @@ import argparse
 import copy
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -215,6 +222,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def flash_tensor_cores() -> dict:
+    """{kernel: issues tensor-core instructions} for the flash kernels in
+    the built library, from its SASS (cuobjdump): every bf16 kernel must
+    issue HMMA, no f32 kernel may (the f32 path stays true f32)."""
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [tool, "-sass", _build.library_path("flash_attention")],
+        capture_output=True, text=True, check=True).stdout
+    uses = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        if "flash_kernel_" in name:
+            uses[name] = "HMMA" in chunk or "HGMMA" in chunk
+    bf16 = [u for n, u in uses.items() if "flash_kernel_bf16" in n]
+    f32 = [u for n, u in uses.items() if "flash_kernel_f32" in n]
+    check(len(bf16) == 3 and all(bf16),
+          f"flash bf16 kernels without tensor-core instructions: {uses}")
+    check(len(f32) == 3 and not any(f32),
+          f"flash f32 kernels with tensor-core instructions: {uses}")
+    return uses
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
@@ -298,7 +327,10 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
-    # flash attention: f32 in the serving tower, bf16 in the training one
+    # flash attention: f32 in the serving tower, bf16 in the training one.
+    # Reach: V rolled by one key, and the values of the ragged last key
+    # tile (T % 64 keys) scaled by 100, must each move the output past 5x
+    # the tolerance (a kernel that drops or mis-masks that tile fails)
     shapes = []
     for (b, t, h, d, dt), n in sorted(launches["flash_attention"].items()):
         f32 = dt == "float32"
@@ -307,19 +339,34 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
         out = flash_attention.flash_attention(q, k, v)
         ref = flash_attention.flash_attention_plain(q, k, v)
         torch.cuda.synchronize()
+
+        def moved(o):     # the gate's measure: max abs (f32), rel (bf16)
+            e = (o.float() - ref.float()).abs().max().item()
+            return e if f32 else e / ref.float().abs().max().item()
         err = (out.float() - ref.float()).abs().max().item()
         rel = err / ref.float().abs().max().item()
-        if f32:
-            check(err <= 1e-4, f"flash_attention max abs err {err} > 1e-4")
-        else:
-            check(rel <= 2e-2, f"flash_attention rel err {rel} > 2e-2 (bf16)")
+        tol = 1e-4 if f32 else 2e-2
+        check((err if f32 else rel) <= tol,
+              f"flash_attention err {err} (rel {rel}) > {tol} ({dt}, shape "
+              f"{[b, t, h, d]})")
+        ragged = t % 64 or 64
+        v_tail = v.clone()
+        v_tail[:, -ragged:] *= 100
+        reach = {"V rolled by one key": moved(
+                     flash_attention.flash_attention_plain(
+                         q, k, v.roll(1, dims=1))),
+                 f"last {ragged} keys' values x 100": moved(
+                     flash_attention.flash_attention_plain(q, k, v_tail))}
+        for what, e in reach.items():
+            check(e > 5 * tol, f"flash_attention check too blunt ({dt}): "
+                               f"{what} moves it only {e}")
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         bnd, by = bound_ms((4 if f32 else 2) * 4 * b * t * h * d,
                            4 * b * h * t * t * d,
                            F32_FLOPS if f32 else BF16_FLOPS)
         shapes.append({
             "shape": [b, t, h, d], "dtype": dt, "launches": n,
-            "max_abs_err": err, "rel_err": rel,
+            "max_abs_err": err, "rel_err": rel, "broken_input": reach,
             "ms": time_ms(lambda: flash_attention.flash_attention(q, k, v)),
             "plain_ms": time_ms(
                 lambda: flash_attention.flash_attention_plain(q, k, v)),
@@ -579,24 +626,41 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:312",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
 
+    # matmul_int4, bit-identical twice; at M <= 8 the contraction of the
+    # first slice alone (both nibble planes' rows of it) must move the
+    # output past 5x the tolerance, as a second pass that sums one slice
+    # would
     shapes = []
     for (d, n_out), per_m in by_weight("matmul_int4"):
         wp, scale = q4(d, n_out)
         w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
+        group = int4_matmul._group(d)
         for m, n in sorted(per_m.items()):
             check(m <= INT4_KERNEL_MAX_ROWS, f"matmul_int4 at M={m}")
             x = randn(m, d)
+            broken = {"swapped nibble planes": (x, swap(wp), scale)}
+            plan = None
+            if m <= int4_matmul.SPLIT_MAX_ROWS:
+                plan = int4_matmul.split_plan(m, d, n_out, group,
+                                              _build.sm_count(dev))
+                rows = plan[2]
+                if rows < d // 2:
+                    first = x.clone()
+                    first[:, rows:d // 2] = 0
+                    first[:, d // 2 + rows:] = 0
+                    broken[f"first of {-(-d // 2 // rows)} slices only"] = (
+                        first, wp, scale)
             shapes.append(row(
                 int4_matmul.matmul_int4, int4_matmul.matmul_int4_plain,
-                (x, wp, scale), {"swapped nibble planes": (x, swap(wp), scale)},
-                1e-3, n, nbytes4(d, n_out) + m * (2 * d + 4 * n_out),
-                2 * m * d * n_out, library=lambda: x @ w16,
-                shape=[m, d, n_out],
+                (x, wp, scale), broken, 1e-3, n,
+                nbytes4(d, n_out) + m * (2 * d + 4 * n_out),
+                2 * m * d * n_out, library=lambda: x @ w16, repeat=True,
+                shape=[m, d, n_out], lane_bytes_threads_slice_rows=plan,
                 library_call="x_bf16 @ W_bf16 (dequantized once)"))
         del wp, scale, w16
     out.append(("matmul_int4", "taste_spokenlm_tpu_torch/csrc/int4_matmul.cu",
                 "taste_spokenlm_tpu/ops/pallas/int4_matmul.py:114",
-                "rel err <= 1e-3 of max|plain|", shapes))
+                "rel err <= 1e-3 of max|plain|; bit-identical twice", shapes))
 
     # int8 weight-only products: int8 in [-127, 127] with the tools' scales
     # (the head's abs(N) * 0.01 + 0.005, the projections' (U + 0.5) / 127),
@@ -650,7 +714,7 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 (x, w, scale), broken, 1e-3, n,
                 d * n_out + 4 * n_out + m * (2 * d + 4 * n_out),
                 2 * m * d * n_out, library=lambda: x @ w16, repeat=True,
-                shape=[m, d, n_out], slice_rows=rows,
+                shape=[m, d, n_out], lane_bytes_threads_slice_rows=plan,
                 library_call="x_bf16 @ W_bf16 (dequantized once)"))
         del w, w16
     out.append(("matmul_int8", "taste_spokenlm_tpu_torch/csrc/int8_matmul.cu",
@@ -968,13 +1032,13 @@ def device_profile(run, wall_s: float):
         n, us = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    # one kernel name per counted launch: flash attention is attn_kernel
-    # with the one-pass schedule (the fused DiT's is the two-pass one); a
-    # rel-pos backward is one dq_kernel among its five launches
+    # one kernel name per counted launch: matmul_int4 is int4_kernel or
+    # int4_kernel_split; a rel-pos backward is one dq_kernel among its five
+    # launches
     expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
                 "mlp4_pass1": counts["gated_mlp_int4"] + counts["ffn_int4"],
                 "int4_kernel": counts["matmul_int4"],
-                "attn_kernel<, false>": counts["flash_attention"],
+                "flash_kernel_": counts["flash_attention"],
                 "fwd_kernel<": counts["relpos_causal_attention"],
                 "dq_kernel<": counts["relpos_causal_attention_bwd"]}
     seen = {key: sum(1 for k in kernels
@@ -1679,6 +1743,7 @@ def main(argv=None) -> int:
 
     build_s = _build.build(KERNEL_SOURCES)
     log({"build_s": build_s})
+    log({"flash_tensor_cores": flash_tensor_cores()})
 
     gen = torch.Generator(device=dev).manual_seed(0)
     t_start = t0 = time.perf_counter()

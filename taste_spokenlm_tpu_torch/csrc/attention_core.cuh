@@ -1,4 +1,5 @@
-// Attention tile kernel shared by flash_attention.cu and fused_dit.cu.
+// Attention tile kernel of fused_dit.cu (relpos_attention.cu takes its
+// helpers).  flash_attention.cu has kernels of its own.
 //
 // One CTA of 256 threads owns a 64-row query tile of one (batch, head).
 // K/V stream through shared memory in 64-key tiles, converted to f32 on
@@ -9,9 +10,11 @@
 // shuffles inside one half-warp.
 //
 // Two softmax schedules:
-//  * TWO_PASS=false (flash): online softmax in one sweep, P rounded to the
-//    input type before the P.V product, output acc / max(l, 1e-30) -- the
-//    numerics of ops/pallas/flash_attention.py.
+//  * TWO_PASS=false: online softmax in one sweep, P rounded to the input
+//    type before the P.V product, output acc / max(l, 1e-30) -- the
+//    numerics of ops/pallas/flash_attention.py.  No launch uses it since
+//    flash_attention.cu took kernels of its own; it stays, with the rest of
+//    attn_kernel, as it was.
 //  * TWO_PASS=true (fused DiT): pass 1 finds the row max and sum, pass 2
 //    forms p = exp(s - m) / max(l, 1e-30), rounds it to the input type and
 //    accumulates p.v, output rounded -- the cast points of

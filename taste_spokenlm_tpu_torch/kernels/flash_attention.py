@@ -2,18 +2,25 @@
 
 Replaces the TPU kernel ops/pallas/flash_attention.py:120 `flash_attention`
 (`_block_attn_kernel` / `_flash_kernel`) with csrc/flash_attention.cu: one
-CTA per (batch*head, 64-row query tile), K/V tiles streamed through shared
-memory, online softmax, f32 accumulation.  f32 inputs use true f32 FMAs and
-never TF32: the whisper tower runs f32 and its RVQ argmin over 512 codes
-flips on TF32-scale drift.
+CTA per (batch*head, query tile), 64-key K/V tiles streamed through shared
+memory with the next tile's copy in flight, online softmax, f32 sums.  Two
+kernels, chosen by dtype:
+  * bf16 on the tensor cores (mma.sync, 16 query rows a warp, P kept in
+    registers as the bf16 operand of P.V), the frozen encoder of the
+    stage-1 step;
+  * f32 in true f32 FMAs on the SIMT units, never TF32 or tensor cores: the
+    served whisper tower runs f32 and its RVQ argmin over 512 codes flips
+    on TF32-scale drift.  4 x 8 register blocks of S over operands stored
+    transposed in shared memory, read as float4s along rows and keys.
 
 The TPU kernel traces under DEFAULT matmul precision (the JAX package's
 ops/pallas/_precision.py); the port is held against the JAX f32 XLA path and
 against `flash_attention_plain` below, not against the TPU's arithmetic.
 
-Bound on the H100: at the whisper encoder's shape (B=1, T=1500, H=20,
-D=64, f32) the 4*T^2*D*H operations on the SIMT f32 units (67 TFLOP/s) bound
-it, not the 4 * T*H*D * 4 bytes it must move.
+Bound on the H100: the 4*T^2*D*H*B operations, not the 4 * B*T*H*D
+elements it must move: on the tensor cores in bf16 (989 TFLOP/s; 93 us at
+B=8, T=1500, H=20, D=64), on the SIMT f32 units in f32 (67 TFLOP/s; 172 us
+at B=1).
 """
 
 from __future__ import annotations

@@ -8,22 +8,33 @@ to the JAX package's: w [D, N] (int4 values in [-8, 7]) is stored as
 low-half groups first.  x is cast to bf16 and the output is f32, as on the
 TPU.
 
-Bound on the H100: the bytes (the packed weights and their scales); see the
-source note for the design.  `launches` counts CUDA launches only.
+Bound on the H100: the bytes (the packed weights and their scales).  At
+M <= 8 the kernel shares the contraction among the warps of a block and,
+where the column tiles are too few to fill the card, over blocks on
+scale-group edges, with the columns a lane owns narrowed to make more
+tiles (`split_plan` picks all three); the last block to arrive on a column
+tile adds the slices' partials in a fixed order, so two calls give the
+same bits.  Larger M takes row tiles of 8.  See the source note for the
+design.  `launches` counts CUDA launches only: one a call.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from taste_spokenlm_tpu_torch.kernels import _build
 
 DEFAULT_GROUP = 128
-_SIGNATURE = {"tsk_matmul_int4": (_build.P, _build.P, _build.P, _build.P,
-                                  _build.I, _build.I, _build.I, _build.I,
-                                  _build.I, _build.P)}
+SPLIT_MAX_ROWS = 8        # rows of x up to which the contraction is split
+WIDE_THREADS = 512        # threads of a split block at M = 1 (else 128)
+MAX_ARRIVALS = 4096       # arrival counters of a device (column x row tiles)
+_SIGNATURE = {"tsk_matmul_int4": (_build.P,) * 6 + (_build.I,) * 8
+              + (_build.P,)}
+_ARRIVALS: Dict[int, torch.Tensor] = {}
+_ARRIVALS_LOCK = threading.Lock()
 
 
 def _group(d: int, group: Optional[int] = None) -> int:
@@ -91,6 +102,52 @@ def matmul_int4_plain(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor
     return acc.reshape(*lead, n)
 
 
+def split_plan(m: int, d: int, n: int, group: int, sms: int
+               ) -> Tuple[int, int, int]:
+    """(bytes a lane loads from a packed row, threads a block, packed rows a
+    slice) of the split kernel at M = m <= SPLIT_MAX_ROWS.  A block has 8
+    lanes across its columns and threads / 8 across the slice's rows.
+
+    M = 1 takes blocks of 512 threads: as few slices as leave each lane at
+    most 16 rows, and the narrowest lanes (4, 8 or 16 bytes) whose column
+    tiles times slices still fit in one block a SM, so that the block's
+    warps, not a second block, share the contraction (the card's small
+    projections then need no partials at all).  Where even 16-byte lanes
+    give more tiles than that (the head), and at M = 2..8 (16 / MT bytes a
+    lane for MT = 2, 4 rows of x), blocks of 128 threads and as few slices
+    as give about four blocks a SM, one where the tiles alone fill the card.
+    The slices are whole scale groups: [s * rows, min((s + 1) * rows, D/2)),
+    s < ceil(D/2 / rows)."""
+    half, n_g = d // 2, d // 2 // group
+    if m == 1:
+        per = -(-n_g // min(-(-half // (WIDE_THREADS // 8 * 16)), n_g))
+        slices = -(-n_g // per)
+        for cols in (4, 8, 16):
+            if -(-n // (8 * cols)) * slices <= sms:
+                return cols, WIDE_THREADS, per * group
+    mt = 1 if m == 1 else 2 if m == 2 else 4
+    cols = 16 // mt
+    tiles = -(-n // (8 * cols)) * -(-m // mt)
+    want = min(max(1, 4 * sms // tiles), n_g)
+    return cols, 128, -(-n_g // want) * group
+
+
+def _arrivals(device: torch.device) -> torch.Tensor:
+    """The split kernel's arrival counters on `device`, zero between calls
+    (the last block on a tile resets its counter).  Made at the first call,
+    which may not be inside a CUDA graph capture."""
+    with _ARRIVALS_LOCK:
+        buf = _ARRIVALS.get(device.index)
+        if buf is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("matmul_int4: call it once on this device "
+                                   "before capturing it in a CUDA graph")
+            buf = torch.zeros(MAX_ARRIVALS, dtype=torch.int32, device=device)
+            torch.cuda.synchronize(device)
+            _ARRIVALS[device.index] = buf
+        return buf
+
+
 def matmul_int4(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor
                 ) -> torch.Tensor:
     """x [..., D] @ dequant(wp [D/2, N] uint8, scale [D/group, N] f32) ->
@@ -119,11 +176,24 @@ def matmul_int4(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor
     if m == 0:
         return out.reshape(*lead, n)
     group = half // (scale.shape[0] // 2)
-    vec = int(n % 4 == 0 and wp.data_ptr() % 4 == 0)
+    part = arrivals = None
+    cols = threads = rows = 0
+    if m <= SPLIT_MAX_ROWS:
+        cols, threads, rows = split_plan(m, d, n, group,
+                                         _build.sm_count(x.device))
+        if rows < half:        # split: then the tiles are at most 2 a SM
+            part = torch.empty((-(-half // rows), m, n), dtype=torch.float32,
+                               device=x.device)
+            arrivals = _arrivals(x.device)
+        vec = int(n % cols == 0 and wp.data_ptr() % cols == 0)
+    else:
+        vec = int(n % 4 == 0 and wp.data_ptr() % 4 == 0)
     lib = _build.load("int4_matmul", _SIGNATURE)
-    err = lib.tsk_matmul_int4(_build.ptr(xm), _build.ptr(wp), _build.ptr(scale),
-                              _build.ptr(out), m, d, n, group, vec,
-                              _build.stream_of(x))
+    err = lib.tsk_matmul_int4(
+        _build.ptr(xm), _build.ptr(wp), _build.ptr(scale),
+        None if part is None else _build.ptr(part), _build.ptr(out),
+        None if arrivals is None else _build.ptr(arrivals), m, d, n, group,
+        rows, cols, threads, vec, _build.stream_of(x))
     _build.check(err, "matmul_int4")
     matmul_int4.launches += 1
     return out.reshape(*lead, n)

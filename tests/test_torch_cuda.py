@@ -66,6 +66,47 @@ def test_flash_attention_key_lengths_match_plain(dev, causal, dtype):
     assert (out.float() - unmasked.float()).abs().max().item() > 10 * tol
 
 
+def test_flash_attention_bf16_at_the_training_shape(dev):
+    """The frozen whisper encoder of the stage-1 step: B = 8, T = 1500, 20
+    heads of 64, bf16 on the tensor cores; T = 23 x 64 + 28 ends in a
+    ragged key tile, whose values, scaled up, must reach the output."""
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (_rand(g, 8, 1500, 20, 64, dtype=torch.bfloat16).to(dev)
+               for _ in range(3))
+    out = flash_attention.flash_attention(q, k, v)
+    ref = flash_attention.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    assert _rel(out.float(), ref.float()) <= 2e-2
+    v_tail = v.clone()
+    v_tail[:, -28:] *= 100
+    moved = flash_attention.flash_attention(q, k, v_tail)
+    assert _rel(moved.float(), ref.float()) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("t", [300, 1000, 1500])
+def test_flash_attention_ragged_matches_plain(dev, t, d, dtype):
+    """T no multiple of the 64-key tile (nor of the query tile), every head
+    dim, plain and causal, with and without per-batch key lengths."""
+    g = torch.Generator().manual_seed(t + d)
+    q, k, v = (_rand(g, 2, t, 2, d, dtype=dtype).to(dev) for _ in range(3))
+    lens = torch.tensor([t, (2 * t) // 3 + 1], device=dev)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for causal in (False, True):
+        for kv_lengths in (None, lens):
+            out = flash_attention.flash_attention(
+                q, k, v, causal=causal, kv_lengths=kv_lengths)
+            ref = flash_attention.flash_attention_plain(
+                q, k, v, causal=causal, kv_lengths=kv_lengths)
+            torch.cuda.synchronize()
+            err = (out.float() - ref.float()).abs().max().item()
+            if dtype == torch.bfloat16:
+                err /= ref.float().abs().max().item()
+            assert err <= tol, (causal, kv_lengths is not None, err)
+
+
 @pytest.mark.parametrize("t,lens", [(904, (904, 700)), (452, (452, 452)),
                                     (130, (100, 130))])
 def test_fused_dit_matches_plain(dev, t, lens):
@@ -187,6 +228,67 @@ def test_matmul_int4_matches_plain(dev, m, d, n):
     assert _rel(moved, ref) > 5 * 1e-3
     lead = int4_matmul.matmul_int4(x.reshape(1, m, d), wp, scale)
     assert torch.equal(lead[0], out) and half * 2 == d
+
+
+# every M = 1 shape of the int4 paths: the Llama-1B and S3 projections,
+# fused qkv and gate-up, the Llama down projection, the tied head; and a
+# ragged N
+@pytest.mark.parametrize("d,n", [(1024, 1024), (1024, 3072), (1024, 4096),
+                                 (2048, 1024), (2048, 2048), (2048, 3072),
+                                 (8192, 2048), (2048, 16384), (2048, 128256),
+                                 (2048, 4097), (1024, 4097)])
+def test_matmul_int4_decode_shapes_match_plain(dev, d, n):
+    """M = 1 through the split contraction: within 1e-3 of the plain
+    version, the same bits twice, and the last row of the last slice (in
+    both nibble planes) reaching the output."""
+    g = torch.Generator().manual_seed(16)
+    wp, scale = int4_matmul.quantize_int4(
+        torch.randn(d, n, generator=g) * d ** -0.5)
+    wp, scale = wp.to(dev), scale.to(dev)
+    x = torch.randn(1, d, generator=g).to(dev, torch.bfloat16)
+    out = int4_matmul.matmul_int4(x, wp, scale)
+    ref = int4_matmul.matmul_int4_plain(x, wp, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-3
+    assert torch.equal(int4_matmul.matmul_int4(x, wp, scale), out)
+    last = x.clone()
+    last[:, d // 2 - 1] = 0      # the last packed row's low nibbles
+    last[:, d - 1] = 0           # and its high nibbles
+    assert not torch.equal(int4_matmul.matmul_int4(last, wp, scale), out)
+
+
+@pytest.mark.parametrize("m,d,n", [(1, 1024, 3072), (1, 8192, 2048),
+                                   (2, 2048, 2048), (5, 1024, 1000),
+                                   (8, 2048, 4096)])
+def test_matmul_int4_repeats_bit_for_bit_and_in_a_graph(dev, m, d, n):
+    """The split kernel's fixed-order sum over a cluster: two calls, and the
+    replays of a CUDA graph that captured it, give the same bits as an
+    eager call."""
+    g = torch.Generator().manual_seed(17)
+    wp, scale = int4_matmul.quantize_int4(
+        torch.randn(d, n, generator=g) * d ** -0.5)
+    wp, scale = wp.to(dev), scale.to(dev)
+    x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
+    first = int4_matmul.matmul_int4(x, wp, scale)
+    assert torch.equal(int4_matmul.matmul_int4(x, wp, scale), first)
+    assert _rel(first, int4_matmul.matmul_int4_plain(x, wp, scale)) <= 1e-3
+    static_x = x.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        int4_matmul.matmul_int4(static_x, wp, scale)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = int4_matmul.matmul_int4(static_x, wp, scale)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, first)
+    static_x.copy_(2 * x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static_out, int4_matmul.matmul_int4(2 * x, wp, scale))
 
 
 def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -236,6 +236,48 @@ def test_matmul_int4_plain_matches_pallas(lead, d, n):
     assert _rel(got.numpy(), ref) <= 1e-3
 
 
+@pytest.mark.parametrize("m,d,n,group,sms", [
+    (1, 1024, 1024, 128, 132), (1, 1024, 3072, 128, 132),
+    (1, 1024, 4096, 128, 132), (1, 2048, 1024, 128, 132),
+    (1, 2048, 3072, 128, 132), (1, 8192, 2048, 128, 132),
+    (1, 2048, 16384, 128, 132), (1, 2048, 128256, 128, 132),
+    (1, 256, 4097, 128, 132),        # D/2 is one group
+    (1, 2048, 1024, 128, 1),         # one SM: the widest lanes, one slice
+    (3, 512, 1000, 128, 132), (8, 2048, 4096, 128, 132),
+    (1, 100, 64, 50, 132),           # a group that is no power of two
+    (2, 6144, 1024, 96, 16)])
+def test_matmul_int4_split_plan(m, d, n, group, sms):
+    """The split kernel's plan: a lane width that fits MT rows of x, and
+    slices of the packed rows that are whole scale groups covering [0, D/2)
+    in order; one slice where D/2 is one group; at M = 1 in blocks of 512
+    threads, at most 16 rows a lane and one block a SM, else in blocks of
+    128, one slice where the column tiles alone fill the card, and
+    otherwise within 2x of four blocks a SM."""
+    half, n_g = d // 2, d // 2 // group
+    cols, threads, rows = int4_matmul.split_plan(m, d, n, group, sms)
+    mt = 1 if m == 1 else 2 if m == 2 else 4
+    assert cols in (4, 8, 16) and cols * mt <= 16
+    assert threads == 128 or (threads == int4_matmul.WIDE_THREADS and m == 1)
+    assert rows % group == 0 and group <= rows
+    n_split = -(-half // rows)
+    bounds = [(s * rows, min((s + 1) * rows, half)) for s in range(n_split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == half
+    assert all(r0 < r1 and r0 % group == 0 and r1 % group == 0
+               for r0, r1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    tiles = -(-n // (8 * cols)) * -(-m // mt)
+    assert n_split == 1 or tiles <= int4_matmul.MAX_ARRIVALS
+    if n_g == 1:
+        assert n_split == 1
+    if threads != 128:
+        assert tiles * n_split <= sms
+        assert rows <= threads // 8 * 16 or rows == group
+    elif tiles >= 4 * sms:
+        assert n_split == 1
+    else:
+        assert 2 * tiles * n_split >= min(4 * sms, tiles * n_g)
+
+
 def _int8_inputs(seed, lead, n_w, d_w, n_scale):
     r = np.random.RandomState(seed)
     x = (r.randn(*lead) * 0.1).astype(np.float32)
