@@ -99,7 +99,9 @@ quantizer (quant.py).  In order it:
    max|plain|; V rolled by one key and the values of the ragged last key
    tile scaled by 100 must each move it past 5x the tolerance; the bf16 conv
    2e-2 relative to the plain version's f32-accumulated result, as both
-   round to bf16 at the same points but sum in another order; the bf16
+   round to bf16 at the same points but sum in another order, bit-identical
+   twice, and the last tap zeroed, the bias dropped and the x rows of the
+   last T tile scaled by 100 must each move it past 5x the tolerance; the bf16
    fused DiT block 2e-2 relative on its increment out - x (the residual
    would hide the attention), at the path's key lengths and at ragged
    ones, with fan-in scaled weights and a peaked softmax.  The script also
@@ -450,26 +452,53 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
                  "rel err of the increment out - x <= 2e-2 over valid rows, "
                  "path and ragged lengths (bf16)", shapes))
 
-    # conv1d same, bf16, channels-last
+    # conv1d same, bf16, channels-last, the bias added in the kernel's
+    # epilogue; bit-identical twice.  Reach, each past 5x the tolerance:
+    # the last tap's weights zeroed, the bias dropped, and the x rows of
+    # the last T tile (ragged at T = 57857) scaled by 100.  The bias is at
+    # 0.3 so that dropping it shows
     shapes = []
     for (ch, t, k, d), n in launches["conv1d_same"].items():
         x = randn(B, t, ch)
         w = randn(k, ch, ch, scale=0.02)
-        bias = randn(ch, scale=0.02)
+        bias = randn(ch, scale=0.3)
         w_oik = w.permute(2, 1, 0).contiguous()
         out = conv1d.conv1d_same(x, w, bias, dilation=d)
         ref = conv1d.conv1d_same_plain(x, w, bias, dilation=d)
         torch.cuda.synchronize()
+        ref_max = ref.float().abs().max().item()
         err = (out.float() - ref.float()).abs().max().item()
-        rel = err / ref.float().abs().max().item()
+        rel = err / ref_max
         check(rel <= 2e-2, f"conv1d_same rel err {rel} > 2e-2 at "
                            f"C={ch} T={t} K={k} D={d}")
+        check(torch.equal(conv1d.conv1d_same(x, w, bias, dilation=d), out),
+              f"conv1d_same is not bit-identical twice at C={ch} T={t} "
+              f"K={k} D={d}")
+        tile = conv1d.TILES[conv1d.tile_for(t, ch, ch, _build.sm_count(dev))]
+        bm = tile[0]
+        last_tap = w.clone()
+        last_tap[-1] = 0
+        tail = x.clone()
+        tail[:, (t - 1) // bm * bm:] *= 100
+        reach = {}
+        for what, (xb, wb, bb) in {
+                "last tap zeroed": (x, last_tap, bias),
+                "bias dropped": (x, w, None),
+                f"x rows of the last {bm}-row T tile x 100": (tail, w, bias),
+        }.items():
+            moved = conv1d.conv1d_same_plain(xb, wb, bb, dilation=d)
+            reach[what] = ((moved.float() - ref.float()).abs().max().item()
+                           / ref_max)
+            check(reach[what] > 5 * 2e-2,
+                  f"conv1d_same check too blunt at C={ch} T={t} K={k} D={d}: "
+                  f"{what} moves it only {reach[what]}")
         pad = (k - 1) * d // 2
         bnd, by = bound_ms(2 * (2 * B * t * ch + k * ch * ch + ch),
                            2 * B * t * ch * ch * k, BF16_FLOPS)
         shapes.append({
             "shape": [B, t, ch], "K": k, "D": d, "dtype": "bfloat16",
             "launches": n, "max_abs_err": err, "rel_err": rel,
+            "broken_input_rel": reach, "tile_rows_channels_warps_chunk": tile,
             "ms": time_ms(lambda: conv1d.conv1d_same(x, w, bias, dilation=d)),
             "plain_ms": time_ms(lambda: conv1d.conv1d_same_plain(
                 x, w, bias, dilation=d)),
@@ -478,7 +507,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
             "bound_ms": bnd, "bound_by": by})
     rows.append(("conv1d_same", "taste_spokenlm_tpu_torch/csrc/conv1d.cu",
                  "taste_spokenlm_tpu/ops/pallas/conv1d.py:45",
-                 "rel err <= 2e-2 (bf16)", shapes))
+                 "rel err <= 2e-2 (bf16); bit-identical twice", shapes))
     rows.extend(quantized_kernel_rows(cfg, dev, gen, launches, randn))
     rows.extend(relpos_kernel_rows(dev, gen, launches))
     return rows
@@ -666,8 +695,9 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     # (the head's abs(N) * 0.01 + 0.005, the projections' (U + 0.5) / 127),
     # at every shape of the decode-layout path and at M = 8.  Reach: the
     # scale rolled by one; the head's last 256 table rows zeroed (the
-    # ragged end of V = 125 * 1024 + 256); the contraction of the first
-    # slice only (what the second pass gives if it sums one slice)
+    # ragged end of V = 125 * 1024 + 256); where split_plan splits
+    # matmul_int8, the contraction of the first slice only (what the last
+    # block on a column tile gives if it adds one slice)
     def i8(n_rows, n_cols):
         return torch.randint(-127, 128, (n_rows, n_cols), generator=gen,
                              device=dev, dtype=torch.int8)
@@ -702,7 +732,8 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
         w16 = (w.float() * scale).to(torch.bfloat16)
         for m, n in sorted({8: 0, **per_m}.items()):
             x = randn(m, d)
-            rows = int8_matmul.split_rows(m, d, n_out, dev)
+            plan = int8_matmul.split_plan(m, d, n_out, _build.sm_count(dev))
+            rows = plan[2]
             broken = {"scale rolled by one": (x, w, scale.roll(1))}
             if rows < d:
                 first = x.clone()

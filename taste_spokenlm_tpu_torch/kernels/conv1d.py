@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel ops/pallas/conv1d.py:45 `conv1d_same` (`_kernel`)
 with csrc/conv1d.cu: a grid over (T tile, Cout tile, batch); each CTA stages
-a halo'd x tile in shared memory per 32-channel slice and runs the K taps as
-WMMA products (bf16 operands, f32 accumulate) on shifted views of it.  The
-bias is added outside the kernel, after the cast to the activation dtype,
-as in JAX.  Odd (K-1)*D is rejected (torch 'same' would be asymmetric).
+the halo'd x rows of a 32-channel chunk once and runs the K taps as
+tensor-core products (mma.sync, bf16 operands, f32 sums) on row-shifted
+reads of it, the weight tiles streaming through a cp.async ring.  The sum
+is cast to x's dtype once, and the bias is added to that in the kernel's
+epilogue, in bf16 as JAX adds it outside its kernel.  Odd (K-1)*D is
+rejected (torch 'same' would be asymmetric).
 
 Bound on the H100: at the vocoder's shapes (Cin = Cout = 256 at T = 7232,
-128 at T = 57856, K in {3, 7, 11}) each output does K*Cin multiply-adds per
-2*(Cin+Cout) bytes, so the tensor-core rate bounds it.
+128 at T = 57857, K in {3, 7, 11}) each output does K*Cin multiply-adds per
+2*(Cin+Cout) bytes, so the tensor-core rate bounds it.  See the source
+note for the design.
 """
 
 from __future__ import annotations
@@ -21,9 +24,21 @@ import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.kernels import _build
 
-_SIGNATURE = {"tsk_conv1d_same": (
-    _build.P, _build.P, _build.P, _build.I, _build.I, _build.I, _build.I,
-    _build.I, _build.I, _build.P)}
+_SIGNATURE = {"tsk_conv1d_same": (_build.P,) * 4 + (_build.I,) * 7
+               + (_build.P,)}
+# the kernel's tiles: (time rows, output channels, warps, input channels a
+# chunk) of a CTA
+TILES = ((256, 128, 8, 32), (128, 64, 4, 64), (128, 64, 4, 32))
+
+
+def tile_for(t: int, cin: int, cout: int, sms: int) -> int:
+    """The kernel's tile (an index into TILES): 256 x 128 where those tiles
+    alone fill the card once (the 128-channel stage at T = 57857), else 128
+    x 64 (the 256-channel stage at T = 7232 gives 228 of them), in chunks
+    of 64 input channels where Cin allows."""
+    if cout % 128 == 0 and -(-t // 256) * (cout // 128) >= sms:
+        return 0
+    return 1 if cin % 64 == 0 else 2
 
 
 def conv1d_same_plain(x: torch.Tensor, w: torch.Tensor,
@@ -50,9 +65,9 @@ def conv1d_same_plain(x: torch.Tensor, w: torch.Tensor,
 def conv1d_same(x: torch.Tensor, w: torch.Tensor,
                 b: Optional[torch.Tensor] = None, *,
                 dilation: int = 1) -> torch.Tensor:
-    """x [B, T, Cin], w [K, Cin, Cout] -> [B, T, Cout] (same padding).  CPU
-    tensors take the plain version; CUDA tensors launch csrc/conv1d.cu
-    (bf16 only)."""
+    """x [B, T, Cin], w [K, Cin, Cout], b [Cout] or None -> [B, T, Cout]
+    (same padding).  CPU tensors take the plain version; CUDA tensors
+    launch csrc/conv1d.cu (bf16 only), bias included."""
     if x.device.type == "cpu":
         return conv1d_same_plain(x, w, b, dilation=dilation)
     if x.device.type != "cuda":
@@ -72,15 +87,24 @@ def conv1d_same(x: torch.Tensor, w: torch.Tensor,
                          f"Cin={cin}, Cout={cout})")
     if not (x.is_contiguous() and w.is_contiguous()) or w.device != x.device:
         raise ValueError("conv1d_same: x and w must be contiguous, on one device")
+    if x.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("conv1d_same: x and w must be 16-byte aligned")
+    if b is not None:
+        if b.shape != (cout,) or b.device != x.device:
+            raise ValueError(f"conv1d_same: bias {tuple(b.shape)} on "
+                             f"{b.device} does not fit Cout={cout}")
+        b = b.to(x.dtype).contiguous()
+        if b.data_ptr() % 16:
+            b = b.clone()
     lib = _build.load("conv1d", _SIGNATURE)
     y = torch.empty((bsz, t, cout), dtype=x.dtype, device=x.device)
-    err = lib.tsk_conv1d_same(_build.ptr(x), _build.ptr(w), _build.ptr(y),
-                              bsz, t, cin, cout, k, dilation,
+    err = lib.tsk_conv1d_same(_build.ptr(x), _build.ptr(w),
+                              None if b is None else _build.ptr(b),
+                              _build.ptr(y), bsz, t, cin, cout, k, dilation,
+                              tile_for(t, cin, cout, _build.sm_count(x.device)),
                               _build.stream_of(x))
     _build.check(err, "conv1d_same")
     conv1d_same.launches += 1
-    if b is not None:
-        y = y + b.to(y.dtype)
     return y
 
 

@@ -11,22 +11,30 @@ JAX block sizes (`block_v`, `block_n`) and `interpret` are TPU tiling and
 have no counterpart here.
 
 Bound on the H100: the weight bytes; see the source note for the design.
-`launches` counts one per call (`matmul_int8`: two CUDA launches where the
-contraction is split).
+`matmul_int8` is one CUDA launch for every shape: where `split_plan` splits
+the contraction, the last block on a column tile adds the slices' partials
+in a fixed order, so two calls give the same bits.  `launches` counts one
+per call.
 """
 
 from __future__ import annotations
+
+import threading
+from typing import Dict, Tuple
 
 import torch
 
 from taste_spokenlm_tpu_torch.kernels import _build
 
-TILE_N = 256              # matmul_int8: columns a block owns (kernel)
-MIN_SLICE, MAX_SLICE = 64, 2048
+ROW_STEP = 8              # matmul_int8: slices are multiples of it
+SPLIT_SLICES = 8          # matmul_int8 at M = 1: slices of a split
+MAX_ARRIVALS = 4096       # matmul_int8: arrival counters of a device
 _SIGNATURE = {
     "tsk_logits_int8": (_build.P,) * 4 + (_build.I,) * 3 + (_build.P,),
-    "tsk_matmul_int8": (_build.P,) * 5 + (_build.I,) * 5 + (_build.P,),
+    "tsk_matmul_int8": (_build.P,) * 6 + (_build.I,) * 7 + (_build.P,),
 }
+_ARRIVALS: Dict[int, torch.Tensor] = {}
+_ARRIVALS_LOCK = threading.Lock()
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -91,16 +99,66 @@ def logits_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
     return out.reshape(*x.shape[:-1], v)
 
 
-def split_rows(m: int, d: int, n: int, device) -> int:
-    """Contraction rows per slice of matmul_int8's first pass: enough slices
-    that about four blocks run per SM over all column and row tiles, each
-    a multiple of 8 rows (one per warp), at least MIN_SLICE and at most
-    MAX_SLICE (its rows of x sit in shared memory)."""
-    tiles = -(-n // TILE_N) * (1 if m <= 8 else -(-m // 8))
-    want = max(1, 4 * _build.sm_count(device) // tiles)
-    rows = -(-d // want)
-    rows = -(-rows // 8) * 8
-    return min(max(rows, MIN_SLICE), MAX_SLICE)
+def split_plan(m: int, d: int, n: int, sms: int) -> Tuple[int, int, int]:
+    """(bytes a lane loads from a weight row, threads a block, contraction
+    rows a slice) of matmul_int8.  A block has 8 lanes across its columns
+    and threads / 8 across the slice's rows, and MT = 1, 2 or 4 rows of x
+    (M = 1, 2, else 4 a row tile).
+
+    M = 1, from timings of every path shape on an H100: one slice where a
+    lane walks at most 16 rows in a block of 512 (D <= 1024), or where D <=
+    2048 and the 4-byte lanes' column tiles fill at least half the card.
+    It takes the narrowest lanes (4, 8 or 16 bytes) whose column tiles fit
+    in one wave, in blocks of 512 threads, or 1024 (512 with 16-byte
+    lanes) at D > 1024; with more tiles than SMs even at 16 bytes, blocks
+    of 512, or 128 where the tiles fill the card twice.  Otherwise (few
+    column tiles over a long contraction) 16-byte lanes and SPLIT_SLICES
+    slices, or fewer where the tiles times slices would pass the SMs, with
+    about 8 rows a lane in blocks of 128-512: the last block's sum costs
+    less than the idle SMs of one slice.  At M > 1 (16 / MT bytes a lane)
+    blocks of 128 threads and as few slices as give about four blocks a
+    SM, one where the tiles alone fill the card or would overrun the
+    arrival counters.  Slices are multiples of
+    ROW_STEP rows: [s * rows, min((s + 1) * rows, D)), s < ceil(D / rows).
+    """
+    def step(r):
+        return -(-r // ROW_STEP) * ROW_STEP
+
+    if m == 1:
+        tiles = {c: -(-n // (8 * c)) for c in (4, 8, 16)}
+        if d <= 1024 or (d <= 2048 and 2 * tiles[4] >= sms):
+            for cols in (4, 8, 16):
+                if tiles[cols] <= sms:
+                    wide = d > 1024 and cols < 16
+                    return cols, 1024 if wide else 512, step(d)
+            return 16, 512 if tiles[16] < 2 * sms else 128, step(d)
+        slices = max(1, min(SPLIT_SLICES, sms // tiles[16]))
+        rows = step(-(-d // slices))
+        threads = 128
+        while threads < 512 and threads < rows:
+            threads *= 2
+        return 16, threads, rows
+    mt = 2 if m == 2 else 4
+    cols = 16 // mt
+    tiles = -(-n // (8 * cols)) * -(-m // mt)
+    want = 1 if tiles > MAX_ARRIVALS else max(1, 4 * sms // tiles)
+    return cols, 128, step(-(-d // want))
+
+
+def _arrivals(device: torch.device) -> torch.Tensor:
+    """matmul_int8's arrival counters on `device`, zero between calls (the
+    last block on a tile resets its counter).  Made at the first call,
+    which may not be inside a CUDA graph capture."""
+    with _ARRIVALS_LOCK:
+        buf = _ARRIVALS.get(device.index)
+        if buf is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("matmul_int8: call it once on this device "
+                                   "before capturing it in a CUDA graph")
+            buf = torch.zeros(MAX_ARRIVALS, dtype=torch.int32, device=device)
+            torch.cuda.synchronize(device)
+            _ARRIVALS[device.index] = buf
+        return buf
 
 
 def matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
@@ -121,16 +179,19 @@ def matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
     m = xm.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m and n:
-        rows = split_rows(m, d, n, x.device)
-        n_split = -(-d // rows)
-        part = torch.empty((n_split, m, n) if n_split > 1 else (0,),
-                           dtype=torch.float32, device=x.device)
-        vec = int(n % 8 == 0 and w_q.data_ptr() % 8 == 0)
+        cols, threads, rows = split_plan(m, d, n, _build.sm_count(x.device))
+        part = arrivals = None
+        if rows < d:
+            part = torch.empty((-(-d // rows), m, n), dtype=torch.float32,
+                               device=x.device)
+            arrivals = _arrivals(x.device)
+        vec = int(n % cols == 0 and w_q.data_ptr() % cols == 0)
         lib = _build.load("int8_matmul", _SIGNATURE)
-        err = lib.tsk_matmul_int8(_build.ptr(xm), _build.ptr(w_q),
-                                  _build.ptr(scale), _build.ptr(part),
-                                  _build.ptr(out), m, d, n, rows, vec,
-                                  _build.stream_of(x))
+        err = lib.tsk_matmul_int8(
+            _build.ptr(xm), _build.ptr(w_q), _build.ptr(scale),
+            None if part is None else _build.ptr(part), _build.ptr(out),
+            None if arrivals is None else _build.ptr(arrivals), m, d, n, rows,
+            cols, threads, vec, _build.stream_of(x))
         _build.check(err, "matmul_int8")
         matmul_int8.launches += 1
     return out.reshape(*x.shape[:-1], n)

@@ -152,6 +152,50 @@ def test_conv1d_matches_plain(dev, t, c, k, dil):
     assert d <= 2e-2 * ref.float().abs().max().item(), d
 
 
+# the HiFT path's two extremes: the longest taps at 128 channels over a T
+# that no tile divides, and the 256-channel stage
+@pytest.mark.parametrize("t,c,k,dil", [(57857, 128, 11, 5), (7232, 256, 7, 1)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_conv1d_path_shapes_repeat_bit_for_bit(dev, t, c, k, dil, with_bias):
+    """The kernel with its bias in the epilogue (or none) within 2e-2 of
+    max|plain|, the same bits twice, and the last T tile's x rows reaching
+    the output."""
+    g = torch.Generator().manual_seed(20)
+    x = _rand(g, 1, t, c, dtype=torch.bfloat16).to(dev)
+    w = _rand(g, k, c, c, scale=0.02, dtype=torch.bfloat16).to(dev)
+    b = _rand(g, c, scale=0.3).to(dev) if with_bias else None
+    out = conv1d.conv1d_same(x, w, b, dilation=dil)
+    ref = conv1d.conv1d_same_plain(x, w, b, dilation=dil)
+    torch.cuda.synchronize()
+    assert out.shape == (1, t, c) and out.dtype == torch.bfloat16
+    assert _rel(out.float(), ref.float()) <= 2e-2
+    assert torch.equal(conv1d.conv1d_same(x, w, b, dilation=dil), out)
+    tail = x.clone()
+    tail[:, -1] = 0
+    moved = conv1d.conv1d_same(tail, w, b, dilation=dil)
+    assert not torch.equal(moved[:, -1], out[:, -1])
+    assert torch.equal(moved[:, : t - 64], out[:, : t - 64])
+
+
+# the contract beyond the HiFT shapes: a batch, 32-channel chunks (Cin =
+# 96), 64-channel output tiles (Cout = 192, 64), and K = 1 (no halo, the
+# shorter weight ring)
+@pytest.mark.parametrize("b,t,cin,cout,k,dil", [(2, 700, 96, 192, 3, 1),
+                                               (1, 1000, 128, 128, 1, 1),
+                                               (3, 300, 256, 64, 5, 2)])
+def test_conv1d_other_tiles_match_plain(dev, b, t, cin, cout, k, dil):
+    g = torch.Generator().manual_seed(21)
+    x = _rand(g, b, t, cin, dtype=torch.bfloat16).to(dev)
+    w = _rand(g, k, cin, cout, scale=0.05, dtype=torch.bfloat16).to(dev)
+    bias = _rand(g, cout, scale=0.3).to(dev)
+    out = conv1d.conv1d_same(x, w, bias, dilation=dil)
+    ref = conv1d.conv1d_same_plain(x, w, bias, dilation=dil)
+    torch.cuda.synchronize()
+    assert out.shape == (b, t, cout)
+    assert _rel(out.float(), ref.float()) <= 2e-2
+    assert torch.equal(conv1d.conv1d_same(x, w, bias, dilation=dil), out)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
     x = torch.zeros(1, 64, 96, dtype=torch.bfloat16, device=dev)
     w = torch.zeros(3, 96, 96, dtype=torch.bfloat16, device=dev)
@@ -461,9 +505,9 @@ def test_logits_int8_matches_plain(dev, m, v, d):
                                    (2, 100, 1000), (13, 2048, 2048),
                                    (1, 16, 8)])
 def test_matmul_int8_matches_plain(dev, m, d, n):
-    """N no multiple of the 256-column tile (and, at 4097, of the 8-byte
-    load), D no multiple of 8, M past 8 (two row tiles), and one slice (D
-    below 64) where the first pass applies the scale itself."""
+    """N no multiple of a column tile (and, at 4097, of the lane's load),
+    D no multiple of 8, M past 4 (row tiles), split and unsplit plans, and
+    one slice (D = 16) where the block applies the scale itself."""
     g = torch.Generator().manual_seed(15)
     w = _i8(g, d, n).to(dev)
     scale = ((torch.rand(n, generator=g) + 0.5) / 127.0).to(dev)
@@ -475,7 +519,8 @@ def test_matmul_int8_matches_plain(dev, m, d, n):
     assert _rel(out, ref) <= 1e-3
     assert torch.equal(int8_matmul.matmul_int8(x, w, scale), out)
     # every slice of the contraction reaches the output
-    rows = int8_matmul.split_rows(m, d, n, dev)
+    rows = int8_matmul.split_plan(m, d, n, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[2]
     if rows < d:
         last = x.clone()
         last[:, -1:] = 0
@@ -483,6 +528,59 @@ def test_matmul_int8_matches_plain(dev, m, d, n):
         assert not torch.equal(moved, out)
     lead = int8_matmul.matmul_int8(x.reshape(1, m, d), w, scale)
     assert torch.equal(lead[0], out)
+
+
+# every M = 1 shape of the decode-layout path: the Llama-1B and S3
+# projections, fused qkv and gate-up, the Llama down projection
+@pytest.mark.parametrize("d,n", [(1024, 1024), (1024, 3072), (1024, 4096),
+                                 (2048, 1024), (2048, 2048), (2048, 3072),
+                                 (2048, 16384), (8192, 2048)])
+def test_matmul_int8_decode_shapes_match_plain(dev, d, n):
+    """M = 1 in one launch: within 1e-3 of the plain version, the same bits
+    twice, and the last contraction row reaching the output."""
+    g = torch.Generator().manual_seed(18)
+    w = _i8(g, d, n).to(dev)
+    scale = ((torch.rand(n, generator=g) + 0.5) / 127.0).to(dev)
+    x = torch.randn(1, d, generator=g).to(dev, torch.bfloat16)
+    out = int8_matmul.matmul_int8(x, w, scale)
+    ref = int8_matmul.matmul_int8_plain(x, w, scale)
+    torch.cuda.synchronize()
+    assert _rel(out, ref) <= 1e-3
+    assert torch.equal(int8_matmul.matmul_int8(x, w, scale), out)
+    last = x.clone()
+    last[:, -1] = 0
+    assert not torch.equal(int8_matmul.matmul_int8(last, w, scale), out)
+
+
+def test_matmul_int8_split_call_replays_in_a_graph(dev):
+    """D = 8192 splits the contraction: a CUDA graph that captured the call
+    gives the eager result's bits on every replay, and follows its input."""
+    g = torch.Generator().manual_seed(19)
+    d, n = 8192, 2048
+    assert int8_matmul.split_plan(1, d, n, torch.cuda.get_device_properties(
+        dev).multi_processor_count)[2] < d
+    w = _i8(g, d, n).to(dev)
+    scale = ((torch.rand(n, generator=g) + 0.5) / 127.0).to(dev)
+    x = torch.randn(1, d, generator=g).to(dev, torch.bfloat16)
+    first = int8_matmul.matmul_int8(x, w, scale)
+    assert _rel(first, int8_matmul.matmul_int8_plain(x, w, scale)) <= 1e-3
+    static_x = x.clone()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        int8_matmul.matmul_int8(static_x, w, scale)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = int8_matmul.matmul_int8(static_x, w, scale)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, first)
+    static_x.copy_(2 * x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static_out, int8_matmul.matmul_int8(2 * x, w, scale))
 
 
 def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):

@@ -135,6 +135,35 @@ def test_conv1d_plain_matches_pallas(t, cin, cout, k, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=0)
 
 
+@pytest.mark.parametrize("t,c,k,d", [(300, 128, 7, 3), (130, 256, 11, 1)])
+def test_conv1d_plain_bf16_bias_matches_pallas(t, c, k, d):
+    """bf16 in and out, as the HiFT path runs: the f32 sum is cast to bf16
+    once and the f32 bias is added to that in bf16 (the JAX wrapper's
+    y + b.astype(y.dtype)), the cast points the kernel's fused epilogue
+    keeps.  Within one bf16 step of max|ref|, and the same bits nearly
+    everywhere; the bias added to the f32 sum before the one cast gives
+    other bits at many elements, so the check tells the two apart."""
+    r = np.random.RandomState(22)
+    x = r.randn(1, t, c).astype(np.float32)
+    w = (r.randn(k, c, c) * 0.05).astype(np.float32)
+    b = r.randn(c).astype(np.float32)
+    ref = np.asarray(jax_conv1d_same(
+        jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
+        jnp.asarray(b), dilation=d, tile=128, interpret=True
+    ).astype(jnp.float32))
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    wt = torch.from_numpy(w).to(torch.bfloat16)
+    got = conv1d.conv1d_same(xt, wt, torch.from_numpy(b), dilation=d)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, t, c)
+    got = got.float().numpy()
+    assert np.abs(got - ref).max() <= 2.0 ** -7 * np.abs(ref).max()
+    assert (got == ref).mean() >= 0.999
+    acc = conv1d.conv1d_same_plain(xt.float(), wt.float(), dilation=d)
+    bias = torch.from_numpy(b).to(torch.bfloat16).float()
+    one_cast = (acc + bias).to(torch.bfloat16).float().numpy()
+    assert (one_cast == ref).mean() < 0.9
+
+
 def test_conv1d_rejects_asymmetric_padding():
     x = torch.zeros(1, 16, 128)
     with pytest.raises(ValueError):
@@ -276,6 +305,58 @@ def test_matmul_int4_split_plan(m, d, n, group, sms):
         assert n_split == 1
     else:
         assert 2 * tiles * n_split >= min(4 * sms, tiles * n_g)
+
+
+@pytest.mark.parametrize("m,d,n,sms", [
+    (1, 1024, 1024, 132), (1, 1024, 3072, 132), (1, 1024, 4096, 132),
+    (1, 2048, 1024, 132), (1, 2048, 2048, 132), (1, 2048, 3072, 132),
+    (1, 8192, 2048, 132), (1, 2048, 16384, 132),   # the path's M = 1 shapes
+    (1, 2048, 16384, 114), (1, 8192, 2048, 114), (1, 1024, 4096, 114),
+    (1, 2048, 2048, 114),
+    (1, 2048, 128256, 132),          # more tiles than SMs
+    (1, 2048, 1024, 1),              # one SM
+    (1, 100, 64, 132), (1, 16, 8, 132),
+    (8, 1024, 1024, 132), (8, 8192, 2048, 114), (2, 100, 1000, 132),
+    (3, 2048, 3072, 132), (5, 2048, 16384, 132),
+    (13, 2048, 2048, 132), (200, 8192, 2048, 132), (4096, 2048, 16384, 132)])
+def test_matmul_int8_split_plan(m, d, n, sms):
+    """matmul_int8's plan: a lane width that fits MT rows of x, slices that
+    are multiples of a lane's row step and cover [0, D) in order, and a
+    split only where its column and row tiles have arrival counters.  At
+    M = 1: one slice up to D = 1024, and at D <= 2048 where the 4-byte
+    lanes' tiles fill half the card, the narrowest lanes that fit one wave;
+    D = 8192 splits, in 16-byte lanes, tiles times slices within one wave
+    and at most 32 rows a lane.  At M > 1 blocks of 128 and about four
+    blocks a SM."""
+    cols, threads, rows = int8_matmul.split_plan(m, d, n, sms)
+    mt = 1 if m == 1 else 2 if m == 2 else 4
+    assert cols in (4, 8, 16) and cols * mt <= 16
+    assert threads in (128, 256, 512, 1024) and (threads < 1024 or cols < 16)
+    assert rows % int8_matmul.ROW_STEP == 0 and rows > 0
+    n_split = -(-d // rows)
+    bounds = [(s * rows, min((s + 1) * rows, d)) for s in range(n_split)]
+    assert bounds[0][0] == 0 and bounds[-1][1] == d
+    assert all(r0 < r1 for r0, r1 in bounds)
+    assert all(a[1] == b[0] for a, b in zip(bounds, bounds[1:]))
+    tiles = -(-n // (8 * cols)) * -(-m // mt)
+    assert n_split == 1 or tiles <= int8_matmul.MAX_ARRIVALS
+    if m == 1:
+        if d <= 1024 or (d <= 2048 and 2 * -(-n // 32) >= sms):
+            assert n_split == 1
+            assert tiles <= sms or cols == 16
+            assert cols == 4 or -(-n // (4 * cols)) > sms
+        if d == 8192 and sms >= 2 * tiles:
+            assert n_split > 1
+        if n_split > 1:
+            assert cols == 16 and tiles * n_split <= sms
+            assert n_split <= int8_matmul.SPLIT_SLICES
+            assert rows <= threads // 8 * 32
+    else:
+        assert threads == 128
+        if tiles >= 4 * sms:
+            assert n_split == 1
+        else:
+            assert 2 * tiles * n_split >= min(4 * sms, tiles * -(-d // 8))
 
 
 def _int8_inputs(seed, lead, n_w, d_w, n_scale):
