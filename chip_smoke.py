@@ -18,8 +18,10 @@ quantizer (quant.py).  In order it:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
-   checks in the SASS of the flash library (cuobjdump) that every bf16
-   flash kernel issues tensor-core instructions and no f32 one does;
+   checks in the SASS (cuobjdump) that every bf16 flash kernel, the bf16
+   rel-pos backward's three product kernels and every DiT GEMM and
+   attention kernel issue tensor-core instructions, and that no f32 flash
+   or rel-pos kernel does;
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, builds the bf16
@@ -104,10 +106,13 @@ quantizer (quant.py).  In order it:
    last T tile scaled by 100 must each move it past 5x the tolerance; the bf16
    fused DiT block 2e-2 relative on its increment out - x (the residual
    would hide the attention), at the path's key lengths and at ragged
-   ones, with fan-in scaled weights and a peaked softmax.  The script also
-   checks that zeroed attention and an unmasked key range each move that
-   increment by more than 5x the tolerance.  The int8 / int4 kernels, with
-   fan-in scaled random weights through the port's quantizer: matmul_int4
+   ones, with fan-in scaled weights and a peaked softmax, and bit-identical
+   twice.  The script also checks that zeroed attention and an unmasked key
+   range each move that increment by more than 5x the tolerance; each DiT
+   row holds its five launches' device times (a short torch.profiler pass)
+   and the time of the same block as a chain of library calls.  The int8 /
+   int4 kernels, with fan-in scaled random weights through the port's
+   quantizer: matmul_int4
    1e-3 relative to max|plain| (both sides form the same exact bf16 x int4
    products with f32 sums, in another order), bit-identical twice, and at
    M <= 8 the contraction of its first slice only must move it past 5x the
@@ -121,10 +126,12 @@ quantizer (quant.py).  In order it:
    five gradients at the same tolerances of max|plain|, the backward
    bit-identical twice; p zeroed, p shifted by one row, the lengths
    ignored and dp from one batch row must each move it past 5x the
-   tolerance.  Times are at the path's lengths.  logits_int8 and
-   matmul_int8 at every shape of step 8 and at M = 8: 1e-3 relative to
-   max|plain| (the same exact bf16 x int8 products with f32 sums, in
-   another order), bit-identical twice; the scale rolled by one, the
+   tolerance, and p shifted by one row must move the backward's dq_v and
+   dp past it too.  Times are at the path's lengths, the backward's split
+   by launch.  logits_int8 and matmul_int8 at every shape of step 8 and
+   at M = 8: 1e-3 relative to max|plain| (the same exact bf16 x int8
+   products with f32 sums, in another order), bit-identical twice; the
+   scale rolled by one, the
    head's last 256 rows zeroed and the contraction of the first slice only
    must each move the output past 5x the tolerance;
 10. prints a {"kernels": [...]} line, then, as the last line,
@@ -132,11 +139,12 @@ quantizer (quant.py).  In order it:
 
     python3 chip_smoke.py --profile
 
-adds torch.profiler traces of one reconstruction, in each tier one joint
-decode and one synthesis, and one training step: the device's busy time,
-its idle share of the wall time, the kernels with the most device time, and
-whether the trace holds every launch that the kernels' counters saw (for
-information only: a trace that misses a launch does not fail the run).
+adds torch.profiler traces of one reconstruction and of its flow, in each
+tier one joint decode and one synthesis, and one training step: the
+device's busy time, its idle share of the wall time, the kernels with the
+most device time, and whether the trace holds every launch that the
+kernels' counters saw (for information only: a trace that misses a launch
+does not fail the run).
 
 Any failed check ends the run with a non-zero exit code and no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -226,26 +234,129 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def flash_tensor_cores() -> dict:
-    """{kernel: issues tensor-core instructions} for the flash kernels in
-    the built library, from its SASS (cuobjdump): every bf16 kernel must
-    issue HMMA, no f32 kernel may (the f32 path stays true f32)."""
+def tensor_core_check() -> dict:
+    """{group: {kernel: issues tensor-core instructions}} from the SASS
+    (cuobjdump) of the built flash, rel-pos and DiT libraries: every bf16
+    flash kernel, the bf16 rel-pos backward's three product kernels and
+    every DiT GEMM and attention kernel must issue HMMA; no f32 flash or
+    rel-pos kernel may (those routes stay true f32)."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
-    sass = subprocess.run(
-        [tool, "-sass", _build.library_path("flash_attention")],
-        capture_output=True, text=True, check=True).stdout
-    uses = {}
-    for chunk in sass.split("Function : ")[1:]:
-        name = chunk.split("\n", 1)[0].strip()
-        if "flash_kernel_" in name:
-            uses[name] = "HMMA" in chunk or "HGMMA" in chunk
-    bf16 = [u for n, u in uses.items() if "flash_kernel_bf16" in n]
-    f32 = [u for n, u in uses.items() if "flash_kernel_f32" in n]
-    check(len(bf16) == 3 and all(bf16),
-          f"flash bf16 kernels without tensor-core instructions: {uses}")
-    check(len(f32) == 3 and not any(f32),
-          f"flash f32 kernels with tensor-core instructions: {uses}")
-    return uses
+
+    def kernels(lib):
+        sass = subprocess.run([tool, "-sass", _build.library_path(lib)],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        return {chunk.split("\n", 1)[0].strip():
+                "HMMA" in chunk or "HGMMA" in chunk
+                for chunk in sass.split("Function : ")[1:]}
+    flash, relpos, dit = (kernels(lib) for lib in
+                          ("flash_attention", "relpos_attention", "fused_dit"))
+    # (kernels, expected number, must issue HMMA); "IfE" marks the float
+    # instantiations of the rel-pos templates (forward and f32 backward)
+    groups = {
+        "flash bf16": ({n: u for n, u in flash.items()
+                        if "flash_kernel_bf16" in n}, 3, True),
+        "flash f32": ({n: u for n, u in flash.items()
+                       if "flash_kernel_f32" in n}, 3, False),
+        "relpos bf16 backward": ({n: u for n, u in relpos.items()
+                                  if "_kernel_mma" in n}, 3, True),
+        "relpos f32": ({n: u for n, u in relpos.items() if "IfE" in n}, 6,
+                       False),
+        "fused_dit": ({n: u for n, u in dit.items()
+                       if "gemm_kernel" in n or "attn_kernel" in n}, 4, True),
+    }
+    for what, (uses, n, hmma) in groups.items():
+        check(len(uses) == n and all(u == hmma for u in uses.values()),
+              f"{what} kernels: expected {n}, "
+              f"{'all' if hmma else 'none'} with tensor-core instructions: "
+              f"{uses}")
+    return {what: uses for what, (uses, _, _) in groups.items()}
+
+
+def sublaunch_us(fn, labels, calls: int = 10) -> dict:
+    """Device microseconds of each launch of one fn() call, from a
+    torch.profiler trace of `calls` calls after a warm-up: {label: us}, the
+    labels naming the call's launches in their order.  If the trace does not
+    hold exactly len(labels) launches a call (the profiler can drop an
+    event), {kernel name: us per call} instead."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    out = {}
+    if len(events) == calls * len(labels):
+        for i, e in enumerate(events):
+            key = labels[i % len(labels)]
+            out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+        return out
+    for e in events:
+        key = e.name.replace("(anonymous namespace)::", "").split("(")[0]
+        out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / calls
+    return out
+
+
+DIT_LAUNCHES = ("ln1_qkv", "attention", "out_proj_residual", "ln3_mlp_in_gelu",
+                "mlp_out_residual")
+# the wrapper clamps the lengths (one elementwise launch), then five kernels
+RELPOS_BWD_LAUNCHES = ("lengths_clamp", "delta", "dq", "dk_dv", "dp_windows",
+                       "dp_sum")
+
+
+def dit_params(cfg: TasteConfig, randn) -> dict:
+    """One DiT block's flax-layout parameters at the flow's widths: fan-in
+    scaled weights with q/k at gain 2, so the softmax is peaked and the
+    attention branch is as large as the MLP branch."""
+    f = cfg.flow
+    c, inner = f.estimator_channels[-1], \
+        f.estimator_num_heads * f.estimator_attention_head_dim
+    w = lambda n_in, n_out, gain=1.0: randn(  # noqa: E731
+        n_in, n_out, scale=gain * n_in ** -0.5)
+    vec = lambda n, base=0.0: base + randn(n, scale=0.1)  # noqa: E731
+    return {"norm1": {"scale": vec(c, 1.0), "bias": vec(c)},
+            "attn1": {"to_q": {"kernel": w(c, inner, 2.0)},
+                      "to_k": {"kernel": w(c, inner, 2.0)},
+                      "to_v": {"kernel": w(c, inner)},
+                      "to_out": {"kernel": w(inner, c), "bias": vec(c)}},
+            "norm3": {"scale": vec(c, 1.0), "bias": vec(c)},
+            "ff_in": {"kernel": w(c, 4 * c), "bias": vec(4 * c)},
+            "ff_out": {"kernel": w(4 * c, c), "bias": vec(c)}}
+
+
+def dit_library_chain(params, heads: int, hd: int):
+    """The DiT block as a chain of PyTorch library calls in bf16 (a yardstick
+    for the fused kernel, not one call and not its numerics): F.layer_norm,
+    F.linear (qkv), SDPA with the key mask, F.linear + residual,
+    F.layer_norm, F.linear, F.gelu, F.linear + residual."""
+    at = params["attn1"]
+    w_qkv = torch.cat([at[n]["kernel"] for n in ("to_q", "to_k", "to_v")],
+                      dim=1).t().contiguous()
+    w_o = at["to_out"]["kernel"].t().contiguous()
+    w_1 = params["ff_in"]["kernel"].t().contiguous()
+    w_2 = params["ff_out"]["kernel"].t().contiguous()
+
+    def run(x, lengths):
+        b, t, c = x.shape
+        h = F.layer_norm(x, (c,), params["norm1"]["scale"],
+                         params["norm1"]["bias"], 1e-5)
+        q, k, v = F.linear(h, w_qkv).view(b, t, 3, heads, hd).permute(
+            2, 0, 3, 1, 4)
+        keep = (torch.arange(t, device=x.device)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        o = F.scaled_dot_product_attention(q, k, v, attn_mask=keep)
+        x = x + F.linear(o.transpose(1, 2).reshape(b, t, heads * hd), w_o,
+                         at["to_out"]["bias"])
+        h = F.layer_norm(x, (c,), params["norm3"]["scale"],
+                         params["norm3"]["bias"], 1e-5)
+        f = F.gelu(F.linear(h, w_1, params["ff_in"]["bias"]))
+        return x + F.linear(f, w_2, params["ff_out"]["bias"])
+    return run
 
 
 def bound_ms(n_bytes: float, flops: float, peak_flops: float):
@@ -325,6 +436,7 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
     runs (`launches`: {kernel: {shape: launches}}); -> (name, source,
     replaces, tolerance, per-shape rows)."""
     rows = []
+    profiled = []       # (shape row, call, launch labels, calls): traced last
 
     def randn(*shape, scale=1.0, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -380,32 +492,26 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
                  "max abs err <= 1e-4 (f32); rel err <= 2e-2 of max|plain| "
                  "(bf16)", shapes))
 
-    # fused DiT block, bf16.  Fan-in scaled weights with q/k at gain 2, so
-    # the softmax is peaked and the attention branch is as large as the MLP
-    # branch; the error is taken on the block's increment (out - x), which a
-    # wrong attention or key mask moves by far more than the tolerance (the
-    # residual x alone would hide both).
+    # fused DiT block, bf16 (dit_params: a peaked softmax and an attention
+    # branch as large as the MLP's).  The error is taken on the block's
+    # increment (out - x), which a wrong attention or key mask moves by far
+    # more than the tolerance (the residual x alone would hide both); the
+    # output must repeat bit for bit.  Each row also holds each of the five
+    # launches' device time (a short torch.profiler pass) and the time of
+    # the same block as a chain of library calls (not one call, so
+    # library_ms stays null)
     f = cfg.flow
     c, heads, hd = f.estimator_channels[-1], f.estimator_num_heads, \
         f.estimator_attention_head_dim
     inner = heads * hd
-    w = lambda n_in, n_out, gain=1.0: randn(  # noqa: E731
-        n_in, n_out, scale=gain * n_in ** -0.5)
-    vec = lambda n, base=0.0: base + randn(n, scale=0.1)  # noqa: E731
-    params = {"norm1": {"scale": vec(c, 1.0), "bias": vec(c)},
-              "attn1": {"to_q": {"kernel": w(c, inner, 2.0)},
-                        "to_k": {"kernel": w(c, inner, 2.0)},
-                        "to_v": {"kernel": w(c, inner)},
-                        "to_out": {"kernel": w(inner, c), "bias": vec(c)}},
-              "norm3": {"scale": vec(c, 1.0), "bias": vec(c)},
-              "ff_in": {"kernel": w(c, 4 * c), "bias": vec(4 * c)},
-              "ff_out": {"kernel": w(4 * c, c), "bias": vec(c)}}
+    params = dit_params(cfg, randn)
     no_attn = {**params, "attn1": {**params["attn1"], "to_v": {
         "kernel": torch.zeros_like(params["attn1"]["to_v"]["kernel"])}}}
     n_weights = sum(v.numel() for sub in params.values()
                     for v in _leaves(sub))
     block = lambda fn, x, lens, p=params: fn(  # noqa: E731
         x, lens, p, heads=heads, head_dim=hd)
+    chain = dit_library_chain(params, heads, hd)
     shapes = []
     for (t, valid), n in sorted(launches["fused_dit_block"].items()):
         x = randn(2 * B, t, c, scale=0.5)
@@ -416,10 +522,13 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
         errs = []
         for lens in (lengths, ragged):
             ref = block(fused_dit.fused_dit_block_plain, x, lens)
-            err, rel = increment_err(block(fused_dit.fused_dit_block, x, lens),
-                                     ref, x, lens)
+            out = block(fused_dit.fused_dit_block, x, lens)
+            err, rel = increment_err(out, ref, x, lens)
             check(rel <= 2e-2, f"fused_dit_block increment rel err {rel} > "
                                f"2e-2 at T={t}, lengths {lens.tolist()}")
+            check(torch.equal(block(fused_dit.fused_dit_block, x, lens), out),
+                  f"fused_dit_block is not bit-identical twice at T={t}, "
+                  f"lengths {lens.tolist()}")
             errs.append((err, rel))
         # the check sees the attention (values zeroed) and the key mask
         # (the ragged rows unmasked): each moves the increment past it
@@ -440,17 +549,20 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
             "shape": [2 * B, t, c], "valid_keys": valid,
             "ragged_keys": ragged.tolist(), "dtype": "bfloat16",
             "launches": n, "max_abs_err": max(e for e, _ in errs),
-            "rel_err": max(r for _, r in errs),
+            "rel_err": max(r for _, r in errs), "repeat_identical": True,
             "zeroed_attention_rel": attn_effect,
             "unmasked_keys_rel": mask_effect,
             "ms": time_ms(lambda: block(fused_dit.fused_dit_block, x, lengths)),
             "plain_ms": time_ms(
                 lambda: block(fused_dit.fused_dit_block_plain, x, lengths)),
+            "library_chain_ms": time_ms(lambda: chain(x, lengths)),
             "library_ms": None, "bound_ms": bnd, "bound_by": by})
+        profiled.append((shapes[-1], lambda x=x, lengths=lengths: block(
+            fused_dit.fused_dit_block, x, lengths), DIT_LAUNCHES, 10))
     rows.append(("fused_dit_block", "taste_spokenlm_tpu_torch/csrc/fused_dit.cu",
                  "taste_spokenlm_tpu/ops/pallas/fused_dit.py:110",
                  "rel err of the increment out - x <= 2e-2 over valid rows, "
-                 "path and ragged lengths (bf16)", shapes))
+                 "path and ragged lengths (bf16); bit-identical twice", shapes))
 
     # conv1d same, bf16, channels-last, the bias added in the kernel's
     # epilogue; bit-identical twice.  Reach, each past 5x the tolerance:
@@ -509,7 +621,11 @@ def kernel_rows(cfg: TasteConfig, dev, gen, launches: dict):
                  "taste_spokenlm_tpu/ops/pallas/conv1d.py:45",
                  "rel err <= 2e-2 (bf16); bit-identical twice", shapes))
     rows.extend(quantized_kernel_rows(cfg, dev, gen, launches, randn))
-    rows.extend(relpos_kernel_rows(dev, gen, launches))
+    rows.extend(relpos_kernel_rows(dev, gen, launches, profiled))
+    # the profiler passes last: a process that has run the profiler
+    # dispatches slower, which would inflate the host-bound plain times
+    for shape, fn, labels, calls in profiled:
+        shape["sublaunch_us"] = sublaunch_us(fn, labels, calls)
     return rows
 
 
@@ -754,7 +870,7 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     return out
 
 
-def relpos_kernel_rows(dev, gen, launches: dict):
+def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
     """The rel-pos attention forward and backward against their plain
     versions at the training path's shape (B, T, H, 128), bf16 (the path's
     type) and f32, with ragged lengths: o within 1e-4 abs (f32) or 2e-2 of
@@ -764,7 +880,8 @@ def relpos_kernel_rows(dev, gen, launches: dict):
     backward twice bit-identical.  Reach, each past 5x the tolerance: p
     zeroed, p shifted by one row (an off-by-one diagonal), the lengths
     ignored (the ragged rows unmasked), and dp from one batch row only.
-    -> the forward's and the backward's rows."""
+    -> the forward's and the backward's rows; each backward row's launch
+    split is appended to `profiled`, to be traced last."""
     fwd_shapes, bwd_shapes = [], []
     (b, t, h, dk, _), n_fwd = max(launches["relpos_causal_attention"].items())
     n_bwd = sum(launches["relpos_causal_attention_bwd"].values())
@@ -832,10 +949,14 @@ def relpos_kernel_rows(dev, gen, launches: dict):
         check(bool((grads[4][t:] == 0).all()), "relpos dp rows >= T not 0")
         one_row = plain_bwd(*(x[:1] for x in xs[:4]), xs[4], lens[:1],
                             o[:1], lse[:h], do[:1])[4]
-        reach_bwd = {"dp from one batch row": rel(one_row, refs[4])}
-        check(reach_bwd["dp from one batch row"] > 5 * tol,
-              f"relpos backward check too blunt ({dtype}): dp from one "
-              f"batch row moves it only {reach_bwd}")
+        off_by_one = plain_bwd(*xs[:4], shifted, lens, o, lse, do)
+        reach_bwd = {"dp from one batch row": rel(one_row, refs[4]),
+                     "p shifted by one row: dq_v": rel(off_by_one[1], refs[1]),
+                     "p shifted by one row: dp": rel(off_by_one[4], refs[4])}
+        for what, r in reach_bwd.items():
+            check(r > 5 * tol, f"relpos backward check too blunt ({dtype}): "
+                               f"{what} moves it only {r}")
+        del off_by_one
         width = 2 if not f32 else 4
         n_el, p_el = b * t * h * dk, (2 * t - 1) * h * dk
         in_bytes = width * (4 * n_el + p_el) + 4 * b    # q_u q_v k v p len
@@ -876,6 +997,9 @@ def relpos_kernel_rows(dev, gen, launches: dict):
                 lambda: relpos_attention.relpos_causal_attention_bwd(
                     *xs, lens, o, lse, do)),
             "library_ms": None, "bound_ms": bnd, "bound_by": by})
+        profiled.append((bwd_shapes[-1], lambda xs=xs, o=o_full, lse=lse_full,
+                         do=do: relpos_attention.relpos_causal_attention_bwd(
+                             *xs, full, o, lse, do), RELPOS_BWD_LAUNCHES, 3))
         del xs, o, lse, o_ref, lse_ref, grads, refs, again, do, o_full, \
             lse_full
         torch.cuda.empty_cache()
@@ -1064,14 +1188,14 @@ def device_profile(run, wall_s: float):
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     # one kernel name per counted launch: matmul_int4 is int4_kernel or
-    # int4_kernel_split; a rel-pos backward is one dq_kernel among its five
-    # launches
+    # int4_kernel_split; a rel-pos backward is one dq_kernel (dq_kernel<float>
+    # or dq_kernel_mma) among its five launches
     expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
                 "mlp4_pass1": counts["gated_mlp_int4"] + counts["ffn_int4"],
                 "int4_kernel": counts["matmul_int4"],
                 "flash_kernel_": counts["flash_attention"],
                 "fwd_kernel<": counts["relpos_causal_attention"],
-                "dq_kernel<": counts["relpos_causal_attention_bwd"]}
+                "dq_kernel": counts["relpos_causal_attention_bwd"]}
     seen = {key: sum(1 for k in kernels
                      if all(part in k.name for part in key.split(",")))
             for key in expected}
@@ -1774,7 +1898,7 @@ def main(argv=None) -> int:
 
     build_s = _build.build(KERNEL_SOURCES)
     log({"build_s": build_s})
-    log({"flash_tensor_cores": flash_tensor_cores()})
+    log({"tensor_cores": tensor_core_check()})
 
     gen = torch.Generator(device=dev).manual_seed(0)
     t_start = t0 = time.perf_counter()
@@ -1827,10 +1951,16 @@ def main(argv=None) -> int:
         "wall_s": wall, "audio_s": audio_s, "rtf": wall / audio_s,
         "s3_decode_len": dec_len, "mel_frames": mel_len, "wav_len": wav_len,
         "peak_mem_gb": peak_gb, "launches": counts}})
-    log({"stages": stage_times(model, x, out, gen)})
+    stages = stage_times(model, x, out, gen)
+    log({"stages": stages})
     if opts.profile:
         log({"device_profile": device_profile(
             lambda: reconstruct(model, x, gen), wall)})
+        tokens = torch.clamp(out["speech_token_ids"], min=0)
+        log({"flow_device_profile": device_profile(
+            lambda: model.voice_generator.flow.inference(
+                tokens, out["speech_token_lengths"], x["speaker_embeds"],
+                MEL_LEN_MAX, generator=gen), stages["flow_s"])})
 
     # the tower with kernels against the tower with the plain versions
     args = (x["audio_features"], x["asr_token_ids"], x["asr_token_lengths"],

@@ -1,28 +1,22 @@
-// Attention tile kernel of fused_dit.cu (relpos_attention.cu takes its
-// helpers).  flash_attention.cu has kernels of its own.
+// Device helpers shared by the attention kernels (flash_attention.cu,
+// fused_dit.cu, relpos_attention.cu):
+//  * the storage-type conversions and the bf16 cast point (to_f32, from_f32,
+//    round_to) and the Pallas kernels' finite -inf (kNegInf);
+//  * the bf16 tensor-core path: cp.async copies with zero fill, ldmatrix
+//    (plain and transposed), mma.sync m16n8k16 with bf16 operands and f32
+//    sums, the SFU's ex2 and the packing of two floats into a bf16 pair.
 //
-// One CTA of 256 threads owns a 64-row query tile of one (batch, head).
-// K/V stream through shared memory in 64-key tiles, converted to f32 on
-// load; every product is a true-f32 FMA (no TF32, no tensor cores), which
-// is what the f32 whisper tower needs: its RVQ argmin over 512 codes flips
-// on TF32-scale drift.  Thread (ty, tx) of a 16x16 grid owns rows
-// ty*4..ty*4+3 and the columns tx + 16*j, so row reductions are 16-lane
-// shuffles inside one half-warp.
-//
-// Two softmax schedules:
-//  * TWO_PASS=false: online softmax in one sweep, P rounded to the input
-//    type before the P.V product, output acc / max(l, 1e-30) -- the
-//    numerics of ops/pallas/flash_attention.py.  No launch uses it since
-//    flash_attention.cu took kernels of its own; it stays, with the rest of
-//    attn_kernel, as it was.
-//  * TWO_PASS=true (fused DiT): pass 1 finds the row max and sum, pass 2
-//    forms p = exp(s - m) / max(l, 1e-30), rounds it to the input type and
-//    accumulates p.v, output rounded -- the cast points of
-//    ops/pallas/fused_dit.py, which normalises before the value product.
+// The mma accumulator layout used throughout: lane (g, t4) = (lane / 4,
+// lane % 4) of a warp holds rows g and g + 8 of a 16-row tile and columns
+// 2 t4 and 2 t4 + 1 of every 8-wide column tile (c[0..1] row g, c[2..3]
+// row g + 8).  Two 8-wide accumulator tiles, rounded to bf16 and packed,
+// are one 16-wide A operand (pack order: row g, row g + 8 of the first
+// tile, then of the second).
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace tsk {
 
@@ -45,211 +39,118 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
 }
 
 constexpr float kNegInf = -1e30f;  // the Pallas kernels' finite -inf
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
-constexpr int kAttnThreads = 256;
+constexpr float kLog2e = 1.4426950408889634f;
 
-struct AttnArgs {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int H, Tq, Tk;
-  // element strides of batch, time and head; the head dim is contiguous
-  long long q_sb, q_st, q_sh;
-  long long k_sb, k_st, k_sh;
-  long long v_sb, v_st, v_sh;
-  long long o_sb, o_st, o_sh;
-  float scale;
-  int causal;
-  const int* lengths;  // per-batch valid key count, or nullptr for Tk
-};
-
-template <int D>
-constexpr int attn_smem_bytes() {
-  return (3 * kBK * (D + 1) + kBQ * (kBK + 1)) * 4;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
 }
 
-template <typename T, int D, bool TWO_PASS>
-__global__ void __launch_bounds__(kAttnThreads) attn_kernel(AttnArgs a) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + 1;
-  constexpr int LP = kBK + 1;
-  constexpr int NJ = D / 16;
-  float* Qs = smem;            // [kBQ][LD]
-  float* Ks = Qs + kBQ * LD;   // [kBK][LD]
-  float* Vs = Ks + kBK * LD;   // [kBK][LD]
-  float* Ps = Vs + kBK * LD;   // [kBQ][LP]
-
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int b = blockIdx.y / a.H, h = blockIdx.y % a.H;
-  const int q0 = blockIdx.x * kBQ;
-  const T* q = (const T*)a.q + b * a.q_sb + h * a.q_sh;
-  const T* k = (const T*)a.k + b * a.k_sb + h * a.k_sh;
-  const T* v = (const T*)a.v + b * a.v_sb + h * a.v_sh;
-  T* o = (T*)a.o + b * a.o_sb + h * a.o_sh;
-  int kv_len = a.Tk;
-  if (a.lengths != nullptr) kv_len = min(max(a.lengths[b], 0), a.Tk);
-
-  for (int idx = tid; idx < kBQ * D; idx += kAttnThreads) {
-    const int r = idx / D, d = idx % D, row = q0 + r;
-    Qs[r * LD + d] = row < a.Tq ? to_f32(q[row * a.q_st + d]) : 0.f;
-  }
-  int n_tiles = (a.Tk + kBK - 1) / kBK;
-  if (a.causal) n_tiles = min(n_tiles, (q0 + kBQ - 1) / kBK + 1);
-
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  }
-
-  auto load_tile = [&](int k0, bool with_v) {
-    for (int idx = tid; idx < kBK * D; idx += kAttnThreads) {
-      const int r = idx / D, d = idx % D, col = k0 + r;
-      const bool in = col < a.Tk;
-      Ks[r * LD + d] = in ? to_f32(k[col * a.k_st + d]) : 0.f;
-      if (with_v) Vs[r * LD + d] = in ? to_f32(v[col * a.v_st + d]) : 0.f;
-    }
-  };
-
-  // s[i][j] = masked q_row . k_col * scale for this thread's 4x4 entries
-  auto scores = [&](int k0, float (&s)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qs[(ty * 4 + i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = col < kv_len && (!a.causal || col <= row);
-        s[i][j] = ok ? s[i][j] * a.scale : kNegInf;
-      }
-    }
-  };
-
-  auto row_max = [&](float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-    return x;
-  };
-  auto row_sum = [&](float x) {
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      x += __shfl_xor_sync(0xffffffffu, x, off);
-    return x;
-  };
-
-  // acc += P . V over one tile (P in Ps)
-  auto pv = [&]() {
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pa[4], vb[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Ps[(ty * 4 + i) * LP + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vb[j] = Vs[kk * LD + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pa[i], vb[j], acc[i][j]);
-    }
-  };
-
-  float s[4][4];
-  if (TWO_PASS) {
-    for (int t = 0; t < n_tiles; ++t) {
-      __syncthreads();
-      load_tile(t * kBK, false);
-      __syncthreads();
-      scores(t * kBK, s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mx = s[i][0];
-#pragma unroll
-        for (int j = 1; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-        const float m_new = fmaxf(m[i], row_max(mx));
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sum += expf(s[i][j] - m_new);
-        l[i] = l[i] * expf(m[i] - m_new) + row_sum(sum);
-        m[i] = m_new;
-      }
-    }
-  }
-  for (int t = 0; t < n_tiles; ++t) {
-    __syncthreads();
-    load_tile(t * kBK, true);
-    __syncthreads();
-    scores(t * kBK, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float* prow = Ps + (ty * 4 + i) * LP + tx;
-      if (TWO_PASS) {
-        const float inv = 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          prow[16 * j] = round_to<T>(expf(s[i][j] - m[i]) * inv);
-      } else {
-        float mx = s[i][0];
-#pragma unroll
-        for (int j = 1; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-        const float m_new = fmaxf(m[i], row_max(mx));
-        const float alpha = expf(m[i] - m_new);
-        float sum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float p = expf(s[i][j] - m_new);
-          sum += p;
-          prow[16 * j] = round_to<T>(p);
-        }
-        l[i] = l[i] * alpha + row_sum(sum);
-        m[i] = m_new;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] *= alpha;
-      }
-    }
-    __syncthreads();
-    pv();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= a.Tq) continue;
-    const float inv = TWO_PASS ? 1.f : 1.f / fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      o[row * a.o_st + tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
-  }
+// copy `BYTES` (16 or 4) from global to shared memory, or zeros when !in
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
+  if (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(in ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(in ? 4 : 0)
+                 : "memory");
 }
 
-// Launch attn_kernel<T, D, TWO_PASS> on `stream`; returns cudaGetLastError().
-template <typename T, int D, bool TWO_PASS>
-int launch_attention(const AttnArgs& a, int batch, cudaStream_t stream) {
-  constexpr int smem = attn_smem_bytes<D>();
-  cudaFuncSetAttribute(attn_kernel<T, D, TWO_PASS>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  dim3 grid((a.Tq + kBQ - 1) / kBQ, batch * a.H);
-  attn_kernel<T, D, TWO_PASS><<<grid, kAttnThreads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a (16 x 16, row) . b (16 x 8, col), bf16 operands, f32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Operand addresses for one warp, `ld` the row stride in elements:
+//  * a_rows: A (16 x 16 at k-offset kk) from a row-major [m][k] tile;
+//  * a_cols: A from a k-major [k][m] tile (ldsm_x4_trans), m-offset m0;
+//  * b_rows: B fragments of two 8-wide n tiles (n0, n0 + 8) from an [n][k]
+//    tile (ldsm_x4: r[0..1] the first tile, r[2..3] the second);
+//  * b_cols: the same from a k-major [k][n] tile (ldsm_x4_trans).
+__device__ __forceinline__ const bf16* a_rows(const bf16* t, int ld, int m0,
+                                              int kk, int lane) {
+  return t + (m0 + (lane & 15)) * ld + kk + (lane >> 4) * 8;
+}
+__device__ __forceinline__ const bf16* a_cols(const bf16* t, int ld, int m0,
+                                              int kk, int lane) {
+  return t + (kk + (lane & 7) + (lane >> 4) * 8) * ld + m0 +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const bf16* b_rows(const bf16* t, int ld, int n0,
+                                              int kk, int lane) {
+  return t + (n0 + (lane & 7) + (lane >> 4) * 8) * ld + kk +
+         ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const bf16* b_cols(const bf16* t, int ld, int n0,
+                                              int kk, int lane) {
+  return t + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + n0 +
+         (lane >> 4) * 8;
+}
+
+// 2^x by the SFU's ex2 (about 2 ulp; flushes results below 2^-126 to 0,
+// far under what a bf16 P or an f32 row sum keeps of them)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the low and the high bf16 of a packed pair, as f32 (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the A operand of k-step kk (16 columns = accumulator tiles 2 kk, 2 kk + 1)
+// from f32 accumulators, rounded to bf16
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4],
+                                       const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
 }
 
 }  // namespace tsk

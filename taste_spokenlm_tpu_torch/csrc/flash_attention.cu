@@ -37,16 +37,12 @@
 //     so every operand is a float4 along rows or keys; the chunks are XOR
 //     swizzled, so neither the transposing 4-byte copies nor the float4
 //     reads meet a bank conflict.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "attention_core.cuh"
+
+using namespace tsk;
 
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
-constexpr float kNegInf = -1e30f;  // the Pallas kernel's finite -inf
-constexpr float kLog2e = 1.4426950408889634f;
 constexpr int BK = 64;             // keys a tile
 
 struct Args {
@@ -59,35 +55,6 @@ struct Args {
   int causal;
   const int* lengths;  // per-batch valid key count, or nullptr for Tk
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// copy `bytes` (16 or 4) from global to shared memory, or zeros when !in
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool in) {
-  if (BYTES == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(in ? 16 : 0)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                     smem_addr(dst)),
-                 "l"(src), "r"(in ? 4 : 0)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups are still in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Number of key tiles a query tile [q0, q0 + BQ) visits: the keys up to the
 // valid length (all Tk when it is 0, as the Pallas kernel sees them), and
@@ -104,45 +71,6 @@ __device__ __forceinline__ int key_tiles(const Args& a, int kv_len, int q0,
 // ---------------------------------------------------------------------------
 // bf16 on the tensor cores
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a (16 x 16, row) . b (16 x 8, col), bf16 operands, f32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 2^x by the SFU's ex2 (about 2 ulp; flushes results below 2^-126 to 0,
-// far under what a bf16 P or an f32 row sum keeps of them)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int D>
 struct Bf16Tile {

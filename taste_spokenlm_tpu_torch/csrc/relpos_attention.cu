@@ -14,22 +14,20 @@
 //
 // Layout: q_u, q_v, k, v, o, dO, dq_u, dq_v, dk, dv [B, T, H, 128]; p, dp
 // [2T-1, H, 128]; lse, delta f32 [B*H, T]; lengths int32 [B] (clamped to
-// [0, T] by the wrapper); dp_part f32 [B, T, H, 128] scratch.  One template
-// for f32 and bf16 operands; every product is a true f32 FMA on the SIMT
-// units (no TF32, no tensor cores in this first version), operands are
-// widened to f32 on their way into shared memory.
+// [0, T] by the wrapper); dp_part and pg scratch (tsk_relpos_bwd).
 //
 // Bound on the H100: operations (~3 T^2 dk B H forward and ~8 T^2 dk B H
-// backward over the causal half) at the stage-1 shape B=8, T=1599, H=8;
-// the kernels run them at the SIMT f32 rate, so they sit well above the
-// tensor-core bound until a later version moves the products to wgmma.
+// backward over the causal half) at the stage-1 shape B=8, T=1599, H=8.
 //
-// Launches (one CTA of 256 threads per tile, 1 CTA per SM for the shared
-// memory; causal pruning: a query tile visits key tiles k0 <= q0 only):
+// Forward, and the whole float32 route: SIMT kernels, one CTA of 256
+// threads per 64 x 64 tile, 1 CTA per SM for the shared memory, every
+// product a true f32 FMA (no TF32, no tensor cores), operands widened to f32
+// on their way into shared memory; causal pruning: a query tile visits key
+// tiles k0 <= q0 only.
 //   fwd:      (B*H, query tile): online softmax, o in the operand dtype and
 //             lse = m + log(max(l, 1e-30)) in f32, acc / max(l, 1e-30) as
 //             the TPU kernel (a row with no valid key gives 0);
-//   bwd:      five launches and no float atomics, so the gradients repeat
+//   bwd f32:  five launches and no float atomics, so the gradients repeat
 //             bit for bit: delta = rowsum(dO . o) per row; dq_u, dq_v per
 //             (B*H, query tile); dk, dv per (B*H, key tile); dp per (B*H,
 //             tile of 64 diagonals delta = i - j) into dp_part[b]; then dp =
@@ -37,6 +35,8 @@
 //             g = prob (dO . v - delta) / sqrt(dk) and rounds prob and g to
 //             the operand dtype before its products (the TPU kernel's cast
 //             points, relpos_attention.py:197-221).
+// The bfloat16 backward runs its products on the tensor cores: see "bf16
+// backward" below.
 #include "attention_core.cuh"
 
 using namespace tsk;
@@ -73,6 +73,7 @@ struct Args {
   void *dqu, *dqv, *dk, *dv, *dp;
   float* delta;
   float* dp_part;
+  bf16* pg;          // bf16 route: prob and g of every tile pair
   int B, T, H;
 };
 
@@ -694,6 +695,471 @@ __global__ void __launch_bounds__(NT) dp_reduce_kernel(Args a) {
   ((T*)a.dp)[idx] = from_f32<T>(x);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on the tensor cores (mma.sync m16n8k16, f32 sums)
+//
+// Four warps, each owning 16 rows of a 64 x 64 (query, key) tile.  For a
+// tile pair the table window is Pw[w] = p[(T-1) - q0 - 63 + k0 + w], w < 128,
+// and score (r, c) takes Pw[63 - r + c].  Warp wi's rows reach the 80 window
+// rows wb = 48 - 16 wi .. wb + 79, so it forms X = Qv . Pw[wb..wb+79]^T
+// (16 x 80, f32) on the tensor cores and reads the bd term of row rl, key c
+// as X[rl][15 - rl + c] from its own shared scratch: the TPU kernel's
+// _skew_left as one offset read.  The same offset in the other direction
+// is its _skew_right: gw[rl][15 - rl + c] = g[rl][c] (bf16, zero elsewhere)
+// and dq_v += gw . Pw[wb..wb+79].
+//
+//   dq_kernel_mma   (query tile, b*h): scores, prob and g of every key tile
+//                   j <= i (K, V and the window through a two-stage cp.async
+//                   ring); dq_u += g . K (g from registers as the A operand),
+//                   dq_v += gw . Pw; prob and g, rounded to bf16, are stored
+//                   per tile pair for the next two launches;
+//   dkv_kernel_mma  (key tile, b*h): dv += prob^T . dO, dk += g^T . q_u over
+//                   the stored tiles of the query tiles i >= j;
+//   dp_kernel_mma   (tile diagonal dd = (q0 - k0) / 64, b*h): every pair of
+//                   the diagonal reads the same window, so dPw += gW^T . q_v
+//                   (128 x 128) with gW[r][63 - r + c] = g[r][c] summed over
+//                   the diagonal into dp_part[b][dd];
+//   dp_sum_kernel:  dp[(T-1) - delta] = sum over b, then over the two
+//                   diagonals whose windows hold delta, in that order.
+// Every sum has a fixed order: no atomics, the gradients repeat bit for bit.
+// ---------------------------------------------------------------------------
+
+constexpr int NW = 4;                 // warps of the mma kernels
+constexpr int NTB = 32 * NW;          // their threads
+constexpr int LDB = D + 8;            // bf16 stride of a 128-wide row (272 B)
+constexpr int LDT = BT + 8;           // bf16 stride of a 64-wide row (144 B)
+constexpr int LDX = 88;               // f32 stride of X, bf16 stride of gw
+constexpr int kTileB = BT * LDB;      // elements of a staged 64-row operand
+constexpr int kPair = BT * BT;        // elements of a stored prob or g tile
+constexpr int kXs = 16 * LDX;         // floats of a warp's scratch
+
+__host__ __device__ __forceinline__ int n_pairs(int nq) {
+  return nq * (nq + 1) / 2;
+}
+__device__ __forceinline__ int pair_of(int qt, int kt) {
+  return qt * (qt + 1) / 2 + kt;
+}
+
+// rows r0 .. r0+n-1 of a [rows, 128] bf16 operand with row stride `rs`
+// into shared [n][LDB]; rows outside [0, hi) are zero-filled
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
+                                        long long rs, int r0, int n, int hi) {
+  for (int i = threadIdx.x; i < n * (D / 8); i += NTB) {
+    const int r = i / (D / 8), c = i % (D / 8), g = r0 + r;
+    const bool in = g >= 0 && g < hi;
+    cp_async<16>(dst + r * LDB + c * 8, src + (in ? g * rs : 0) + c * 8, in);
+  }
+}
+
+// a stored 64 x 64 bf16 tile into shared [64][LDT]
+__device__ __forceinline__ void cp_pair(bf16* dst, const bf16* src) {
+  for (int i = threadIdx.x; i < BT * (BT / 8); i += NTB) {
+    const int r = i / (BT / 8), c = i % (BT / 8);
+    cp_async<16>(dst + r * LDT + c * 8, src + r * BT + c * 8, true);
+  }
+}
+
+// the shared operands of one (query tile, key tile) pair
+struct PairTiles {
+  const bf16 *qu, *qv, *dO;   // [64][LDB], query rows q0..
+  const bf16 *k, *v;          // [64][LDB], key rows k0..
+  const bf16* pw;             // [128][LDB], the table window
+  const float *lse, *dl;      // [64] of the query rows
+};
+
+// prob and g of the warp's 16 query rows against the 64 keys, in the
+// accumulator layout (masked entries 0): s = (ac + bd) / sqrt(dk), prob =
+// exp(s - lse), g = prob (dO . v - delta) / sqrt(dk), all f32, the Pallas
+// kernel's arithmetic.  xs is the warp's scratch; it is free on return.
+__device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
+                                            int q0, int k0, int len, int T,
+                                            float (&prob)[8][4],
+                                            float (&g)[8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t4 = lane & 3, r16 = warp * 16;
+  {  // X = Qv . Pw[wb + n]^T, n < 80
+    const int wb = 48 - r16;
+    float x[10][4];
+#pragma unroll
+    for (int j = 0; j < 10; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D; kk += 16) {
+      uint32_t a[4];
+      ldsm_x4(a, a_rows(t.qv, LDB, r16, kk, lane));
+#pragma unroll
+      for (int j = 0; j < 10; j += 2) {
+        uint32_t b[4];
+        ldsm_x4(b, b_rows(t.pw, LDB, wb + j * 8, kk, lane));
+        mma_bf16(x[j], a, b[0], b[1]);
+        mma_bf16(x[j + 1], a, b[2], b[3]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 10; ++j) {
+      *reinterpret_cast<float2*>(xs + gr * LDX + j * 8 + 2 * t4) =
+          make_float2(x[j][0], x[j][1]);
+      *reinterpret_cast<float2*>(xs + (gr + 8) * LDX + j * 8 + 2 * t4) =
+          make_float2(x[j][2], x[j][3]);
+    }
+  }
+  // ac = Qu . K^T
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) prob[j][e] = g[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, a_rows(t.qu, LDB, r16, kk, lane));
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_rows(t.k, LDB, j * 8, kk, lane));
+      mma_bf16(prob[j], a, b[0], b[1]);
+      mma_bf16(prob[j + 1], a, b[2], b[3]);
+    }
+  }
+  __syncwarp();
+  const float lse0 = t.lse[r16 + gr], lse1 = t.lse[r16 + gr + 8];
+  const float dl0 = t.dl[r16 + gr], dl1 = t.dl[r16 + gr + 8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = gr + 8 * (e >> 1), c = j * 8 + 2 * t4 + (e & 1);
+      const int row = q0 + r16 + rl, col = k0 + c;
+      const bool ok = col <= row && col < len && row < T;
+      const float s = (prob[j][e] + xs[rl * LDX + 15 - rl + c]) * kScale;
+      prob[j][e] = ok ? expf(s - (e >> 1 ? lse1 : lse0)) : 0.f;
+    }
+  __syncwarp();
+  // dO . V^T, then g
+#pragma unroll
+  for (int kk = 0; kk < D; kk += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, a_rows(t.dO, LDB, r16, kk, lane));
+#pragma unroll
+    for (int j = 0; j < 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_rows(t.v, LDB, j * 8, kk, lane));
+      mma_bf16(g[j], a, b[0], b[1]);
+      mma_bf16(g[j + 1], a, b[2], b[3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      g[j][e] = prob[j][e] * (g[j][e] - (e >> 1 ? dl1 : dl0)) * kScale;
+}
+
+// acc (16 rows x 128, accumulator layout) -> rows r0.. of a [*, 128] bf16
+// operand with row stride rs; rows at or past `hi` are not written
+__device__ __forceinline__ void store_rows(bf16* out, long long rs, int r0,
+                                           int hi, const float (&acc)[16][4]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = r0 + gr + 8 * half;
+    if (row >= hi) continue;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + row * rs + j * 8 + 2 * t4) =
+          __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
+  }
+}
+
+constexpr int kDqMmaSmem = (3 * kTileB + 2 * 4 * kTileB) * 2 + NW * kXs * 4 +
+                           2 * BT * 4;
+
+__global__ void __launch_bounds__(NTB, 1) dq_kernel_mma(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qu = reinterpret_cast<bf16*>(smem_raw);   // [64][LDB]
+  bf16* Qv = Qu + kTileB;                         // [64][LDB]
+  bf16* dO = Qv + kTileB;                         // [64][LDB]
+  bf16* ring = dO + kTileB;                       // 2 x {K, V, Pw (2 tiles)}
+  float* xs_all = reinterpret_cast<float*>(ring + 8 * kTileB);
+  float* lse = xs_all + NW * kXs;                 // [64]
+  float* dl = lse + BT;                           // [64]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int T_ = a.T, nq = (T_ + BT - 1) / BT;
+  const int qt = nq - 1 - blockIdx.x, q0 = qt * BT;   // long rows first
+  const long long rs = (long long)a.H * D;
+  const long long off = (long long)b * T_ * rs + (long long)h * D;
+  const bf16* k = (const bf16*)a.k + off;
+  const bf16* v = (const bf16*)a.v + off;
+  const bf16* p = (const bf16*)a.p + (long long)h * D;
+  const int len = a.len[b];
+  const int n_k = len > 0 ? min(qt, (len - 1) / BT) + 1 : 0;
+
+  cp_rows(Qu, (const bf16*)a.qu + off, rs, q0, BT, T_);
+  cp_rows(Qv, (const bf16*)a.qv + off, rs, q0, BT, T_);
+  cp_rows(dO, (const bf16*)a.dO + off, rs, q0, BT, T_);
+  if (tid < BT) {
+    const bool in = q0 + tid < T_;
+    lse[tid] = in ? a.lse[(long long)bh * T_ + q0 + tid] : 0.f;
+    dl[tid] = in ? a.delta[(long long)bh * T_ + q0 + tid] : 0.f;
+  }
+  auto load = [&](int kt) {
+    bf16* st = ring + (kt & 1) * 4 * kTileB;
+    cp_rows(st, k, rs, kt * BT, BT, T_);
+    cp_rows(st + kTileB, v, rs, kt * BT, BT, T_);
+    cp_rows(st + 2 * kTileB, p, rs, (T_ - 1) - q0 - 63 + kt * BT, 2 * BT, T_);
+  };
+  if (n_k > 0) load(0);
+  cp_commit();
+
+  const int gr = lane >> 2, t4 = lane & 3, r16 = warp * 16, wb = 48 - r16;
+  float* xs = xs_all + warp * kXs;
+  bf16* gw = reinterpret_cast<bf16*>(xs);        // [16][LDX] after X is read
+  bf16* pg = a.pg + ((long long)bh * n_pairs(nq) + pair_of(qt, 0)) * 2 * kPair;
+  float dqu[16][4], dqv[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dqu[j][e] = dqv[j][e] = 0.f;
+
+  for (int kt = 0; kt < n_k; ++kt) {
+    if (kt + 1 < n_k) load(kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* st = ring + (kt & 1) * 4 * kTileB;
+    const PairTiles t{Qu, Qv, dO, st, st + kTileB, st + 2 * kTileB, lse, dl};
+    float prob[8][4], g[8][4];
+    pair_prob_g(t, xs, q0, kt * BT, len, T_, prob, g);
+
+    // prob and g in bf16 for dkv_kernel_mma and dp_kernel_mma
+    bf16* pt = pg + (long long)kt * 2 * kPair;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int at = (r16 + gr + 8 * half) * BT + j * 8 + 2 * t4;
+        *reinterpret_cast<__nv_bfloat162*>(pt + at) = __floats2bfloat162_rn(
+            prob[j][2 * half], prob[j][2 * half + 1]);
+        *reinterpret_cast<__nv_bfloat162*>(pt + kPair + at) =
+            __floats2bfloat162_rn(g[j][2 * half], g[j][2 * half + 1]);
+      }
+    // dq_u += g . K
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t ga[4];
+      pack_a(ga, g[2 * kk], g[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, b_cols(t.k, LDB, j * 8, kk * 16, lane));
+        mma_bf16(dqu[j], ga, f[0], f[1]);
+        mma_bf16(dqu[j + 1], ga, f[2], f[3]);
+      }
+    }
+    // gw[rl][15 - rl + c] = g[rl][c], zero elsewhere in [0, 80)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = gr + 8 * (e >> 1), c = j * 8 + 2 * t4 + (e & 1);
+        gw[rl * LDX + 15 - rl + c] = __float2bfloat16(g[j][e]);
+      }
+    {
+      const int rl = lane & 15;
+      const int u0 = lane < 16 ? 0 : 79 - rl, u1 = lane < 16 ? 15 - rl : 80;
+      for (int u = u0; u < u1; ++u) gw[rl * LDX + u] = __float2bfloat16(0.f);
+    }
+    __syncwarp();
+    // dq_v += gw . Pw[wb..wb+79]
+#pragma unroll
+    for (int kk = 0; kk < 80; kk += 16) {
+      uint32_t ga[4];
+      ldsm_x4(ga, a_rows(gw, LDX, 0, kk, lane));
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, b_cols(t.pw + wb * LDB, LDB, j * 8, kk, lane));
+        mma_bf16(dqv[j], ga, f[0], f[1]);
+        mma_bf16(dqv[j + 1], ga, f[2], f[3]);
+      }
+    }
+    __syncthreads();   // the stage is refilled in the next iteration
+  }
+  store_rows((bf16*)a.dqu + off, rs, q0 + r16, T_, dqu);
+  store_rows((bf16*)a.dqv + off, rs, q0 + r16, T_, dqv);
+}
+
+constexpr int kDkvStage = 2 * BT * LDT + 2 * kTileB;   // P, G, dO, Qu
+constexpr int kDkvMmaSmem = 2 * kDkvStage * 2;
+
+__global__ void __launch_bounds__(NTB, 2) dkv_kernel_mma(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int T_ = a.T, nq = (T_ + BT - 1) / BT, kt = blockIdx.x;
+  const long long rs = (long long)a.H * D;
+  const long long off = (long long)b * T_ * rs + (long long)h * D;
+  const bf16* qu = (const bf16*)a.qu + off;
+  const bf16* dOg = (const bf16*)a.dO + off;
+  const bf16* pg = a.pg + (long long)bh * n_pairs(nq) * 2 * kPair;
+  const int len = a.len[b];
+  const int qt0 = kt * BT < len ? kt : nq;   // keys past len: no gradient
+
+  auto load = [&](int qt) {
+    bf16* st = ring + ((qt - qt0) & 1) * kDkvStage;
+    const bf16* pt = pg + (long long)pair_of(qt, kt) * 2 * kPair;
+    cp_pair(st, pt);
+    cp_pair(st + BT * LDT, pt + kPair);
+    cp_rows(st + 2 * BT * LDT, dOg, rs, qt * BT, BT, T_);
+    cp_rows(st + 2 * BT * LDT + kTileB, qu, rs, qt * BT, BT, T_);
+  };
+  if (qt0 < nq) load(qt0);
+  cp_commit();
+
+  const int r16 = warp * 16;
+  float dk[16][4], dv[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+  for (int qt = qt0; qt < nq; ++qt) {
+    if (qt + 1 < nq) load(qt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* P = ring + ((qt - qt0) & 1) * kDkvStage;
+    const bf16* G = P + BT * LDT;
+    const bf16* dO = G + BT * LDT;
+    const bf16* Qu = dO + kTileB;
+    // dv += prob^T . dO, dk += g^T . q_u over the 64 query rows
+#pragma unroll
+    for (int kk = 0; kk < BT; kk += 16) {
+      uint32_t ap[4], ag[4];
+      ldsm_x4_trans(ap, a_cols(P, LDT, r16, kk, lane));
+      ldsm_x4_trans(ag, a_cols(G, LDT, r16, kk, lane));
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, b_cols(dO, LDB, j * 8, kk, lane));
+        mma_bf16(dv[j], ap, f[0], f[1]);
+        mma_bf16(dv[j + 1], ap, f[2], f[3]);
+        ldsm_x4_trans(f, b_cols(Qu, LDB, j * 8, kk, lane));
+        mma_bf16(dk[j], ag, f[0], f[1]);
+        mma_bf16(dk[j + 1], ag, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  store_rows((bf16*)a.dk + off, rs, kt * BT + r16, T_, dk);
+  store_rows((bf16*)a.dv + off, rs, kt * BT + r16, T_, dv);
+}
+
+constexpr int kDpStage = BT * LDT + kTileB;            // G, Qv
+constexpr int kDpMmaSmem = (kTileB + 2 * kDpStage) * 2;
+
+__global__ void __launch_bounds__(NTB, 2) dp_kernel_mma(Args a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* GW = reinterpret_cast<bf16*>(smem_raw);   // [64][LDB]: gW[r][w]
+  bf16* ring = GW + kTileB;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int T_ = a.T, nq = (T_ + BT - 1) / BT, dd = blockIdx.x;
+  const long long rs = (long long)a.H * D;
+  const long long off = (long long)b * T_ * rs + (long long)h * D;
+  const bf16* qv = (const bf16*)a.qv + off;
+  const bf16* pg = a.pg + (long long)bh * n_pairs(nq) * 2 * kPair;
+  const int len = a.len[b];
+  // pairs (kt + dd, kt) with a valid key tile
+  const int n_it = len > 0 ? min(nq - dd, (len - 1) / BT + 1) : 0;
+
+  auto load = [&](int kt) {
+    bf16* st = ring + (kt & 1) * kDpStage;
+    cp_pair(st, pg + ((long long)pair_of(kt + dd, kt) * 2 + 1) * kPair);
+    cp_rows(st + BT * LDT, qv, rs, (kt + dd) * BT, BT, T_);
+  };
+  if (n_it > 0) load(0);
+  cp_commit();
+  // gW's nonzeros sit at the same places for every pair: zero it once
+  for (int i = tid; i < kTileB / 8; i += NTB)
+    reinterpret_cast<uint4*>(GW)[i] = make_uint4(0, 0, 0, 0);
+
+  float acc[2][16][4];
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][j][e] = 0.f;
+  for (int kt = 0; kt < n_it; ++kt) {
+    if (kt + 1 < n_it) load(kt + 1);
+    cp_commit();
+    cp_wait<1>();
+    __syncthreads();
+    const bf16* G = ring + (kt & 1) * kDpStage;
+    const bf16* Qv = G + BT * LDT;
+    for (int i = tid; i < kPair; i += NTB) {
+      const int r = i / BT, c = i % BT;
+      GW[r * LDB + 63 - r + c] = G[r * LDT + c];
+    }
+    __syncthreads();
+    // dPw[w] += sum_r gW[r][w] q_v[r]: warp wi owns w = 32 wi .. 32 wi + 31
+#pragma unroll
+    for (int kk = 0; kk < BT; kk += 16) {
+      uint32_t a0[4], a1[4];
+      ldsm_x4_trans(a0, a_cols(GW, LDB, warp * 32, kk, lane));
+      ldsm_x4_trans(a1, a_cols(GW, LDB, warp * 32 + 16, kk, lane));
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, b_cols(Qv, LDB, j * 8, kk, lane));
+        mma_bf16(acc[0][j], a0, f[0], f[1]);
+        mma_bf16(acc[0][j + 1], a0, f[2], f[3]);
+        mma_bf16(acc[1][j], a1, f[0], f[1]);
+        mma_bf16(acc[1][j + 1], a1, f[2], f[3]);
+      }
+    }
+    __syncthreads();
+  }
+  // dp_part[b][dd][w][h][:] (f32), every w written
+  const int gr = lane >> 2, t4 = lane & 3, nt = nq;
+  float* part = a.dp_part + ((long long)(b * nt + dd) * 2 * BT * a.H + h) * D;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int w = warp * 32 + m * 16 + gr + 8 * half;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<float2*>(part + (long long)w * a.H * D + j * 8 +
+                                   2 * t4) =
+            make_float2(acc[m][j][2 * half], acc[m][j][2 * half + 1]);
+    }
+}
+
+// dp[(T-1) - delta] = sum over b, then over the diagonals dd whose window
+// w = 63 + 64 dd - delta lies in [0, 126]; rows T..2T-2 are 0
+__global__ void __launch_bounds__(256) dp_sum_kernel(Args a) {
+  const long long hd = (long long)a.H * D;
+  const long long idx = (long long)blockIdx.x * 256 + threadIdx.x;
+  if (idx >= (2LL * a.T - 1) * hd) return;
+  const int r = (int)(idx / hd);
+  const long long col = idx % hd;
+  const int nt = (a.T + BT - 1) / BT;
+  float x = 0.f;
+  if (r < a.T) {
+    const int delta = a.T - 1 - r;
+    const int lo = delta / 64;
+    const int hi = min(nt - 1, (delta + 63) / 64);
+    for (int b = 0; b < a.B; ++b)
+      for (int dd = lo; dd <= hi; ++dd)
+        x += a.dp_part[((long long)(b * nt + dd) * 2 * BT + 63 + 64 * dd -
+                        delta) * hd + col];
+  }
+  ((bf16*)a.dp)[idx] = __float2bfloat16(x);
+}
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -709,24 +1175,45 @@ int run_fwd(const Args& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int run_bwd(const Args& a, cudaStream_t s) {
-  int err = set_smem(dq_kernel<T>, kDqSmem);
-  if (!err) err = set_smem(dkv_kernel<T>, kDkvSmem);
-  if (!err) err = set_smem(dp_kernel<T>, kDpSmem);
+// f32: the SIMT kernels
+int run_bwd_f32(const Args& a, cudaStream_t s) {
+  int err = set_smem(dq_kernel<float>, kDqSmem);
+  if (!err) err = set_smem(dkv_kernel<float>, kDkvSmem);
+  if (!err) err = set_smem(dp_kernel<float>, kDpSmem);
   if (err) return err;
   const int nt = (a.T + BT - 1) / BT;
   const long long rows = (long long)a.B * a.H * a.T;
-  delta_kernel<T><<<(unsigned)((rows * 32 + NT - 1) / NT), NT, 0, s>>>(a);
+  delta_kernel<float><<<(unsigned)((rows * 32 + NT - 1) / NT), NT, 0, s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  dq_kernel<T><<<dim3(nt, a.B * a.H), NT, kDqSmem, s>>>(a);
+  dq_kernel<float><<<dim3(nt, a.B * a.H), NT, kDqSmem, s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  dkv_kernel<T><<<dim3(nt, a.B * a.H), NT, kDkvSmem, s>>>(a);
+  dkv_kernel<float><<<dim3(nt, a.B * a.H), NT, kDkvSmem, s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
-  dp_kernel<T><<<dim3(nt, a.B * a.H), NT, kDpSmem, s>>>(a);
+  dp_kernel<float><<<dim3(nt, a.B * a.H), NT, kDpSmem, s>>>(a);
   if ((err = (int)cudaGetLastError())) return err;
   const long long n = (2LL * a.T - 1) * a.H * D;
-  dp_reduce_kernel<T><<<(unsigned)((n + NT - 1) / NT), NT, 0, s>>>(a);
+  dp_reduce_kernel<float><<<(unsigned)((n + NT - 1) / NT), NT, 0, s>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// bf16: the tensor-core kernels
+int run_bwd_bf16(const Args& a, cudaStream_t s) {
+  int err = set_smem(dq_kernel_mma, kDqMmaSmem);
+  if (!err) err = set_smem(dkv_kernel_mma, kDkvMmaSmem);
+  if (!err) err = set_smem(dp_kernel_mma, kDpMmaSmem);
+  if (err) return err;
+  const int nt = (a.T + BT - 1) / BT;
+  const long long rows = (long long)a.B * a.H * a.T;
+  delta_kernel<bf16><<<(unsigned)((rows * 32 + NT - 1) / NT), NT, 0, s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dq_kernel_mma<<<dim3(nt, a.B * a.H), NTB, kDqMmaSmem, s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dkv_kernel_mma<<<dim3(nt, a.B * a.H), NTB, kDkvMmaSmem, s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  dp_kernel_mma<<<dim3(nt, a.B * a.H), NTB, kDpMmaSmem, s>>>(a);
+  if ((err = (int)cudaGetLastError())) return err;
+  const long long n = (2LL * a.T - 1) * a.H * D;
+  dp_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, s>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -749,26 +1236,48 @@ extern "C" int tsk_relpos_fwd(const void* qu, const void* qv, const void* k,
   return (int)cudaErrorInvalidValue;
 }
 
+// The backward's scratch in bytes, in tsk_relpos_bwd's order and layouts
+// (below): bytes[0] delta, bytes[1] pg, bytes[2] dp_part, each a long long.
+extern "C" int tsk_relpos_bwd_scratch(int dtype, int B, int T, int H,
+                                      void* bytes) {
+  long long* n = (long long*)bytes;
+  const int nt = (T + BT - 1) / BT;
+  n[0] = 4LL * B * H * T;
+  if (dtype == 0) {
+    n[1] = 0;
+    n[2] = 4LL * B * T * H * D;
+  } else if (dtype == 1) {
+    n[1] = 2LL * B * H * n_pairs(nt) * 2 * kPair;
+    n[2] = 4LL * B * nt * 2 * BT * H * D;
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
 // Backward: dq_u, dq_v, dk, dv (operand dtype, [B, T, H, 128]) and dp
 // (operand dtype, [2T-1, H, 128], summed over the batch) from the forward's
-// inputs, o, lse and dO; delta (f32 [B*H, T]) and dp_part (f32
-// [B, T, H, 128]) are scratch.  Returns cudaGetLastError().
+// inputs, o, lse and dO.  Scratch: delta (f32 [B*H, T]); dp_part, f32,
+// [B, T, H, 128] for float32 and [B, nt, 128, H, 128] for bfloat16 (nt =
+// ceil(T / 64) tile diagonals, 128 window rows each); pg (bfloat16 only:
+// prob and g, bf16 64 x 64 each, of the nt (nt + 1) / 2 tile pairs of each
+// b*h; null for float32).  Returns cudaGetLastError().
 extern "C" int tsk_relpos_bwd(const void* qu, const void* qv, const void* k,
                               const void* v, const void* p,
                               const void* lengths, const void* o,
                               const void* lse, const void* dO, void* dqu,
                               void* dqv, void* dk, void* dv, void* dp,
-                              void* delta, void* dp_part, int dtype, int B,
-                              int T, int H, void* stream) {
+                              void* delta, void* pg, void* dp_part, int dtype,
+                              int B, int T, int H, void* stream) {
   Args a = {};
   a.qu = qu; a.qv = qv; a.k = k; a.v = v; a.p = p;
   a.len = (const int*)lengths;
   a.o = o; a.lse = (const float*)lse; a.dO = dO;
   a.dqu = dqu; a.dqv = dqv; a.dk = dk; a.dv = dv; a.dp = dp;
-  a.delta = (float*)delta; a.dp_part = (float*)dp_part;
+  a.delta = (float*)delta; a.dp_part = (float*)dp_part; a.pg = (bf16*)pg;
   a.B = B; a.T = T; a.H = H;
   cudaStream_t s = (cudaStream_t)stream;
-  if (dtype == 0) return run_bwd<float>(a, s);
-  if (dtype == 1) return run_bwd<bf16>(a, s);
+  if (dtype == 0) return run_bwd_f32(a, s);
+  if (dtype == 1) return run_bwd_bf16(a, s);
   return (int)cudaErrorInvalidValue;
 }

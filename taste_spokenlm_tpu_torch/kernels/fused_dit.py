@@ -6,18 +6,22 @@ Replaces the TPU kernel ops/pallas/fused_dit.py:110 `fused_dit_block`
 f32 score tensor per head in VMEM, which does not fit a Hopper SM's shared
 memory, so the CUDA version is a chain of five launches per block: LN1 +
 q/k/v product, masked two-pass-softmax attention, out-projection + bias +
-residual, LN3 + MLP-in + GELU, MLP-out + bias + residual.  The products run
-on the tensor cores (WMMA, bf16 operands, f32 accumulate).
+residual, LN3 + MLP-in + GELU, MLP-out + bias + residual.  Every product
+runs on the tensor cores (mma.sync, bf16 operands, f32 sums): the GEMMs
+over a cp.async ring of weight tiles, the LN statistics taken from the
+staged rows; the attention with its query fragments and P in registers,
+two passes over the keys (row max and sum, then the normalised P . V).
 
 It keeps the TPU kernel's numerics, which differ from the unfused block:
 flax fast variance E[x^2] - mu^2 clamped at 0, the Abramowitz-Stegun erf in
 the GELU, and bf16 casts after LN, after each projection, after the
 normalised softmax and after each residual branch.  `launches` counts one
-per block (five CUDA launches).
+per block (five CUDA launches); the output repeats bit for bit.
 
 Bound on the H100: at the flow's shapes (B=2, T=904 or 452, C=256, 8 heads
-x 64, MLP 1024) the block does far more operations than bytes it moves; the
-attention's SIMT f32 work is the larger share.
+x 64, MLP 1024) the block does far more operations than bytes it moves, a
+few microseconds of tensor-core work; the chain of small launches is
+bound by latency.
 """
 
 from __future__ import annotations
@@ -28,8 +32,7 @@ from taste_spokenlm_tpu_torch.kernels import _build
 
 NEG_INF = -1e30
 _SIGNATURE = {"tsk_fused_dit_block": (
-    _build.P, _build.P, _build.I, _build.I, _build.I, _build.I, _build.I,
-    *([_build.P] * 19))}
+    _build.P, _build.P, *([_build.I] * 5), *([_build.P] * 16))}
 
 
 def layer_norm_fast_var(x, scale, bias, eps: float = 1e-5):
@@ -109,34 +112,33 @@ def fused_dit_block(x, lengths, params, *, heads: int, head_dim: int):
     if x.dtype != torch.bfloat16 or any(p.dtype != torch.bfloat16 for p in plist):
         raise TypeError("fused_dit_block: the CUDA kernel takes bfloat16 "
                         "activations and weights")
-    if head_dim != 64 or c % 64 or inner % 64:
-        raise ValueError(f"fused_dit_block: needs head_dim 64 and C, inner "
-                         f"multiples of 64 (got {head_dim}, {c}, {inner})")
+    if head_dim != 64 or c % 64 or inner % 128:
+        raise ValueError(f"fused_dit_block: needs head_dim 64, C % 64 == 0 and "
+                         f"inner % 128 == 0 (got {head_dim}, {c}, {inner})")
     shapes = [(c,), (c,), (c, inner), (c, inner), (c, inner), (inner, c),
               (c,), (c,), (c,), (c, 4 * c), (4 * c,), (4 * c, c), (c,)]
     for p, shape in zip(plist, shapes):
         if tuple(p.shape) != shape or not p.is_contiguous() \
-                or p.device != x.device:
+                or p.device != x.device or p.data_ptr() % 16:
             raise ValueError(f"fused_dit_block: parameter of shape "
                              f"{tuple(p.shape)} on {p.device}, expected a "
-                             f"contiguous {shape} on {x.device}")
-    if not x.is_contiguous():
-        raise ValueError("fused_dit_block: x must be contiguous")
+                             f"contiguous, 16-byte aligned {shape} on "
+                             f"{x.device}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("fused_dit_block: x must be contiguous and 16-byte "
+                         "aligned")
     if tuple(lengths.shape) != (b,):
         raise ValueError(f"fused_dit_block: lengths shape {tuple(lengths.shape)}")
     lens = lengths.to(device=x.device, dtype=torch.int32).contiguous()
     lib = _build.load("fused_dit", _SIGNATURE)
-    m = b * t
-    qkv = torch.empty((m, 3 * inner), dtype=x.dtype, device=x.device)
-    att = torch.empty((m, inner), dtype=x.dtype, device=x.device)
-    x1 = torch.empty((m, c), dtype=x.dtype, device=x.device)
-    ff = torch.empty((m, 4 * c), dtype=x.dtype, device=x.device)
+    # qkv, attention output, x1 and the MLP's hidden rows: one allocation
+    scratch = torch.empty(b * t * (4 * inner + 5 * c), dtype=x.dtype,
+                          device=x.device)
     out = torch.empty_like(x)
     err = lib.tsk_fused_dit_block(
         _build.ptr(x), _build.ptr(lens), b, t, c, heads, head_dim,
-        *[_build.ptr(p) for p in plist],
-        _build.ptr(qkv), _build.ptr(att), _build.ptr(x1), _build.ptr(ff),
-        _build.ptr(out), _build.stream_of(x))
+        *[_build.ptr(p) for p in plist], _build.ptr(scratch), _build.ptr(out),
+        _build.stream_of(x))
     _build.check(err, "fused_dit_block")
     fused_dit_block.launches += 1
     return out

@@ -15,15 +15,20 @@ exactly zero.  The forward is an online softmax over the key tiles j <= i
 that saves the LSE; the backward recomputes the scores against it, with the
 TPU kernel's cast points (prob and g rounded to the operand dtype before the
 dv, dk, dq_u, dq_v and dp products), in five launches and no float atomics,
-so its gradients repeat bit for bit: delta = rowsum(dO . o); dq_u and dq_v
-per query tile; dk and dv per key tile; dp per (batch row, diagonal tile)
-into scratch, summed over the batch in a fixed order by the last launch.
+so its gradients repeat bit for bit.
 
 Bound on the H100: at the stage-1 S3 stack's shape (B=8, T=1599, H=8,
 dk=128, bf16) the ~3 T^2 dk B H forward and ~8 T^2 dk B H backward
-operations over the causal half, not the bytes; this first version runs
-them on the SIMT f32 units (true f32 FMAs, never TF32), not the tensor
-cores.
+operations over the causal half, not the bytes.  The forward, and the whole
+float32 route, run them on the SIMT f32 units (true f32 FMAs, never TF32).
+The bfloat16 backward runs them on the tensor cores (mma.sync, bf16
+operands, f32 sums): delta = rowsum(dO . o); per query tile the scores,
+prob and g of each key tile (the bd term as q_v times a 128-row table
+window, skewed by one offset read from shared memory), dq_u and dq_v, and
+prob and g stored per tile pair in bf16; per key tile dk and dv from the
+stored tiles; per tile diagonal, whose pairs share one table window, dp's
+window partial from the stored g; then dp summed over the batch and the
+overlapping windows in a fixed order.
 
 The wrappers run the plain versions below for CPU tensors and the CUDA
 kernels for CUDA tensors, never one for the other; each kernel launch adds
@@ -33,6 +38,7 @@ forward, `relpos_causal_attention_bwd.launches` for the backward).
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -47,7 +53,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "tsk_relpos_fwd": (_P,) * 8 + (_I,) * 4 + (_P,),
-    "tsk_relpos_bwd": (_P,) * 16 + (_I,) * 4 + (_P,),
+    "tsk_relpos_bwd": (_P,) * 17 + (_I,) * 4 + (_P,),
+    "tsk_relpos_bwd_scratch": (_I,) * 4 + (_P,),
 }
 
 
@@ -152,11 +159,32 @@ def _check(q_u, q_v, k, v, p, lengths) -> None:
                          f"kernel takes T >= {MIN_LEN} and dk == {HEAD_DIM}")
     if not all(x.is_contiguous() for x in xs):
         raise ValueError("relpos_causal_attention: inputs must be contiguous")
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("relpos_causal_attention: inputs must be 16-byte "
+                         "aligned")
     if any(x.device != q_u.device for x in xs):
         raise ValueError("relpos_causal_attention: inputs on several devices")
     if lengths is not None and tuple(lengths.shape) != (b,):
         raise ValueError(f"relpos_causal_attention: lengths shape "
                          f"{tuple(lengths.shape)}, expected ({b},)")
+
+
+def _bwd_scratch(lib, dtype, b: int, t: int, h: int, dev):
+    """The backward's scratch, carved from one allocation: delta f32, pg
+    bf16 (None for float32) and dp_part f32, sized by the library
+    (tsk_relpos_bwd_scratch), which defines their layouts."""
+    sizes = (ctypes.c_longlong * 3)()
+    _build.check(lib.tsk_relpos_bwd_scratch(_DTYPES[dtype], b, t, h,
+                                            ctypes.addressof(sizes)),
+                 "relpos_causal_attention_bwd scratch")
+    offs = [0]
+    for n in sizes:
+        offs.append(offs[-1] + -(-n // 256) * 256)
+    buf = torch.empty(offs[-1], dtype=torch.uint8, device=dev)
+    views = [buf[o:o + n] for o, n in zip(offs, sizes)]
+    return (views[0].view(torch.float32),
+            views[1].view(torch.bfloat16) if sizes[1] else None,
+            views[2].view(torch.float32))
 
 
 def relpos_causal_attention_fwd(q_u, q_v, k, v, p, lengths):
@@ -191,23 +219,21 @@ def relpos_causal_attention_bwd(q_u, q_v, k, v, p, lengths, o, lse, do):
     b, t, h, dk = q_u.shape
     do = do.to(q_u.dtype).contiguous()
     if o.shape != q_u.shape or do.shape != q_u.shape \
-            or tuple(lse.shape) != (b * h, t):
+            or tuple(lse.shape) != (b * h, t) or do.data_ptr() % 16:
         raise ValueError("relpos_causal_attention_bwd: o / do / lse shapes "
                          f"{tuple(o.shape)} / {tuple(do.shape)} / "
-                         f"{tuple(lse.shape)}")
+                         f"{tuple(lse.shape)}, or do not 16-byte aligned")
     lens = _lengths(lengths, b, t, q_u.device).contiguous()
     lib = _build.load("relpos_attention", _SIGNATURES)
     dq_u, dq_v, dk_, dv = (torch.empty_like(q_u) for _ in range(4))
     dp = torch.empty_like(p)
-    f32 = dict(dtype=torch.float32, device=q_u.device)
-    delta = torch.empty((b * h, t), **f32)
-    dp_part = torch.empty((b, t, h, dk), **f32)   # per batch row, summed last
+    delta, pg, dp_part = _bwd_scratch(lib, q_u.dtype, b, t, h, q_u.device)
     ptr = _build.ptr
     err = lib.tsk_relpos_bwd(
         ptr(q_u), ptr(q_v), ptr(k), ptr(v), ptr(p), ptr(lens), ptr(o.contiguous()),
         ptr(lse.contiguous()), ptr(do), ptr(dq_u), ptr(dq_v), ptr(dk_), ptr(dv),
-        ptr(dp), ptr(delta), ptr(dp_part), _DTYPES[q_u.dtype], b, t, h,
-        _build.stream_of(q_u))
+        ptr(dp), ptr(delta), None if pg is None else ptr(pg), ptr(dp_part),
+        _DTYPES[q_u.dtype], b, t, h, _build.stream_of(q_u))
     _build.check(err, "relpos_causal_attention_bwd")
     relpos_causal_attention_bwd.launches += 1
     return dq_u, dq_v, dk_, dv, dp

@@ -108,8 +108,12 @@ def test_flash_attention_ragged_matches_plain(dev, t, d, dtype):
 
 
 @pytest.mark.parametrize("t,lens", [(904, (904, 700)), (452, (452, 452)),
-                                    (130, (100, 130))])
+                                    (130, (100, 130)), (904, (904, 613)),
+                                    (452, (452, 17)), (130, (130, 1))])
 def test_fused_dit_matches_plain(dev, t, lens):
+    """Within 2e-2 of the plain version on the valid rows, and the same
+    bits when run twice (a fixed order in every sum), at the flow's two T
+    and a short one, with ragged lengths down to one key."""
     g = torch.Generator().manual_seed(1)
     c, heads, hd = 256, 8, 64
     inner = heads * hd
@@ -129,9 +133,12 @@ def test_fused_dit_matches_plain(dev, t, lens):
     x = p(2, t, c, scale=0.5)
     lengths = torch.tensor(lens, device=dev)
     out = fused_dit.fused_dit_block(x, lengths, params, heads=heads, head_dim=hd)
+    again = fused_dit.fused_dit_block(x, lengths, params, heads=heads,
+                                      head_dim=hd)
     ref = fused_dit.fused_dit_block_plain(x, lengths, params, heads=heads,
                                           head_dim=hd)
     torch.cuda.synchronize()
+    assert torch.equal(out, again)
     for bi, ln in enumerate(lens):
         d = (out[bi, :ln].float() - ref[bi, :ln].float()).abs().max().item()
         scale = ref[bi, :ln].float().abs().max().item()
@@ -414,11 +421,14 @@ def _relpos_inputs(g, b, t, h, dtype, dev):
     (3, 1599, 1, (1599, 1200, 257), torch.float32),
     (3, 1599, 1, (1599, 700, 300), torch.bfloat16),
     (3, 2048, 3, (2048, 1999, 64), torch.bfloat16),
+    (3, 257, 2, (257, 1, 256), torch.bfloat16),
+    (3, 257, 2, (257, 1, 256), torch.float32),
 ])
 def test_relpos_attention_matches_plain(dev, b, t, h, lens, dtype):
     """Forward (o and LSE) and the five gradients against the plain
     versions, ragged lengths and an odd B*H; the backward twice gives the
-    same bits (no atomics)."""
+    same bits (no atomics).  T = 257 leaves one row in the last query, key
+    and diagonal tile, beside rows of length 1 and T - 1."""
     g = torch.Generator().manual_seed(11)
     xs = _relpos_inputs(g, b, t, h, dtype, dev)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)

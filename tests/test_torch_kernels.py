@@ -587,3 +587,98 @@ def test_relpos_attention_bwd_plain_matches_autograd(dtype):
         err = (a.float() - g.float()).abs().max() / a.float().abs().max()
         assert err.item() <= tol, name
     assert bool((got[4][t:] == 0).all())
+
+
+def _relpos_dqv_dp_by_tiles(q_u, q_v, k, v, p, lengths, lse, do, o):
+    """dq_v and dp computed the way the bf16 backward kernel
+    (csrc/relpos_attention.cu, dq_kernel_mma / dp_kernel_mma / dp_sum_kernel)
+    decomposes them, in f32: 64 x 64 (query, key) tile pairs, each with the
+    128-row table window from (T-1) - q0 - 63 + k0; each 16-row group wi of
+    a query tile reads the 80 window rows from 48 - 16 wi, its bd term
+    X[rl][15 - rl + c] of X = q_v . window^T and dq_v += gw . window with
+    gw[rl][15 - rl + c] = g[rl][c]; dp per (batch row, tile diagonal dd)
+    from gW[r][63 - r + c] = g[r][c] against q_v, then each table row
+    (T-1) - delta summed over the batch and the diagonals whose window row
+    63 + 64 dd - delta lies in [0, 126], in that order."""
+    b, t, h, dk = q_u.shape
+    nt, scale = -(-t // 64), dk ** -0.5
+    pad = lambda x: torch.cat([x, x.new_zeros((nt * 64 - t,) + x.shape[1:])])  # noqa: E731
+    dq_v = torch.zeros(b, nt * 64, h, dk)
+    part = torch.zeros(b, nt, 128, h, dk)
+    delta = (do * o).sum(-1)                                   # [B, T, H]
+    for bi in range(b):
+        qu, qv, kk, vv, dd_o = (pad(x[bi]) for x in (q_u, q_v, k, v, do))
+        dl = pad(delta[bi])
+        ls = pad(lse.reshape(b, h, t)[bi].t())                 # [T, H]
+        n = int(lengths[bi])
+        for hi in range(h):
+            for qt in range(nt):
+                for kt in range(min(qt, (n - 1) // 64) + 1 if n > 0 else 0):
+                    q0, k0 = 64 * qt, 64 * kt
+                    rows = torch.arange(t - 1 - q0 - 63 + k0,
+                                        t - 1 - q0 - 63 + k0 + 128)
+                    ok = (rows >= 0) & (rows < t)
+                    win = torch.zeros(128, dk)
+                    win[ok] = p[rows[ok], hi]
+                    qs, ks = slice(q0, q0 + 64), slice(k0, k0 + 64)
+                    ac = qu[qs, hi] @ kk[ks, hi].t()
+                    bd = torch.zeros(64, 64)
+                    for wi in range(4):
+                        wb = 48 - 16 * wi
+                        x = qv[q0 + 16 * wi:q0 + 16 * wi + 16, hi] \
+                            @ win[wb:wb + 80].t()              # [16, 80]
+                        for rl in range(16):
+                            bd[16 * wi + rl] = x[rl, 15 - rl:79 - rl]
+                    i = torch.arange(q0, q0 + 64)[:, None]
+                    j = torch.arange(k0, k0 + 64)[None, :]
+                    mask = (j <= i) & (j < n) & (i < t)
+                    prob = torch.where(
+                        mask, torch.exp((ac + bd) * scale - ls[qs, hi, None]),
+                        torch.zeros(()))
+                    dpv = dd_o[qs, hi] @ vv[ks, hi].t()
+                    g = prob * (dpv - dl[qs, hi, None]) * scale
+                    for wi in range(4):
+                        wb = 48 - 16 * wi
+                        gw = torch.zeros(16, 80)
+                        for rl in range(16):
+                            gw[rl, 15 - rl:79 - rl] = g[16 * wi + rl]
+                        dq_v[bi, q0 + 16 * wi:q0 + 16 * wi + 16, hi] += \
+                            gw @ win[wb:wb + 80]
+                    gW = torch.zeros(64, 128)
+                    for r in range(64):
+                        gW[r, 63 - r:127 - r] = g[r]
+                    part[bi, qt - kt, :, hi] += gW.t() @ qv[qs, hi]
+    dp = torch.zeros(2 * t - 1, h, dk)
+    for r in range(t):
+        dl_ = t - 1 - r
+        for bi in range(b):
+            for dd in range(dl_ // 64, min(nt - 1, (dl_ + 63) // 64) + 1):
+                dp[r] += part[bi, dd, 63 + 64 * dd - dl_]
+    return dq_v[:, :t], dp
+
+
+@pytest.mark.parametrize("t", [200, 257, 320])
+def test_relpos_bwd_tile_decomposition_matches_plain(t):
+    """The design of the bf16 backward's dq_v and dp (table windows per
+    tile pair, the skew as one offset read, per-diagonal partials summed in
+    a fixed order), written in f32 torch, against
+    relpos_causal_attention_bwd_plain: T one row past a tile (257), a
+    ragged last tile (200, 320), B = 2, H = 2, ragged lengths; 1e-5 of each
+    gradient's largest value (the same f32 arithmetic in another order).
+    It checks the design, not the kernel: it runs a test-local copy of the
+    kernels' index arithmetic, and the kernel itself is held against the
+    plain backward on the card (test_torch_cuda.py,
+    test_relpos_attention_matches_plain, T = 257 among its cases)."""
+    b, h = 2, 2
+    xs = [torch.from_numpy(x) for x in _relpos_inputs(b, t, h, seed=t)]
+    lens = torch.tensor([t, t // 2 + 3])
+    o, lse = relpos_attention.relpos_causal_attention_plain(*xs, lens)
+    do = torch.from_numpy(np.random.RandomState(t + 1).randn(b, t, h, 128)
+                          .astype(np.float32))
+    ref = relpos_attention.relpos_causal_attention_bwd_plain(
+        *xs, lens, o, lse, do)
+    dq_v, dp = _relpos_dqv_dp_by_tiles(*xs, lens, lse, do, o)
+    for name, got, want in (("dq_v", dq_v, ref[1]), ("dp", dp, ref[4])):
+        err = (got - want).abs().max() / want.abs().max()
+        assert err.item() <= 1e-5, (name, err.item())
+    assert bool((dp[t:] == 0).all())
