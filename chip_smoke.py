@@ -19,9 +19,11 @@ quantizer (quant.py).  In order it:
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
    checks in the SASS (cuobjdump) that every bf16 flash kernel, the bf16
-   rel-pos backward's three product kernels and every DiT GEMM and
-   attention kernel issue tensor-core instructions, and that no f32 flash
-   or rel-pos kernel does;
+   rel-pos backward's three product kernels, every DiT GEMM and attention
+   kernel and every tensor-core kernel of the gated int8 / int4 MLPs (the
+   ones that run M > 1) issue tensor-core instructions, that no f32 flash
+   or rel-pos kernel does, and that no kernel of the gated MLPs (their
+   one-row SIMT kernel too) issues an int-to-float conversion (I2F);
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, builds the bf16
@@ -118,9 +120,15 @@ quantizer (quant.py).  In order it:
    M <= 8 the contraction of its first slice only must move it past 5x the
    tolerance; the fused MLPs 2e-2 relative
    (their bf16 activation can differ by one bf16 step where the f32 sums
-   differ); and swapped nibble planes, a zeroed gate or first projection,
-   and (int4) a second projection packed untiled must each move the output
-   by more than 5x the tolerance.  The rel-pos attention at the training
+   differ), the gated ones bit-identical twice; and swapped nibble planes,
+   a zeroed gate or first projection, (int4) a second projection packed
+   untiled, (gated) the Wd rows of the last slot of the kernel's plan
+   zeroed and, at M = 42, the last 8 rows of x scaled by 100 must each
+   move the output by more than 5x the tolerance.  Each gated row also
+   times, for information, the same MLP as a chain of library calls
+   (cuBLAS bf16 on weights dequantized once: x @ Wgu, silu * mul, @ Wd)
+   and as the port's own unfused chain (matmul_int8 / matmul_int4
+   gate-up, silu * mul, down).  The rel-pos attention at the training
    shape (B=8, T=1599, H=8, dk=128), bf16 and f32, ragged lengths: o within
    2e-2 of max|plain| (bf16) or 1e-4 abs (f32), the LSE within 1e-4, the
    five gradients at the same tolerances of max|plain|, the backward
@@ -236,21 +244,28 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 
 def tensor_core_check() -> dict:
     """{group: {kernel: issues tensor-core instructions}} from the SASS
-    (cuobjdump) of the built flash, rel-pos and DiT libraries: every bf16
-    flash kernel, the bf16 rel-pos backward's three product kernels and
-    every DiT GEMM and attention kernel must issue HMMA; no f32 flash or
-    rel-pos kernel may (those routes stay true f32)."""
+    (cuobjdump) of the built flash, rel-pos, DiT and fused-MLP libraries:
+    every bf16 flash kernel, the bf16 rel-pos backward's three product
+    kernels, every DiT GEMM and attention kernel and every tensor-core
+    kernel of the gated MLPs must issue HMMA; no f32 flash or rel-pos
+    kernel may (those routes stay true f32).  No kernel of the gated MLPs
+    may issue I2F: their weights become floats by bit operations."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    i2f = {}
 
     def kernels(lib):
         sass = subprocess.run([tool, "-sass", _build.library_path(lib)],
                               capture_output=True, text=True,
                               check=True).stdout
-        return {chunk.split("\n", 1)[0].strip():
-                "HMMA" in chunk or "HGMMA" in chunk
-                for chunk in sass.split("Function : ")[1:]}
-    flash, relpos, dit = (kernels(lib) for lib in
-                          ("flash_attention", "relpos_attention", "fused_dit"))
+        out = {}
+        for chunk in sass.split("Function : ")[1:]:
+            name = chunk.split("\n", 1)[0].strip()
+            out[name] = "HMMA" in chunk or "HGMMA" in chunk
+            i2f[name] = "I2F" in chunk
+        return out
+    flash, relpos, dit, mlp8, mlp4 = (
+        kernels(lib) for lib in ("flash_attention", "relpos_attention",
+                                 "fused_dit", "fused_mlp", "fused_mlp_int4"))
     # (kernels, expected number, must issue HMMA); "IfE" marks the float
     # instantiations of the rel-pos templates (forward and f32 backward)
     groups = {
@@ -264,12 +279,25 @@ def tensor_core_check() -> dict:
                        False),
         "fused_dit": ({n: u for n, u in dit.items()
                        if "gemm_kernel" in n or "attn_kernel" in n}, 4, True),
+        # gated_mlp_kernel<Q4, NC1, NC2> (M > 1), gated_gemv_kernel<Q4>
+        "gated int8 tensor cores": ({n: u for n, u in mlp8.items()
+                                     if "gated_mlp_kernel" in n}, 6, True),
+        "gated int4 tensor cores": ({n: u for n, u in mlp4.items()
+                                     if "gated_mlp_kernel" in n}, 6, True),
+        "gated int8 one row": ({n: u for n, u in mlp8.items()
+                                if "gated_gemv_kernel" in n}, 1, False),
+        "gated int4 one row": ({n: u for n, u in mlp4.items()
+                                if "gated_gemv_kernel" in n}, 1, False),
     }
     for what, (uses, n, hmma) in groups.items():
         check(len(uses) == n and all(u == hmma for u in uses.values()),
               f"{what} kernels: expected {n}, "
               f"{'all' if hmma else 'none'} with tensor-core instructions: "
               f"{uses}")
+        if what.startswith("gated"):
+            check(not any(i2f[k] for k in uses),
+                  f"{what} kernels convert integers with I2F: "
+                  f"{[k for k in uses if i2f[k]]}")
     return {what: uses for what, (uses, _, _) in groups.items()}
 
 
@@ -681,18 +709,59 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
 
     out = []
     s3 = cfg.speech_decoder.llm
+    sms = _build.sm_count(dev)
+
+    def gated_broken(x, args, start, rows_from):
+        """The gated reach checks: Wd's rows from `start` (the last slot)
+        zeroed, and at M = 42 the last 8 rows of x scaled by 100."""
+        wd = args[4].clone()
+        wd[start:] = 0
+        broken = {f"Wd rows of the last slot ({start}:) zeroed":
+                  (x, *args[:4], wd, args[5])}
+        if x.shape[0] == 42:
+            far = x.clone()
+            far[rows_from:] *= 100
+            broken["last 8 rows of x x 100"] = (far, *args)
+        return broken
+
+    def chains(x, i, gu, gu_scale, down, down_scale, w16_gu, w16_d, mm):
+        """{library_chain_ms, port_chain_ms}: the MLP as cuBLAS bf16 on
+        weights dequantized once, and as the port's unfused GEMVs `mm`."""
+        def library():
+            g_u = x @ w16_gu
+            return (F.silu(g_u[:, :i]) * g_u[:, i:]) @ w16_d
+
+        def port():
+            g_u = mm(x, gu, gu_scale)
+            return mm(F.silu(g_u[:, :i]) * g_u[:, i:], down, down_scale)
+        return {"library_chain_ms": time_ms(library),
+                "port_chain_ms": time_ms(port),
+                "library_call": "x_bf16 @ Wgu_bf16, silu * mul, @ Wd_bf16 "
+                                "(cuBLAS, weights dequantized once); "
+                                "library_ms null: no one call"}
+
     shapes = []
     for (h, i), per_m in by_weight("gated_mlp_int8"):
         (wg, sg), (wu, su), (wd, sd) = q8(h, i), q8(h, i), q8(i, h)
+        wgu, sgu = torch.cat([wg, wu], 1).contiguous(), torch.cat([sg, su])
+        w16_gu = (wgu.float() * sgu).to(torch.bfloat16)
+        w16_d = (wd.float() * sd).to(torch.bfloat16)
         for m, n in sorted(per_m.items()):
             x = randn(m, h)
+            plan, _, start = fused_mlp.gated_geometry(m, h, i, sms)
+            args = (wg, sg, wu, su, wd, sd)
             shapes.append(row(
                 fused_mlp.gated_mlp_int8, fused_mlp.gated_mlp_int8_plain,
-                (x, wg, sg, wu, su, wd, sd),
+                (x, *args),
                 {"zeroed gate weights": (x, torch.zeros_like(wg), sg, wu, su,
-                                         wd, sd)}, 2e-2, n,
+                                         wd, sd),
+                 **gated_broken(x, args, start, m - 8)}, 2e-2, n,
                 3 * h * i + 4 * (2 * i + h) + m * h * (2 + 4),
-                3 * 2 * m * h * i, shape=[m, h, i]))
+                3 * 2 * m * h * i, repeat=True, shape=[m, h, i],
+                cluster_cols_slots=plan,
+                **chains(x, i, wgu, sgu, wd, sd, w16_gu, w16_d,
+                         int8_matmul.matmul_int8)))
+        del wg, wu, wd, wgu, w16_gu, w16_d
     out.append(("gated_mlp_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:102",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
@@ -732,19 +801,34 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     for (h, i), per_m in by_weight("gated_mlp_int4"):
         (wg, sg), (wu, su) = q4(h, i), q4(h, i)
         wd, sd, wd_flat, sd_flat, n_tiles = q4(i, h, tiled=True)
+        tile = fused_mlp.mlp_tile(i)
+        wgu, sgu = (torch.cat([wg, wu], 1).contiguous(),
+                    torch.cat([sg, su], 1).contiguous())
+        w16_gu = int4_matmul.dequantize_int4(wgu, sgu).to(torch.bfloat16)
+        w16_d = fused_mlp.dequantize_int4_tiled(wd, sd, tile).to(
+            torch.bfloat16)
         for m, n in sorted(per_m.items()):
             x = randn(m, h)
+            plan, _, start = fused_mlp.gated_geometry(
+                m, h, i, sms, tile, (h // 2) // (sg.shape[0] // 2),
+                sd.shape[0] // (i // tile))
+            args = (wg, sg, wu, su, wd, sd)
             shapes.append(row(
                 fused_mlp.gated_mlp_int4, fused_mlp.gated_mlp_int4_plain,
-                (x, wg, sg, wu, su, wd, sd), {
+                (x, *args), {
                     "zeroed gate weights": (x, torch.zeros_like(wg), sg, wu,
                                             su, wd, sd),
                     "swapped nibble planes of wd": (x, wg, sg, wu, su,
                                                     swap(wd), sd),
                     f"wd packed untiled ({n_tiles} tiles)": (
-                        x, wg, sg, wu, su, wd_flat, sd_flat)}, 2e-2, n,
+                        x, wg, sg, wu, su, wd_flat, sd_flat),
+                    **gated_broken(x, args, start, m - 8)}, 2e-2, n,
                 2 * nbytes4(h, i) + nbytes4(i, h) + m * h * (2 + 4),
-                3 * 2 * m * h * i, shape=[m, h, i]))
+                3 * 2 * m * h * i, repeat=True, shape=[m, h, i],
+                cluster_cols_slots=plan,
+                **chains(x, i, wgu, sgu, wd_flat, sd_flat, w16_gu, w16_d,
+                         int4_matmul.matmul_int4)))
+        del wg, wu, wd, wgu, w16_gu, w16_d
     out.append(("gated_mlp_int4",
                 "taste_spokenlm_tpu_torch/csrc/fused_mlp_int4.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:192",
@@ -1188,10 +1272,13 @@ def device_profile(run, wall_s: float):
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     # one kernel name per counted launch: matmul_int4 is int4_kernel or
-    # int4_kernel_split; a rel-pos backward is one dq_kernel (dq_kernel<float>
-    # or dq_kernel_mma) among its five launches
-    expected = {"mlp_pass1": counts["gated_mlp_int8"] + counts["ffn_int8"],
-                "mlp4_pass1": counts["gated_mlp_int4"] + counts["ffn_int4"],
+    # int4_kernel_split; a gated MLP is gated_mlp_kernel<Q4, ...> or
+    # gated_gemv_kernel<Q4>; a rel-pos backward is one dq_kernel
+    # (dq_kernel<float> or dq_kernel_mma) among its five launches
+    expected = {"mlp_pass1": counts["ffn_int8"],
+                "mlp4_pass1": counts["ffn_int4"],
+                "gated_,<false": counts["gated_mlp_int8"],
+                "gated_,<true": counts["gated_mlp_int4"],
                 "int4_kernel": counts["matmul_int4"],
                 "flash_kernel_": counts["flash_attention"],
                 "fwd_kernel<": counts["relpos_causal_attention"],

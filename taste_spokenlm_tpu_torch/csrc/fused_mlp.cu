@@ -7,28 +7,36 @@
 // Replaces ops/pallas/fused_mlp.py `gated_mlp_int8` (`_gated_kernel_i8`)
 // and `ffn_int8` (`_ffn_kernel_i8`).  The TPU kernels run a sequential grid
 // over tiles of I and carry the [M, H] f32 output in VMEM from one step to
-// the next.  Blocks on the card run in parallel and in no order, so here:
-//   pass 1: block (s, row tile) owns the I range [s*TS, (s+1)*TS).  For each
-//           32-column subtile it forms x W (and x Wu) with its 8 warps
-//           splitting H, reduces the warp sums in shared memory in a fixed
-//           order, applies scale, bias and activation on the f32 sums and
-//           keeps a = bf16(...) in shared memory (the activation never
-//           reaches device memory).  Then it multiplies a by its TS rows of
-//           Wd / W2 and writes the partial [M, H] sum to a scratch slot;
-//   pass 2: sums the S slots in slot order, applies sd / s2 (+ b2), so the
-//           result is the same in every run (no float atomics).
-// S is chosen from M so that about two blocks run per SM.
+// the next.  Blocks on the card run in parallel and in no order.
 //
-// Bound on the H100: the bytes.  At decode (M = 1) the Llama MLP moves
-// 50.3 MB of int8 weights (about 15 us at 3.35 TB/s) for 0.1 GFLOP, the
-// conformer FFN 4.2 MB (about 1.3 us).  Each weight byte is read once per
-// row tile of MT rows (MT = 1 at decode, 8 otherwise); rows beyond 8 take
-// further row tiles, which read the weights again and run the products on
-// the SIMT units.  That is right but slow for prefill; tensor-core tiles
-// (wgmma on dequantized weights) for M > 8 are the later step.
+// The gated MLP is one launch of gated_mlp.cuh's kernels (the design is in
+// that header): clusters over I whose ranks split the contraction and meet
+// in distributed shared memory, the clusters' partials summed by the last
+// block to arrive; one row of x on the SIMT units, more rows on the tensor
+// cores, the int8 weights made floats by bit operations.  Bound on the
+// H100: the bytes, 50.3 MB of weights at the Llama shapes (about 15 us at
+// 3.35 TB/s) for 0.1 GFLOP a row of x.
+//
+// The FFN (ffn_int8) keeps two launches:
+//   pass 1: block (s, row tile) owns the I range [s*TS, (s+1)*TS).  For each
+//           32-column subtile it forms x W1 with its 8 warps splitting H,
+//           reduces the warp sums in shared memory in a fixed order, applies
+//           scale, bias and activation on the f32 sums and keeps a =
+//           bf16(...) in shared memory (the activation never reaches device
+//           memory).  Then it multiplies a by its TS rows of W2 and writes
+//           the partial [M, H] sum to a scratch slot;
+//   pass 2: sums the S slots in slot order, applies s2 and b2, so the
+//           result is the same in every run (no float atomics).
+// S is chosen from M so that about two blocks run per SM.  The conformer
+// FFN moves 4.2 MB at decode (about 1.3 us).  Each weight byte is read
+// once per row tile of MT rows (MT = 1 at decode, 8 otherwise) on the SIMT
+// units; rows beyond 8 take further row tiles, which read the weights
+// again.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gated_mlp.cuh"
 
 namespace {
 
@@ -51,20 +59,18 @@ __device__ __forceinline__ float round_bf16(float v) {
 
 struct Args {
   const __nv_bfloat16* x;   // [M, H]
-  const int8_t* w1;         // [H, I]  (Wg or W1)
+  const int8_t* w1;         // [H, I]
   const float* s1;          // [I]
-  const float* b1;          // [I] (plain FFN) or null
-  const int8_t* wu;         // [H, I]  (gated) or null
-  const float* su;          // [I]
-  const int8_t* w2;         // [I, H]  (Wd or W2)
+  const float* b1;          // [I]
+  const int8_t* w2;         // [I, H]
   const float* s2;          // [H]
-  const float* b2;          // [H] or null
+  const float* b2;          // [H]
   float* part;              // [S, M, H]
   float* out;               // [M, H]
   int M, H, I, TS, S, act;
 };
 
-template <int MT, bool GATED>
+template <int MT>
 __global__ void __launch_bounds__(THREADS) mlp_pass1(Args g) {
   extern __shared__ float smem[];
   float* xs = smem;                              // [MT][H]
@@ -81,22 +87,19 @@ __global__ void __launch_bounds__(THREADS) mlp_pass1(Args g) {
   }
   __syncthreads();
 
-  // first projection(s): lane (cg, slice) holds 4 columns of one H slice
+  // first projection: lane (cg, slice) holds 4 columns of one H slice
   const int cg = lane & 7, slice = warp * 4 + (lane >> 3);
   for (int j = 0; j < g.TS; j += SUB) {
     const int col = i0 + j + cg * 4;
-    float a1[MT][4], au[MT][4];
+    float a1[MT][4];
 #pragma unroll
     for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) a1[m][k] = au[m][k] = 0.f;
+      for (int k = 0; k < 4; ++k) a1[m][k] = 0.f;
 #pragma unroll 4
     for (int h = slice; h < g.H; h += 32) {
       const char4 w = __ldg(reinterpret_cast<const char4*>(
           g.w1 + (long long)h * g.I + col));
-      char4 u = make_char4(0, 0, 0, 0);
-      if (GATED)
-        u = __ldg(reinterpret_cast<const char4*>(g.wu + (long long)h * g.I + col));
 #pragma unroll
       for (int m = 0; m < MT; ++m) {
         const float xv = xs[m * g.H + h];
@@ -104,12 +107,6 @@ __global__ void __launch_bounds__(THREADS) mlp_pass1(Args g) {
         a1[m][1] = fmaf(xv, (float)w.y, a1[m][1]);
         a1[m][2] = fmaf(xv, (float)w.z, a1[m][2]);
         a1[m][3] = fmaf(xv, (float)w.w, a1[m][3]);
-        if (GATED) {
-          au[m][0] = fmaf(xv, (float)u.x, au[m][0]);
-          au[m][1] = fmaf(xv, (float)u.y, au[m][1]);
-          au[m][2] = fmaf(xv, (float)u.z, au[m][2]);
-          au[m][3] = fmaf(xv, (float)u.w, au[m][3]);
-        }
       }
     }
     // lanes cg, cg + 8, cg + 16, cg + 24 share columns: fixed-order shuffles
@@ -119,10 +116,6 @@ __global__ void __launch_bounds__(THREADS) mlp_pass1(Args g) {
       for (int k = 0; k < 4; ++k) {
         a1[m][k] += __shfl_xor_sync(0xffffffffu, a1[m][k], 8);
         a1[m][k] += __shfl_xor_sync(0xffffffffu, a1[m][k], 16);
-        if (GATED) {
-          au[m][k] += __shfl_xor_sync(0xffffffffu, au[m][k], 8);
-          au[m][k] += __shfl_xor_sync(0xffffffffu, au[m][k], 16);
-        }
       }
     if (lane < 8) {
 #pragma unroll
@@ -130,25 +123,15 @@ __global__ void __launch_bounds__(THREADS) mlp_pass1(Args g) {
 #pragma unroll
         for (int k = 0; k < 4; ++k) {
           red[(warp * MT + m) * SUB + cg * 4 + k] = a1[m][k];
-          red[((WARPS + warp) * MT + m) * SUB + cg * 4 + k] = au[m][k];
         }
     }
     __syncthreads();
     for (int e = tid; e < MT * SUB; e += THREADS) {
       const int m = e / SUB, c = e % SUB, ic = i0 + j + c;
-      float v1 = 0.f, vu = 0.f;
+      float v1 = 0.f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        v1 += red[(w * MT + m) * SUB + c];
-        vu += red[((WARPS + w) * MT + m) * SUB + c];
-      }
-      float a;
-      if (GATED) {
-        a = act_fn(v1 * g.s1[ic], g.act) * (vu * g.su[ic]);
-      } else {
-        a = act_fn(v1 * g.s1[ic] + g.b1[ic], g.act);
-      }
-      as[m * g.TS + j + c] = round_bf16(a);
+      for (int w = 0; w < WARPS; ++w) v1 += red[(w * MT + m) * SUB + c];
+      as[m * g.TS + j + c] = round_bf16(act_fn(v1 * g.s1[ic] + g.b1[ic], g.act));
     }
     __syncthreads();
   }
@@ -190,14 +173,14 @@ __global__ void mlp_pass2(Args g) {
   const int n = (int)(i % g.H);
   float acc = 0.f;
   for (int s = 0; s < g.S; ++s) acc += g.part[s * mh + i];
-  g.out[i] = (g.b2 ? g.b2[n] : 0.f) + acc * g.s2[n];
+  g.out[i] = g.b2[n] + acc * g.s2[n];
 }
 
-template <int MT, bool GATED>
+template <int MT>
 int launch(const Args& a, cudaStream_t st) {
   const size_t smem =
       sizeof(float) * ((size_t)MT * a.H + 2 * WARPS * MT * SUB + (size_t)MT * a.TS);
-  auto kern = mlp_pass1<MT, GATED>;
+  auto kern = mlp_pass1<MT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -209,31 +192,54 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-int run(const Args& a, bool gated, cudaStream_t st) {
+int run(const Args& a, cudaStream_t st) {
   if (a.H % 8 || a.I % SUB || a.TS % SUB || a.S * a.TS != a.I)
     return (int)cudaErrorInvalidValue;
-  if (a.M == 1) return gated ? launch<1, true>(a, st) : launch<1, false>(a, st);
-  return gated ? launch<8, true>(a, st) : launch<8, false>(a, st);
+  return a.M == 1 ? launch<1>(a, st) : launch<8>(a, st);
 }
 
 }  // namespace
 
-// Shapes as in the header; part is [S, M, H] f32 scratch with S * TS == I.
-// Needs H % 8 == 0, I % 32 == 0, TS % 32 == 0 and 16-byte aligned tensors.
+// x [M, H] bf16, wg / wu [H, I] int8, sg / su [I] f32, wd [I, H] int8, sd
+// [H] f32, out [M, H] f32; part an f32 workspace [S, M, H] with S from
+// tsk_gated_geometry_int8, and arrivals int32 counters, zero, one per rank
+// and row tile of 16 (both unused where S = 1).  The plan: `cluster`
+// blocks a cluster (1-8), `cols` columns of I a cluster (128 or 256);
+// `slots` > 0 (M = 1, H % 16 == 0) takes the SIMT kernel with that many
+// clusters instead (`cols` unused).
+// Needs H % 8 == 0, I % 32 == 0 and 16-byte aligned tensors.
 extern "C" int tsk_gated_mlp_int8(const void* x, const void* wg, const void* sg,
                                   const void* wu, const void* su, const void* wd,
-                                  const void* sd, void* part, void* out, int M,
-                                  int H, int I, int TS, int act, void* stream) {
-  Args a{};
+                                  const void* sd, void* part, void* out,
+                                  void* arrivals, int M, int H, int I, int act,
+                                  int cluster, int cols, int slots,
+                                  void* stream) {
+  if (H % 8 || I % 32) return (int)cudaErrorInvalidValue;
+  gated::Args a{};
   a.x = (const __nv_bfloat16*)x;
-  a.w1 = (const int8_t*)wg; a.s1 = (const float*)sg;
-  a.wu = (const int8_t*)wu; a.su = (const float*)su;
-  a.w2 = (const int8_t*)wd; a.s2 = (const float*)sd;
-  a.part = (float*)part; a.out = (float*)out;
-  a.M = M; a.H = H; a.I = I; a.TS = TS; a.S = TS > 0 ? I / TS : 0; a.act = act;
-  return run(a, true, (cudaStream_t)stream);
+  a.wg = (const uint8_t*)wg; a.sg = (const float*)sg;
+  a.wu = (const uint8_t*)wu; a.su = (const float*)su;
+  a.wd = (const uint8_t*)wd; a.sd = (const float*)sd;
+  a.part = (float*)part; a.out = (float*)out; a.arrivals = (int*)arrivals;
+  a.M = M; a.H = H; a.I = I; a.act = act;
+  a.C = cluster; a.TS = cols; a.slots = slots;
+  return gated::run<false>(a, (cudaStream_t)stream);
 }
 
+// The geometry of a plan (arguments as above) as the kernel takes it:
+// out[0] = S, the slots of `part`; out[1] = the first row of Wd that the
+// last slot owns.  An error where the kernel cannot take the plan.
+extern "C" int tsk_gated_geometry_int8(int M, int H, int I, int cluster,
+                                       int cols, int slots, int* out) {
+  if (H % 8 || I % 32) return (int)cudaErrorInvalidValue;
+  gated::Args a{};
+  a.M = M; a.H = H; a.I = I;
+  a.C = cluster; a.TS = cols; a.slots = slots;
+  return gated::geometry<false>(a, out);
+}
+
+// Shapes as in the header; part is [S, M, H] f32 scratch with S * TS == I.
+// Needs H % 8 == 0, I % 32 == 0, TS % 32 == 0 and 16-byte aligned tensors.
 extern "C" int tsk_ffn_int8(const void* x, const void* w1, const void* s1,
                             const void* b1, const void* w2, const void* s2,
                             const void* b2, void* part, void* out, int M, int H,
@@ -244,5 +250,5 @@ extern "C" int tsk_ffn_int8(const void* x, const void* w1, const void* s1,
   a.w2 = (const int8_t*)w2; a.s2 = (const float*)s2; a.b2 = (const float*)b2;
   a.part = (float*)part; a.out = (float*)out;
   a.M = M; a.H = H; a.I = I; a.TS = TS; a.S = TS > 0 ? I / TS : 0; a.act = act;
-  return run(a, false, (cudaStream_t)stream);
+  return run(a, (cudaStream_t)stream);
 }

@@ -12,7 +12,19 @@
 // Replaces ops/pallas/fused_mlp.py `gated_mlp_int4` (`_gated_kernel_i4`)
 // and `ffn_int4` (`_ffn_kernel_i4`), whose sequential grid walks the I
 // tiles and carries the [M, H] f32 output in VMEM.  Blocks on the card run
-// in parallel and in no order, so, as in fused_mlp.cu:
+// in parallel and in no order.
+//
+// The gated MLP is one launch of gated_mlp.cuh's kernels (the design is in
+// that header): a cluster owns a range of Wd's packed rows and the two
+// column runs of Wg / Wu they pair, its ranks split the contraction and
+// meet in distributed shared memory, the clusters' partials are summed by
+// the last block to arrive; one row of x on the SIMT units, more rows on
+// the tensor cores, the nibbles made floats by bit operations, each
+// (plane, group) partial scaled on its own.  Bound on the H100: the bytes,
+// 25.2 MB of nibbles and 1.6 MB of f32 scales at the Llama shapes (about
+// 8 us at 3.35 TB/s).
+//
+// The FFN (ffn_int4) keeps two launches:
 //   pass 1: block (u, row tile) owns R packed rows [r0, r0 + R) of one tile
 //           t of the second projection.  Those rows pair I-columns
 //           t*BI + r0 + [0, R) (low nibbles) with t*BI + BI/2 + r0 + [0, R)
@@ -24,23 +36,21 @@
 //           only the rounding); the slices meet by fixed-order shuffles and
 //           shared memory.  The activation a = bf16(...) stays in shared
 //           memory.  Then the block multiplies a by its R packed rows of
-//           Wd / W2, group segment by group segment, each (plane, group)
-//           partial scaled on its own, into a scratch slot [u, M, H];
+//           W2, group segment by group segment, each (plane, group) partial
+//           scaled on its own, into a scratch slot [u, M, H];
 //   pass 2: sums the slots in slot order (+ b2), so the result is the same
 //           in every run (no float atomics).
 // R is chosen from M so that about two blocks run per SM.  Group sizes are
-// runtime values (tiny widths have groups of 16 or 32).
-//
-// Bound on the H100: the bytes.  At decode (M = 1) the Llama MLP moves
-// 25.2 MB of nibbles and 1.6 MB of f32 scales (about 8 us at 3.35 TB/s) for
-// 0.1 GFLOP; the conformer FFN about 2.2 MB (0.7 us), so it is
-// launch-bound.  Each weight byte is read once per row tile of MT rows
-// (MT = 1 at decode, 8 otherwise); more rows take further row tiles, which
-// read the weights again and run on the SIMT units: right but slow for
-// prefill, where tensor-core tiles are the later step.
+// runtime values (tiny widths have groups of 16 or 32).  The conformer FFN
+// moves about 2.2 MB at decode (0.7 us), so it is launch-bound.  Each
+// weight byte is read once per row tile of MT rows (MT = 1 at decode, 8
+// otherwise) on the SIMT units; more rows take further row tiles, which
+// read the weights again.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gated_mlp.cuh"
 
 namespace {
 
@@ -84,14 +94,12 @@ __device__ __forceinline__ float4 ld_f4(const float* p) {
 
 struct Args {
   const __nv_bfloat16* x;   // [M, H]
-  const uint8_t* w1;        // [H/2, I]  (Wg or W1)
+  const uint8_t* w1;        // [H/2, I]
   const float* s1;          // [H/GIN, I]
-  const float* b1;          // [I] (plain FFN) or null
-  const uint8_t* wu;        // [H/2, I]  (gated) or null
-  const float* su;          // [H/GIN, I]
-  const uint8_t* w2;        // [I/2, H] per tile (Wd or W2)
+  const float* b1;          // [I]
+  const uint8_t* w2;        // [I/2, H] per tile
   const float* s2;          // [I/BI * SPT, H]
-  const float* b2;          // [H] or null
+  const float* b2;          // [H]
   float* part;              // [S, M, H]
   float* out;               // [M, H]
   int M, H, I, BI, GIN, CH, SPT, GMID, R, S, act;
@@ -142,7 +150,7 @@ __device__ __forceinline__ void first_proj(const Args& g, const float* xs,
   }
 }
 
-template <int MT, bool GATED>
+template <int MT>
 __global__ void __launch_bounds__(THREADS) mlp4_pass1(Args g) {
   extern __shared__ float smem[];
   float* xs = smem;                              // [MT][H]
@@ -165,10 +173,9 @@ __global__ void __launch_bounds__(THREADS) mlp4_pass1(Args g) {
   const int cg = lane & 7, slice = warp * 4 + (lane >> 3);
   for (int j = 0; j < g.R; j += SUBR) {
     const int col = t * g.BI + (cg < 4 ? 0 : g.BI / 2) + r0 + j + (cg & 3) * 4;
-#pragma unroll
-    for (int p = 0; p < (GATED ? 2 : 1); ++p) {
+    {
       float acc[MT][4];
-      first_proj<MT>(g, xs, p ? g.wu : g.w1, p ? g.su : g.s1, col, slice, acc);
+      first_proj<MT>(g, xs, g.w1, g.s1, col, slice, acc);
       // lanes cg, cg + 8, cg + 16, cg + 24 share columns: fixed-order shuffles
 #pragma unroll
       for (int m = 0; m < MT; ++m)
@@ -182,7 +189,7 @@ __global__ void __launch_bounds__(THREADS) mlp4_pass1(Args g) {
         for (int m = 0; m < MT; ++m)
 #pragma unroll
           for (int c = 0; c < 4; ++c)
-            red[((p * WARPS + warp) * MT + m) * SUB + cg * 4 + c] = acc[m][c];
+            red[(warp * MT + m) * SUB + cg * 4 + c] = acc[m][c];
       }
     }
     __syncthreads();
@@ -190,18 +197,11 @@ __global__ void __launch_bounds__(THREADS) mlp4_pass1(Args g) {
       const int m = e / SUB, c = e % SUB;
       const bool high = c >= SUBR;
       const int r = j + c % SUBR;
-      float v1 = 0.f, vu = 0.f;
+      float v1 = 0.f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) {
-        v1 += red[(w * MT + m) * SUB + c];
-        if (GATED) vu += red[((WARPS + w) * MT + m) * SUB + c];
-      }
-      float a;
-      if (GATED) {
-        a = act_fn(v1, g.act) * vu;
-      } else {
-        a = act_fn(v1 + g.b1[t * g.BI + (high ? g.BI / 2 : 0) + r0 + r], g.act);
-      }
+      for (int w = 0; w < WARPS; ++w) v1 += red[(w * MT + m) * SUB + c];
+      const float a =
+          act_fn(v1 + g.b1[t * g.BI + (high ? g.BI / 2 : 0) + r0 + r], g.act);
       as[m * 2 * g.R + (high ? g.R : 0) + r] = round_bf16(a);
     }
     __syncthreads();
@@ -265,14 +265,14 @@ __global__ void mlp4_pass2(Args g) {
   if (i >= mh) return;
   float acc = 0.f;
   for (int s = 0; s < g.S; ++s) acc += g.part[s * mh + i];
-  g.out[i] = (g.b2 ? g.b2[i % g.H] : 0.f) + acc;
+  g.out[i] = g.b2[i % g.H] + acc;
 }
 
-template <int MT, bool GATED>
+template <int MT>
 int launch(const Args& a, cudaStream_t st) {
   const size_t smem = sizeof(float) * ((size_t)MT * a.H + 2 * WARPS * MT * SUB +
                                        (size_t)MT * 2 * a.R);
-  auto kern = mlp4_pass1<MT, GATED>;
+  auto kern = mlp4_pass1<MT>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -291,7 +291,7 @@ int chunk_of(int n, int cap) {
   return c;
 }
 
-int run(Args& a, bool gated, cudaStream_t st) {
+int run(Args& a, cudaStream_t st) {
   if (a.H % 4 || a.I % 4 || a.BI <= 0 || a.BI % SUB || a.I % a.BI ||
       a.R <= 0 || a.R % SUBR || (a.BI / 2) % a.R || a.GIN <= 0 ||
       (a.H / 2) % a.GIN || a.SPT <= 0 || a.SPT % 2 || (a.BI / 2) % (a.SPT / 2))
@@ -299,8 +299,7 @@ int run(Args& a, bool gated, cudaStream_t st) {
   a.CH = chunk_of(a.GIN, 32);
   a.GMID = (a.BI / 2) / (a.SPT / 2);
   a.S = (a.I / 2) / a.R;
-  if (a.M == 1) return gated ? launch<1, true>(a, st) : launch<1, false>(a, st);
-  return gated ? launch<8, true>(a, st) : launch<8, false>(a, st);
+  return a.M == 1 ? launch<1>(a, st) : launch<8>(a, st);
 }
 
 Args make_args(const void* x, const void* w1, const void* s1, const void* w2,
@@ -318,22 +317,53 @@ Args make_args(const void* x, const void* w1, const void* s1, const void* w2,
 
 }  // namespace
 
-// Shapes as in the header; part is [I/2/R, M, H] f32 scratch.  group_in is
-// the first projection's packed rows per scale row, spt the scale rows per
-// tile of the second.  Needs H % 4
-// == 0, tile % 32 == 0, R % 16 == 0 dividing tile/2, and 16-byte aligned
-// tensors.
+// x [M, H] bf16, wg / wu packed [H/2, I] uint8 with scales [H/2/group_in
+// * 2, I] f32, wd packed per tile of `tile` rows [I/2, H] with `spt` scale
+// rows a tile, out [M, H] f32; part an f32 workspace [S, M, H] with S from
+// tsk_gated_geometry_int4, and arrivals int32 counters, zero, one per rank
+// and row tile of 16 (both unused where S = 1).  The plan: `cluster`
+// blocks a cluster (1-8), `cols` columns of I a cluster (128 or 256:
+// cols/2 packed rows of Wd); `slots` > 0 (M = 1, H % 16 == 0) takes the
+// SIMT kernel with that many clusters instead (`cols` unused).  Needs
+// H % 4 == 0, tile % 32 == 0 and 16-byte aligned tensors.
 extern "C" int tsk_gated_mlp_int4(const void* x, const void* wg, const void* sg,
                                   const void* wu, const void* su, const void* wd,
-                                  const void* sd, void* part, void* out, int M,
-                                  int H, int I, int tile, int group_in, int spt,
-                                  int R, int act, void* stream) {
-  Args a = make_args(x, wg, sg, wd, sd, part, out, M, H, I, tile, group_in,
-                     spt, R, act);
+                                  const void* sd, void* part, void* out,
+                                  void* arrivals, int M, int H, int I, int tile,
+                                  int group_in, int spt, int act, int cluster,
+                                  int cols, int slots, void* stream) {
+  if (H % 4) return (int)cudaErrorInvalidValue;
+  gated::Args a{};
+  a.x = (const __nv_bfloat16*)x;
+  a.wg = (const uint8_t*)wg; a.sg = (const float*)sg;
   a.wu = (const uint8_t*)wu; a.su = (const float*)su;
-  return run(a, true, (cudaStream_t)stream);
+  a.wd = (const uint8_t*)wd; a.sd = (const float*)sd;
+  a.part = (float*)part; a.out = (float*)out; a.arrivals = (int*)arrivals;
+  a.M = M; a.H = H; a.I = I; a.act = act;
+  a.BI = tile; a.GIN = group_in; a.SPT = spt;
+  a.C = cluster; a.TS = cols; a.slots = slots;
+  return gated::run<true>(a, (cudaStream_t)stream);
 }
 
+// The geometry of a plan (arguments as above) as the kernel takes it:
+// out[0] = S, the slots of `part`; out[1] = the first packed row of Wd
+// that the last slot owns.  An error where the kernel cannot take the
+// plan.
+extern "C" int tsk_gated_geometry_int4(int M, int H, int I, int tile,
+                                       int group_in, int spt, int cluster,
+                                       int cols, int slots, int* out) {
+  if (H % 4) return (int)cudaErrorInvalidValue;
+  gated::Args a{};
+  a.M = M; a.H = H; a.I = I;
+  a.BI = tile; a.GIN = group_in; a.SPT = spt;
+  a.C = cluster; a.TS = cols; a.slots = slots;
+  return gated::geometry<true>(a, out);
+}
+
+// Shapes as in the header; part is [I/2/R, M, H] f32 scratch.  group_in is
+// the first projection's packed rows per scale row, spt the scale rows per
+// tile of the second.  Needs H % 4 == 0, tile % 32 == 0, R % 16 == 0
+// dividing tile/2, and 16-byte aligned tensors.
 extern "C" int tsk_ffn_int4(const void* x, const void* w1, const void* s1,
                             const void* b1, const void* w2, const void* s2,
                             const void* b2, void* part, void* out, int M, int H,
@@ -342,5 +372,5 @@ extern "C" int tsk_ffn_int4(const void* x, const void* w1, const void* s1,
   Args a = make_args(x, w1, s1, w2, s2, part, out, M, H, I, tile, group_in,
                      spt, R, act);
   a.b1 = (const float*)b1; a.b2 = (const float*)b2;
-  return run(a, false, (cudaStream_t)stream);
+  return run(a, (cudaStream_t)stream);
 }

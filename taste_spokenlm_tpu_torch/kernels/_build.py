@@ -36,6 +36,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_ARRIVALS: Dict[Tuple[str, int], object] = {}
 
 
 def _nvcc() -> str:
@@ -147,6 +148,25 @@ def _sm_count(index: int) -> int:
 def sm_count(device) -> int:
     """Streaming multiprocessors of a CUDA device."""
     return _sm_count(device.index or 0)
+
+
+def arrivals(kernel: str, device, n: int):
+    """The int32 arrival counters of `kernel` on a CUDA `device`, one buffer
+    of `n` a kernel and device, zero between calls: the last block to
+    arrive on a tile resets its counter.  Made at the kernel's first call,
+    which may not be inside a CUDA graph capture."""
+    import torch
+    key = (kernel, device.index or 0)
+    with _LOCK:
+        buf = _ARRIVALS.get(key)
+        if buf is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{kernel}: call it once on this device "
+                                   f"before capturing it in a CUDA graph")
+            buf = torch.zeros(n, dtype=torch.int32, device=device)
+            torch.cuda.synchronize(device)
+            _ARRIVALS[key] = buf
+        return buf
 
 
 def stream_of(t) -> int:

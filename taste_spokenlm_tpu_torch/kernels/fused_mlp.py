@@ -18,12 +18,21 @@ in packed row t*bi/2 + r the low nibble is I-row t*bi + r and the high
 nibble I-row t*bi + bi/2 + r, and tile t's scales are rows [t*spt,
 (t+1)*spt), low-plane groups first.  Byte-identical to the JAX package's.
 
-Bound on the H100: the weight bytes at decode; see the sources for the
-design (a split over I with a deterministic second pass instead of the
-TPU's sequential grid).  `launches` counts one per call (two CUDA launches).
+Bound on the H100: the weight bytes at decode.  The gated MLPs are one CUDA
+launch a call (csrc/gated_mlp.cuh: thread-block clusters over I, the
+clusters' partials summed in a fixed order by the last block to arrive; one
+row of x on the SIMT units, more rows on the tensor cores); `gated_plan`
+picks the route, the cluster, its columns and the number of clusters, and
+the kernel's library says how many partial sums that plan leaves
+(`gated_geometry`).  The FFNs are two CUDA launches a call (a split over I and a
+deterministic second pass).  `launches` counts one per call.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,11 +46,22 @@ from taste_spokenlm_tpu_torch.kernels.int4_matmul import \
 MLP_TILE = 512
 SUB = 32                  # I columns per first-projection subtile (kernel)
 _ACTS = {"silu": 0, "swish": 0, "relu": 1, "gelu": 2}
-_SIG = (_build.P,) * 9 + (_build.I,) * 5 + (_build.P,)
-_SIGNATURE = {"tsk_gated_mlp_int8": _SIG, "tsk_ffn_int8": _SIG}
+_SIGNATURE = {
+    "tsk_gated_mlp_int8": (_build.P,) * 10 + (_build.I,) * 7 + (_build.P,),
+    "tsk_gated_geometry_int8": (_build.I,) * 6 + (_build.P,),
+    "tsk_ffn_int8": (_build.P,) * 9 + (_build.I,) * 5 + (_build.P,)}
 SUBR4 = 16                # packed second-projection rows per subtile (int4)
-_SIG4 = (_build.P,) * 9 + (_build.I,) * 8 + (_build.P,)
-_SIGNATURE4 = {"tsk_gated_mlp_int4": _SIG4, "tsk_ffn_int4": _SIG4}
+_SIGNATURE4 = {
+    "tsk_gated_mlp_int4": (_build.P,) * 10 + (_build.I,) * 10 + (_build.P,),
+    "tsk_gated_geometry_int4": (_build.I,) * 9 + (_build.P,),
+    "tsk_ffn_int4": (_build.P,) * 9 + (_build.I,) * 8 + (_build.P,)}
+# the gated kernels (csrc/gated_mlp.cuh): rows of x a block (tensor
+# cores), the cluster sizes and columns of I a cluster they take
+GATED_ROWS = 16
+GATED_CLUSTERS = (1, 2, 4, 8)
+GATED_COLS = (128, 256)
+GEMV_CLUSTER = 8          # blocks a cluster of the one-row SIMT kernel
+MAX_ARRIVALS = 256        # counters a gated kernel keeps per device
 
 
 def _pick_block(i: int, block_i: int) -> int:
@@ -132,9 +152,124 @@ def _scratch(m: int, h: int, i: int, device) -> torch.Tensor:
     return torch.empty((s, m, h), dtype=torch.float32, device=device)
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def gated_clusters(i: int, cols: int, tile: Optional[int] = None) -> int:
+    """Clusters of a tensor-core plan as `gated_plan` ranks its candidates:
+    int8 ceil(I / cols); int4 (`tile` given) the tiles of Wd times
+    ceil((tile / 2) / (cols / 2)), each cluster inside one tile.  The
+    partial sums are sized from the kernel's own count (`gated_geometry`),
+    which a card test holds equal to this one."""
+    if tile is None:
+        return _cdiv(i, cols)
+    return (i // tile) * _cdiv(tile // 2, cols // 2)
+
+
+def gemv_slots(i: int, cluster: int, sms: int, int4: bool = False) -> int:
+    """Clusters of the one-row SIMT kernel: as many as fill 10/11 of the
+    SMs once (clusters of 4 or 8 reach 120 of an H100's 132 SMs, one block
+    each), at least one 16-column (int4: 16-packed-row) chunk each."""
+    return max(1, min(i // 32 if int4 else i // 16,
+                      sms * 10 // 11 // cluster))
+
+
+def gated_plan(m: int, h: int, i: int, sms: int, tile: Optional[int] = None
+               ) -> Tuple[int, int, int]:
+    """(blocks a cluster, columns of I a cluster, SIMT clusters) of a gated
+    kernel; int8, or int4 where `tile` (the Wd packing tile) is given.  One
+    row (M = 1) with H % 16 == 0 takes the SIMT kernel (`gemv_slots`
+    clusters of GEMV_CLUSTER blocks; the columns are unused), every other M
+    the tensor cores in row tiles of GATED_ROWS.
+
+    On the tensor cores the candidates are every cluster of GATED_CLUSTERS
+    and every width of GATED_COLS whose ranks own 128, 256 or 512 output
+    columns (the widths the kernel is built for) and every one of them
+    contraction rows and output columns;
+    such a block fits in shared memory (at most about 110 KB of 226, int4
+    scales staged only where they fit).  The plan takes the most blocks
+    (clusters x ranks) that still fit on the card in one wave, and among
+    those the fewer columns past I, the wider columns (longer weight runs,
+    fewer partials to sum), then the smaller cluster; where none fits in one
+    wave, the fewest blocks.  Row tiles multiply the blocks of every
+    candidate alike and do not enter the choice."""
+    int4 = tile is not None
+    k1 = h // 2 if int4 else h
+    if m == 1 and h % 16 == 0:
+        cluster = min(GEMV_CLUSTER, max(1, h // 16))
+        return cluster, GATED_COLS[0], gemv_slots(i, cluster, sms, int4)
+    best = None
+    for cols in GATED_COLS:
+        for cluster in GATED_CLUSTERS:
+            kc = _cdiv(_cdiv(k1, cluster), 16) * 16
+            hc = _cdiv(_cdiv(h, cluster), 128) * 128
+            if kc * (cluster - 1) >= k1 or hc * (cluster - 1) >= h \
+                    or hc not in (128, 256, 512):
+                continue
+            slots = gated_clusters(i, cols, tile)
+            blocks = slots * cluster
+            key = ((0, blocks) if blocks <= sms else (-1, -blocks),
+                   i - slots * cols, cols, -cluster)
+            if best is None or key > best[0]:
+                best = (key, (cluster, cols, 0))
+    if best is None:
+        raise ValueError(f"gated MLP: no plan takes H={h}")
+    return best[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _geometry(dims: Tuple[int, ...], plan: Tuple[int, int, int]
+              ) -> Tuple[int, int]:
+    out = (ctypes.c_int * 2)()
+    if len(dims) == 3:
+        lib = _build.load("fused_mlp", _SIGNATURE)
+        err = lib.tsk_gated_geometry_int8(*dims, *plan, ctypes.addressof(out))
+    else:
+        lib = _build.load("fused_mlp_int4", _SIGNATURE4)
+        err = lib.tsk_gated_geometry_int4(*dims, *plan, ctypes.addressof(out))
+    if err:
+        raise ValueError(f"gated MLP: the kernel cannot take plan {plan} "
+                         f"at (M, H, I, ...) = {dims}")
+    return out[0], out[1]
+
+
+def gated_geometry(m: int, h: int, i: int, sms: int,
+                   tile: Optional[int] = None, group_in: int = 1,
+                   spt: int = 2) -> Tuple[Tuple[int, int, int], int, int]:
+    """(plan, S, row) of a gated kernel's call on a CUDA device with `sms`
+    SMs (int8; int4 where `tile` is given, with the first projection's
+    packed rows a scale row and Wd's scale rows a tile): the plan
+    `gated_plan` picks, and as the kernel derives them from it
+    (tsk_gated_geometry_int8 / _int4) the S slots of its partial sums and
+    the first row of Wd that slot S - 1 owns (int4: a packed row of the
+    per-tile packing).  Raises where the kernel cannot take the plan."""
+    plan = gated_plan(m, h, i, sms, tile)
+    dims = (m, h, i) if tile is None else (m, h, i, tile, group_in, spt)
+    slots, row = _geometry(dims, plan)
+    return plan, slots, row
+
+
+def _gated_buffers(kind: str, m: int, h: int, slots: int, cluster: int,
+                   device):
+    """(partials [slots, M, H] f32, arrival counters) of one gated call;
+    None, None with one slot."""
+    if slots == 1:
+        return None, None
+    if _cdiv(m, GATED_ROWS) * cluster > MAX_ARRIVALS:
+        raise ValueError(f"{kind}: {m} rows need more than {MAX_ARRIVALS} "
+                         f"arrival counters")
+    part = torch.empty((slots, m, h), dtype=torch.float32, device=device)
+    return part, _build.arrivals(kind, device, MAX_ARRIVALS)
+
+
+def _opt_ptr(t) -> Optional[int]:
+    return None if t is None else _build.ptr(t)
+
+
 def gated_mlp_int8(x, wg, sg, wu, su, wd, sd, activation: str = "silu"):
     """The Llama MLP, -> [..., H] f32.  CPU tensors take the plain version;
-    CUDA tensors launch csrc/fused_mlp.cu."""
+    CUDA tensors launch csrc/fused_mlp.cu (one launch)."""
     if x.device.type == "cpu":
         return gated_mlp_int8_plain(x, wg, sg, wu, su, wd, sd, activation)
     if x.device.type != "cuda":
@@ -145,13 +280,16 @@ def gated_mlp_int8(x, wg, sg, wu, su, wd, sd, activation: str = "silu"):
         raise ValueError("gated_mlp_int8: shapes do not fit")
     xm, out = _prepare("gated_mlp_int8", x, (wg, wu, wd), (sg, su, sd),
                        activation)
-    part = _scratch(xm.shape[0], h, i, x.device)
-    if xm.shape[0]:
+    m = xm.shape[0]
+    if m:
+        plan, slots, _ = gated_geometry(m, h, i, _build.sm_count(x.device))
+        part, arrivals = _gated_buffers("gated_mlp_int8", m, h, slots,
+                                        plan[0], x.device)
         lib = _build.load("fused_mlp", _SIGNATURE)
         p = _build.ptr
         err = lib.tsk_gated_mlp_int8(
-            p(xm), p(wg), p(sg), p(wu), p(su), p(wd), p(sd), p(part), p(out),
-            xm.shape[0], h, i, i // part.shape[0], _ACTS[activation],
+            p(xm), p(wg), p(sg), p(wu), p(su), p(wd), p(sd), _opt_ptr(part),
+            p(out), _opt_ptr(arrivals), m, h, i, _ACTS[activation], *plan,
             _build.stream_of(x))
         _build.check(err, "gated_mlp_int8")
         gated_mlp_int8.launches += 1
@@ -294,12 +432,9 @@ def _unit_rows(m: int, i: int, tile: int, device) -> int:
 
 
 def _launch_int4(fn_name, c_name, x, args, activation, tile):
-    """Check and launch one int4 fused MLP; `args` are its six weight,
-    scale and bias tensors in the C function's order: (wg, sg, wu, su, wd,
-    sd) or (w1, s1, b1, w2, s2, b2)."""
-    w1, s1 = args[0], args[1]
-    w2, s2 = (args[4], args[5]) if c_name == "tsk_gated_mlp_int4" \
-        else (args[3], args[4])
+    """Check and launch the int4 FFN; `args` are its six weight, scale and
+    bias tensors in the C function's order: (w1, s1, b1, w2, s2, b2)."""
+    w1, s1, w2, s2 = args[0], args[1], args[3], args[4]
     h, i, tile, group_in, spt = _int4_geometry(fn_name, x, w1, s1, w2, s2,
                                                tile)
     xm, out = _prepare(fn_name, x, [t for t in args if t.dtype == torch.uint8],
@@ -321,7 +456,7 @@ def _launch_int4(fn_name, c_name, x, args, activation, tile):
 def gated_mlp_int4(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
                    tile=None):
     """The int4 Llama MLP, -> [..., H] f32.  CPU tensors take the plain
-    version; CUDA tensors launch csrc/fused_mlp_int4.cu."""
+    version; CUDA tensors launch csrc/fused_mlp_int4.cu (one launch)."""
     if x.device.type == "cpu":
         return gated_mlp_int4_plain(x, wg, sg, wu, su, wd, sd, activation,
                                     tile)
@@ -329,10 +464,27 @@ def gated_mlp_int4(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
         raise ValueError(f"gated_mlp_int4: unsupported device {x.device}")
     if wu.shape != wg.shape or su.shape != sg.shape:
         raise ValueError("gated_mlp_int4: gate and up do not fit")
-    out, launched = _launch_int4("gated_mlp_int4", "tsk_gated_mlp_int4", x,
-                                 (wg, sg, wu, su, wd, sd), activation, tile)
-    gated_mlp_int4.launches += launched
-    return out
+    if wu.dtype != torch.uint8:
+        raise TypeError("gated_mlp_int4: packed weights must be uint8")
+    h, i, tile, group_in, spt = _int4_geometry("gated_mlp_int4", x, wg, sg,
+                                               wd, sd, tile)
+    xm, out = _prepare("gated_mlp_int4", x, (wg, wu, wd), (sg, su, sd),
+                       activation, packed=True)
+    m = xm.shape[0]
+    if m:
+        plan, slots, _ = gated_geometry(m, h, i, _build.sm_count(x.device),
+                                        tile, group_in, spt)
+        part, arrivals = _gated_buffers("gated_mlp_int4", m, h, slots,
+                                        plan[0], x.device)
+        lib = _build.load("fused_mlp_int4", _SIGNATURE4)
+        p = _build.ptr
+        err = lib.tsk_gated_mlp_int4(
+            p(xm), p(wg), p(sg), p(wu), p(su), p(wd), p(sd), _opt_ptr(part),
+            p(out), _opt_ptr(arrivals), m, h, i, tile, group_in, spt,
+            _ACTS[activation], *plan, _build.stream_of(x))
+        _build.check(err, "gated_mlp_int4")
+        gated_mlp_int4.launches += 1
+    return out.reshape(*x.shape[:-1], h)
 
 
 def ffn_int4(x, w1, s1, b1, w2, s2, b2, activation: str = "swish", tile=None):

@@ -20,8 +20,7 @@ design.  `launches` counts CUDA launches only: one a call.
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -33,8 +32,6 @@ WIDE_THREADS = 512        # threads of a split block at M = 1 (else 128)
 MAX_ARRIVALS = 4096       # arrival counters of a device (column x row tiles)
 _SIGNATURE = {"tsk_matmul_int4": (_build.P,) * 6 + (_build.I,) * 8
               + (_build.P,)}
-_ARRIVALS: Dict[int, torch.Tensor] = {}
-_ARRIVALS_LOCK = threading.Lock()
 
 
 def _group(d: int, group: Optional[int] = None) -> int:
@@ -132,22 +129,6 @@ def split_plan(m: int, d: int, n: int, group: int, sms: int
     return cols, 128, -(-n_g // want) * group
 
 
-def _arrivals(device: torch.device) -> torch.Tensor:
-    """The split kernel's arrival counters on `device`, zero between calls
-    (the last block on a tile resets its counter).  Made at the first call,
-    which may not be inside a CUDA graph capture."""
-    with _ARRIVALS_LOCK:
-        buf = _ARRIVALS.get(device.index)
-        if buf is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("matmul_int4: call it once on this device "
-                                   "before capturing it in a CUDA graph")
-            buf = torch.zeros(MAX_ARRIVALS, dtype=torch.int32, device=device)
-            torch.cuda.synchronize(device)
-            _ARRIVALS[device.index] = buf
-        return buf
-
-
 def matmul_int4(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor
                 ) -> torch.Tensor:
     """x [..., D] @ dequant(wp [D/2, N] uint8, scale [D/group, N] f32) ->
@@ -184,7 +165,8 @@ def matmul_int4(x: torch.Tensor, wp: torch.Tensor, scale: torch.Tensor
         if rows < half:        # split: then the tiles are at most 2 a SM
             part = torch.empty((-(-half // rows), m, n), dtype=torch.float32,
                                device=x.device)
-            arrivals = _arrivals(x.device)
+            arrivals = _build.arrivals("matmul_int4", x.device,
+                                       MAX_ARRIVALS)
         vec = int(n % cols == 0 and wp.data_ptr() % cols == 0)
     else:
         vec = int(n % 4 == 0 and wp.data_ptr() % 4 == 0)

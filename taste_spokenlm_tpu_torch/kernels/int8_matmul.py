@@ -19,8 +19,7 @@ per call.
 
 from __future__ import annotations
 
-import threading
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -33,8 +32,6 @@ _SIGNATURE = {
     "tsk_logits_int8": (_build.P,) * 4 + (_build.I,) * 3 + (_build.P,),
     "tsk_matmul_int8": (_build.P,) * 6 + (_build.I,) * 7 + (_build.P,),
 }
-_ARRIVALS: Dict[int, torch.Tensor] = {}
-_ARRIVALS_LOCK = threading.Lock()
 
 
 def _rows(x: torch.Tensor) -> torch.Tensor:
@@ -145,22 +142,6 @@ def split_plan(m: int, d: int, n: int, sms: int) -> Tuple[int, int, int]:
     return cols, 128, step(-(-d // want))
 
 
-def _arrivals(device: torch.device) -> torch.Tensor:
-    """matmul_int8's arrival counters on `device`, zero between calls (the
-    last block on a tile resets its counter).  Made at the first call,
-    which may not be inside a CUDA graph capture."""
-    with _ARRIVALS_LOCK:
-        buf = _ARRIVALS.get(device.index)
-        if buf is None:
-            if torch.cuda.is_current_stream_capturing():
-                raise RuntimeError("matmul_int8: call it once on this device "
-                                   "before capturing it in a CUDA graph")
-            buf = torch.zeros(MAX_ARRIVALS, dtype=torch.int32, device=device)
-            torch.cuda.synchronize(device)
-            _ARRIVALS[device.index] = buf
-        return buf
-
-
 def matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
                 ) -> torch.Tensor:
     """x [..., D] @ w_q [D, N] int8 with per-column scales [N] -> [..., N]
@@ -184,7 +165,8 @@ def matmul_int8(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor
         if rows < d:
             part = torch.empty((-(-d // rows), m, n), dtype=torch.float32,
                                device=x.device)
-            arrivals = _arrivals(x.device)
+            arrivals = _build.arrivals("matmul_int8", x.device,
+                                       MAX_ARRIVALS)
         vec = int(n % cols == 0 and w_q.data_ptr() % cols == 0)
         lib = _build.load("int8_matmul", _SIGNATURE)
         err = lib.tsk_matmul_int8(

@@ -9,7 +9,7 @@ elsewhere.  Run on the card with:
 import pytest
 import torch
 
-from taste_spokenlm_tpu_torch.kernels import (conv1d, flash_attention,
+from taste_spokenlm_tpu_torch.kernels import (_build, conv1d, flash_attention,
                                               fused_dit, fused_mlp,
                                               int4_matmul, int8_matmul,
                                               relpos_attention)
@@ -225,10 +225,16 @@ def _rel(out, ref):
     return ((out - ref).abs().max() / ref.abs().max()).item()
 
 
-@pytest.mark.parametrize("m", [1, 40, 256])
-def test_gated_mlp_int8_matches_plain(dev, m):
+# the path's shapes (the S3-stack and Llama decode steps, the Llama
+# prefill) and row counts on either side of the 16-row tiles
+GATED_SHAPES = [(1, 1024, 2048), (1, 2048, 8192), (42, 2048, 8192),
+                (9, 2048, 8192), (17, 2048, 8192), (40, 2048, 8192),
+                (256, 2048, 8192)]
+
+
+@pytest.mark.parametrize("m,h,i", GATED_SHAPES)
+def test_gated_mlp_int8_matches_plain(dev, m, h, i):
     g = torch.Generator().manual_seed(4)
-    h, i = 2048, 8192
     (wg, sg), (wu, su), (wd, sd) = (_q8(g, h, i, dev), _q8(g, h, i, dev),
                                     _q8(g, i, h, dev))
     x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
@@ -236,12 +242,49 @@ def test_gated_mlp_int8_matches_plain(dev, m):
     ref = fused_mlp.gated_mlp_int8_plain(x, wg, sg, wu, su, wd, sd)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= 2e-2
-    again = fused_mlp.gated_mlp_int8(x, wg, sg, wu, su, wd, sd)
-    assert torch.equal(out, again)          # no atomics: bit-for-bit repeat
+    for _ in range(2):          # no float atomics: the same bits every call
+        assert torch.equal(fused_mlp.gated_mlp_int8(x, wg, sg, wu, su, wd, sd),
+                           out)
     # the gate reaches the output: a zeroed gate moves it past the tolerance
     no_gate = fused_mlp.gated_mlp_int8(x, torch.zeros_like(wg), sg, wu, su,
                                        wd, sd)
     assert _rel(no_gate, ref) > 5 * 2e-2
+
+
+def _graph_replays(fn, x, args):
+    """fn(x, *args) captured in a CUDA graph gives the eager call's bits on
+    every replay (its arrival counters persist between calls) and follows
+    its input."""
+    first = fn(x, *args)
+    static_x = x.clone()
+    side = torch.cuda.Stream(x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    with torch.cuda.stream(side):
+        fn(static_x, *args)
+    torch.cuda.current_stream(x.device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        static_out = fn(static_x, *args)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static_out, first)
+    static_x.copy_(2 * x)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(static_out, fn(2 * x, *args))
+
+
+# one row (the SIMT kernel) and the prefill's 42 (the tensor-core kernel,
+# its counters per row tile and rank)
+@pytest.mark.parametrize("m", [1, 42])
+def test_gated_mlp_int8_replays_in_a_graph(dev, m):
+    g = torch.Generator().manual_seed(21)
+    h, i = 2048, 8192
+    (wg, sg), (wu, su), (wd, sd) = (_q8(g, h, i, dev), _q8(g, h, i, dev),
+                                    _q8(g, i, h, dev))
+    x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+    _graph_replays(fused_mlp.gated_mlp_int8, x, (wg, sg, wu, su, wd, sd))
 
 
 @pytest.mark.parametrize("m", [1, 40, 256])
@@ -361,34 +404,76 @@ def test_quantized_wrappers_reject_what_the_kernels_do_not_take(dev):
                            torch.zeros(64, device=dev))
 
 
-def _q4(g, n_in, n_out, dev, tile=None):
+def _q4(g, n_in, n_out, dev, tile=None, group=None):
     """Fan-in scaled random weights through the port's int4 packing (per
-    tile of `tile` rows when given)."""
+    tile of `tile` rows when given; `group` rows a scale, else the
+    default)."""
     w = torch.randn(n_in, n_out, generator=g) * n_in ** -0.5
-    q = (fused_mlp.quantize_int4_tiled(w, tile) if tile
-         else int4_matmul.quantize_int4(w))
+    q = (fused_mlp.quantize_int4_tiled(w, tile, group) if tile
+         else int4_matmul.quantize_int4(w, group))
     return q[0].to(dev), q[1].to(dev)
 
 
-@pytest.mark.parametrize("m,h,i", [(1, 2048, 8192), (42, 2048, 8192),
-                                   (256, 2048, 8192), (3, 256, 1024),
-                                   (5, 64, 128)])
-def test_gated_mlp_int4_matches_plain(dev, m, h, i):
+@pytest.mark.parametrize("m,h,i,group", [
+    *[(*shape, None) for shape in GATED_SHAPES],
+    (3, 256, 1024, None), (5, 64, 128, None),
+    (4, 64, 128, 16), (3, 64, 128, 32), (2, 32, 64, 16)])  # tiny groups
+def test_gated_mlp_int4_matches_plain(dev, m, h, i, group):
     g = torch.Generator().manual_seed(7)
     tile = fused_mlp.mlp_tile(i)
-    (wg, sg), (wu, su) = _q4(g, h, i, dev), _q4(g, h, i, dev)
-    wd, sd = _q4(g, i, h, dev, tile)
+    (wg, sg), (wu, su) = _q4(g, h, i, dev, group=group), _q4(g, h, i, dev,
+                                                         group=group)
+    wd, sd = _q4(g, i, h, dev, tile, group)
     x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
     args = (x, wg, sg, wu, su, wd, sd)
     out = fused_mlp.gated_mlp_int4(*args)
     ref = fused_mlp.gated_mlp_int4_plain(*args)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= 2e-2
-    assert torch.equal(out, fused_mlp.gated_mlp_int4(*args))   # no atomics
+    for _ in range(2):          # no float atomics: the same bits every call
+        assert torch.equal(fused_mlp.gated_mlp_int4(*args), out)
     # each half of the per-tile packing reaches the output
     swapped = ((wd >> 4) | (wd << 4)).contiguous()
     moved = fused_mlp.gated_mlp_int4(x, wg, sg, wu, su, swapped, sd)
     assert _rel(moved, ref) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("m", [1, 42])
+def test_gated_mlp_int4_replays_in_a_graph(dev, m):
+    g = torch.Generator().manual_seed(22)
+    h, i = 2048, 8192
+    (wg, sg), (wu, su) = _q4(g, h, i, dev), _q4(g, h, i, dev)
+    wd, sd = _q4(g, i, h, dev, fused_mlp.mlp_tile(i))
+    x = torch.randn(m, h, generator=g).to(dev, torch.bfloat16)
+    _graph_replays(fused_mlp.gated_mlp_int4, x, (wg, sg, wu, su, wd, sd))
+
+
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_gated_geometry_matches_the_plan(dev, kind):
+    """The kernel takes gated_plan's plan at the path's shapes and the tiny
+    widths, its slot count (which sizes the partial sums) is the one the
+    plan ranks its candidates by, and its last slot starts where the plan's
+    last cluster does (int8: an I row; int4: a packed row)."""
+    sms = _build.sm_count(dev)
+    for m, h, i in [*GATED_SHAPES, (3, 256, 1024), (5, 64, 128),
+                    (2, 32, 64)]:
+        tile = fused_mlp.mlp_tile(i) if kind == "int4" else None
+        extra = (() if tile is None else
+                 (tile, int4_matmul._group(h),
+                  tile // int4_matmul._group(tile)))
+        plan, slots, row = fused_mlp.gated_geometry(m, h, i, sms, *extra)
+        assert plan == fused_mlp.gated_plan(m, h, i, sms, tile)
+        cluster, cols, simt = plan
+        if simt:
+            chunks = i // 32 if tile else i // 16
+            assert (slots, row) == (simt, 16 * ((simt - 1) * chunks // simt))
+        elif tile is None:
+            assert slots == fused_mlp.gated_clusters(i, cols)
+            assert row == (slots - 1) * cols
+        else:
+            assert slots == fused_mlp.gated_clusters(i, cols, tile)
+            per_tile = slots // (i // tile)
+            assert row == i // 2 - tile // 2 + (per_tile - 1) * cols // 2
 
 
 @pytest.mark.parametrize("m,d,i,act", [(1, 1024, 2048, "swish"),

@@ -359,6 +359,157 @@ def test_matmul_int8_split_plan(m, d, n, sms):
             assert 2 * tiles * n_split >= min(4 * sms, tiles * -(-d // 8))
 
 
+# the gated kernels' plan: (kind, M, H, I, SMs); the Llama and S3 shapes of
+# the path at 132 and 114 SMs, prefill rows, and tiny widths
+@pytest.mark.parametrize("kind,m,h,i,sms", [
+    ("int8", 1, 2048, 8192, 132), ("int8", 42, 2048, 8192, 132),
+    ("int8", 1, 1024, 2048, 132), ("int8", 256, 2048, 8192, 132),
+    ("int8", 1, 2048, 8192, 114), ("int8", 1, 1024, 2048, 114),
+    ("int8", 3, 256, 1024, 132), ("int8", 1, 64, 96, 132),
+    ("int8", 2, 8, 32, 132),
+    ("int4", 1, 2048, 8192, 132), ("int4", 42, 2048, 8192, 132),
+    ("int4", 1, 1024, 2048, 132), ("int4", 256, 2048, 8192, 132),
+    ("int4", 1, 2048, 8192, 114), ("int4", 1, 1024, 2048, 114),
+    ("int4", 3, 256, 1024, 132), ("int4", 5, 64, 128, 132),
+    ("int4", 2, 32, 64, 132)])
+def test_gated_mlp_plan(kind, m, h, i, sms):
+    """The gated kernels' plan.  One row with H % 16 == 0: the SIMT kernel,
+    clusters of GEMV_CLUSTER blocks (fewer where H has fewer 16-column
+    chunks), as many clusters as fill 10/11 of the SMs (120 of an H100's
+    132: the SMs that clusters of 8 reach, timed on the card) and at most
+    one per 16-column chunk.  Otherwise the tensor cores: a cluster and a
+    column width the kernel takes, every rank with contraction rows and
+    128, 256 or 512 output columns, arrival counters for every rank and row tile,
+    slots that cover I (int4: each inside one tile of Wd), and no candidate
+    with more blocks that still fit on the card in one wave."""
+    int4 = kind == "int4"
+    tile = fused_mlp.mlp_tile(i) if int4 else None
+    cluster, cols, slots = fused_mlp.gated_plan(m, h, i, sms, tile)
+    assert cluster in fused_mlp.GATED_CLUSTERS
+    k1 = h // 2 if int4 else h
+    if m == 1 and h % 16 == 0:
+        chunks = i // 32 if int4 else i // 16
+        assert cluster == min(fused_mlp.GEMV_CLUSTER, h // 16)
+        assert slots == max(1, min(chunks, sms * 10 // 11 // cluster))
+        if (h, i) in ((2048, 8192), (1024, 2048)):
+            assert slots * cluster == (120 if sms == 132 else 96)
+        return
+    assert slots == 0
+    assert cols in fused_mlp.GATED_COLS
+
+    def ranks_ok(cl):
+        kc = -(-(-(-k1 // cl)) // 16) * 16
+        hc = -(-(-(-h // cl)) // 128) * 128
+        return (kc * (cl - 1) < k1 and hc * (cl - 1) < h
+                and hc in (128, 256, 512))
+
+    assert ranks_ok(cluster)
+    assert -(-m // fused_mlp.GATED_ROWS) * cluster <= fused_mlp.MAX_ARRIVALS
+    slots = fused_mlp.gated_clusters(i, cols, tile)
+    if int4:
+        per_tile = -(-(tile // 2) // (cols // 2))
+        assert slots == i // tile * per_tile
+        assert (per_tile - 1) * cols // 2 < tile // 2 <= per_tile * cols // 2
+    else:
+        assert (slots - 1) * cols < i <= slots * cols
+    blocks = slots * cluster
+    for cl in fused_mlp.GATED_CLUSTERS:
+        for co in fused_mlp.GATED_COLS:
+            more = fused_mlp.gated_clusters(i, co, tile) * cl
+            if ranks_ok(cl) and blocks <= sms:
+                assert not blocks < more <= sms
+    if (h, i) == (2048, 8192) and sms == 132:   # the prefill, timed
+        assert (cluster, cols) == (4, 256)
+
+
+def _lop3(a, b, c, lut):
+    """PTX lop3.b32 on int64 tensors of 32-bit words: bit j of the result
+    is bit ((a_j << 2) | (b_j << 1) | c_j) of lut."""
+    out = torch.zeros_like(a)
+    for j in range(32):
+        idx = (((a >> j) & 1) << 2) | (((b >> j) & 1) << 1) | ((c >> j) & 1)
+        out |= ((lut >> idx) & 1) << j
+    return out
+
+
+def _bf16_halves(w):
+    """The two bf16 halves of 32-bit words, as float32 (low, high)."""
+    lo = (w & 0xFFFF).to(torch.int32).to(torch.int16).view(torch.bfloat16)
+    hi = ((w >> 16) & 0xFFFF).to(torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    return lo.float(), hi.float()
+
+
+def _bf16_sub(w, v):
+    """bf16x2 w - v (as __hsub2 rounds: to bf16), per half, as float32."""
+    wl, wh = _bf16_halves(w)
+    vl, vh = _bf16_halves(v)
+    return ((wl.bfloat16() - vl.bfloat16()).float(),
+            (wh.bfloat16() - vh.bfloat16()).float())
+
+
+def _deq8(r, bias=0x43004300):
+    """csrc/gated_mlp.cuh deq8 on words r: bytes 0 and 2 as bf16 values."""
+    v = _lop3(r, torch.full_like(r, 0x007F007F), torch.full_like(r, bias),
+              0xEA)
+    s = _lop3(r, torch.full_like(r, 0x00800080), torch.full_like(r, 0x43004300),
+              0xEA)
+    return _bf16_sub(v, s)
+
+
+def _deq4(r, k=0x43084308):
+    """csrc/gated_mlp.cuh deq4 on words r: the low nibbles of bytes 0 and
+    2 as bf16 values."""
+    kk = torch.full_like(r, k)
+    v = _lop3(r, torch.full_like(r, 0x000F000F), kk, 0x6A)
+    return _bf16_sub(v, torch.full_like(r, 0x43084308))
+
+
+def test_gated_mlp_dequant_bit_arithmetic():
+    """Checks the design of the gated kernels' weight decode, not the kernel
+    (which runs only on the card): a test-local copy of its bit arithmetic
+    (lop3 with the kernel's lookup tables, the bf16 subtraction) gives every
+    int8 byte and every nibble of both planes its integer value exactly, in
+    each byte position the kernel reads (bytes 0 / 2, and 1 / 3 after a shift
+    by 8; high nibbles after a shift by 4), and an offset off by one does
+    not.  Its runtime divisions (FastDiv: l = ceil(log2 d), m =
+    floor(2^32 (2^l - d) / d) + 1 as make_fastdiv sets them, n / d as
+    (umulhi(n, m) + n) >> l) are exact for every n tried below 2^31."""
+    r = np.random.RandomState(0)
+    perm = np.stack([r.permutation(256) for _ in range(4)], axis=1)
+    b = torch.from_numpy(perm.astype(np.int64))             # [256, 4] bytes
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    as_int8 = b.to(torch.uint8).view(torch.int8).float()
+    # int8: bytes 0 / 2, then 1 / 3
+    for shift, (p, q) in ((0, (0, 2)), (8, (1, 3))):
+        lo, hi = _deq8(words >> shift)
+        assert torch.equal(lo, as_int8[:, p]) and torch.equal(hi, as_int8[:, q])
+    # every byte value in every position
+    assert all(sorted(perm[:, j].tolist()) == list(range(256)) for j in range(4))
+    lo, hi = _deq8(words, bias=0x43014301)
+    assert not torch.equal(lo, as_int8[:, 0])
+    # int4: low plane (shift 0, 8) and high plane (shift 4, 12)
+    nib_lo = ((b & 0xF) ^ 8) - 8
+    nib_hi = (((b >> 4) & 0xF) ^ 8) - 8
+    for shift, plane, (p, q) in ((0, nib_lo, (0, 2)), (8, nib_lo, (1, 3)),
+                                 (4, nib_hi, (0, 2)), (12, nib_hi, (1, 3))):
+        lo, hi = _deq4(words >> shift)
+        assert torch.equal(lo, plane[:, p].float())
+        assert torch.equal(hi, plane[:, q].float())
+    assert set(nib_lo[:, 0].tolist()) == set(range(-8, 8))
+    lo, _ = _deq4(words, k=0x43094309)
+    assert not torch.equal(lo, nib_lo[:, 0].float())
+    top = (1 << 31) - 1
+    for d in (1, 2, 3, 7, 15, 16, 30, 120, 255, 4096, 123457):
+        l = (d - 1).bit_length()
+        mul = ((1 << 32) * ((1 << l) - d)) // d + 1
+        n = np.concatenate([np.arange(5000), r.randint(0, top, 5000),
+                            [top, top - 1, top // d * d, top // d * d - 1]]
+                           ).astype(np.uint64)
+        got = (((n * np.uint64(mul)) >> np.uint64(32)) + n) >> np.uint64(l)
+        np.testing.assert_array_equal(got, n // np.uint64(d))
+
+
 def _int8_inputs(seed, lead, n_w, d_w, n_scale):
     r = np.random.RandomState(seed)
     x = (r.randn(*lead) * 0.1).astype(np.float32)
