@@ -19,11 +19,13 @@ quantizer (quant.py).  In order it:
 2. builds the port's CUDA kernels from taste_spokenlm_tpu_torch/csrc (one
    nvcc per source, all started together) and prints the seconds each took;
    checks in the SASS (cuobjdump) that every bf16 flash kernel, the bf16
-   rel-pos backward's three product kernels, every DiT GEMM and attention
-   kernel and every tensor-core kernel of the gated int8 / int4 MLPs (the
-   ones that run M > 1) issue tensor-core instructions, that no f32 flash
-   or rel-pos kernel does, and that no kernel of the gated MLPs (their
-   one-row SIMT kernel too) issues an int-to-float conversion (I2F);
+   rel-pos forward and the backward's three product kernels, every DiT
+   GEMM and attention kernel and every tensor-core kernel of the gated
+   int8 / int4 MLPs and of the int8 FFN (the ones that run M > 1) issue
+   tensor-core instructions, that no f32 flash or rel-pos kernel and no
+   one-row kernel does, and that no kernel of the gated MLPs or of the int8
+   FFN (their one-row SIMT kernels too) issues an int-to-float conversion
+   (I2F);
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, builds the bf16
@@ -120,19 +122,22 @@ quantizer (quant.py).  In order it:
    M <= 8 the contraction of its first slice only must move it past 5x the
    tolerance; the fused MLPs 2e-2 relative
    (their bf16 activation can differ by one bf16 step where the f32 sums
-   differ), the gated ones bit-identical twice; and swapped nibble planes,
-   a zeroed gate or first projection, (int4) a second projection packed
-   untiled, (gated) the Wd rows of the last slot of the kernel's plan
-   zeroed and, at M = 42, the last 8 rows of x scaled by 100 must each
-   move the output by more than 5x the tolerance.  Each gated row also
-   times, for information, the same MLP as a chain of library calls
-   (cuBLAS bf16 on weights dequantized once: x @ Wgu, silu * mul, @ Wd)
-   and as the port's own unfused chain (matmul_int8 / matmul_int4
-   gate-up, silu * mul, down).  The rel-pos attention at the training
+   differ), the gated ones and ffn_int8 bit-identical twice; and swapped
+   nibble planes, a zeroed gate or first projection, (int4) a second
+   projection packed untiled, (gated, ffn_int8) the Wd / W2 rows of the
+   last slot of the kernel's plan zeroed and, at M = 42, the last 8 rows of
+   x scaled by 100 must each move the output by more than 5x the
+   tolerance.  Each gated row also times, for information, the same MLP as
+   a chain of library calls (cuBLAS bf16 on weights dequantized once: x @
+   Wgu, silu * mul, @ Wd) and as the port's own unfused chain (matmul_int8
+   / matmul_int4 gate-up, silu * mul, down); each ffn_int8 row the library
+   chain F.linear, silu, F.linear.  The rel-pos attention at the training
    shape (B=8, T=1599, H=8, dk=128), bf16 and f32, ragged lengths: o within
    2e-2 of max|plain| (bf16) or 1e-4 abs (f32), the LSE within 1e-4, the
-   five gradients at the same tolerances of max|plain|, the backward
-   bit-identical twice; p zeroed, p shifted by one row, the lengths
+   five gradients at the same tolerances of max|plain|, the forward and
+   the backward bit-identical twice (the bf16 forward timed beside its
+   library chain: torch.bmm for ac and bd, the gather skew, a masked
+   softmax, torch.bmm with v); p zeroed, p shifted by one row, the lengths
    ignored and dp from one batch row must each move it past 5x the
    tolerance, and p shifted by one row must move the backward's dq_v and
    dp past it too.  Times are at the path's lengths, the backward's split
@@ -245,10 +250,11 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 def tensor_core_check() -> dict:
     """{group: {kernel: issues tensor-core instructions}} from the SASS
     (cuobjdump) of the built flash, rel-pos, DiT and fused-MLP libraries:
-    every bf16 flash kernel, the bf16 rel-pos backward's three product
-    kernels, every DiT GEMM and attention kernel and every tensor-core
-    kernel of the gated MLPs must issue HMMA; no f32 flash or rel-pos
-    kernel may (those routes stay true f32).  No kernel of the gated MLPs
+    every bf16 flash kernel, the bf16 rel-pos forward and the backward's
+    three product kernels, every DiT GEMM and attention kernel and every
+    tensor-core kernel of the gated MLPs and of the int8 FFN must issue
+    HMMA; no f32 flash or rel-pos kernel may (those routes stay true f32),
+    nor the one-row kernels.  No kernel of the gated MLPs or of the int8 FFN
     may issue I2F: their weights become floats by bit operations."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     i2f = {}
@@ -267,34 +273,48 @@ def tensor_core_check() -> dict:
         kernels(lib) for lib in ("flash_attention", "relpos_attention",
                                  "fused_dit", "fused_mlp", "fused_mlp_int4"))
     # (kernels, expected number, must issue HMMA); "IfE" marks the float
-    # instantiations of the rel-pos templates (forward and f32 backward)
+    # instantiations of the rel-pos templates (forward and f32 backward);
+    # in the int8 library "ILb0ELb0E" the gated MLP's kernels <Q4 = false,
+    # FFN = false, ...> and "ILb0ELb1E" the FFN's <false, true, ...>
     groups = {
         "flash bf16": ({n: u for n, u in flash.items()
                         if "flash_kernel_bf16" in n}, 3, True),
         "flash f32": ({n: u for n, u in flash.items()
                        if "flash_kernel_f32" in n}, 3, False),
+        "relpos bf16 forward": ({n: u for n, u in relpos.items()
+                                 if "fwd_kernel_mma" in n}, 1, True),
         "relpos bf16 backward": ({n: u for n, u in relpos.items()
-                                  if "_kernel_mma" in n}, 3, True),
+                                  if "_kernel_mma" in n and "fwd" not in n},
+                                 3, True),
         "relpos f32": ({n: u for n, u in relpos.items() if "IfE" in n}, 6,
                        False),
         "fused_dit": ({n: u for n, u in dit.items()
                        if "gemm_kernel" in n or "attn_kernel" in n}, 4, True),
-        # gated_mlp_kernel<Q4, NC1, NC2> (M > 1), gated_gemv_kernel<Q4>
+        # gated_mlp_kernel<Q4, FFN, NC1, NC2> (M > 1),
+        # gated_gemv_kernel<Q4, FFN> (M = 1)
         "gated int8 tensor cores": ({n: u for n, u in mlp8.items()
-                                     if "gated_mlp_kernel" in n}, 6, True),
+                                     if "gated_mlp_kernelILb0ELb0E" in n},
+                                    6, True),
         "gated int4 tensor cores": ({n: u for n, u in mlp4.items()
                                      if "gated_mlp_kernel" in n}, 6, True),
+        "ffn int8 tensor cores": ({n: u for n, u in mlp8.items()
+                                   if "gated_mlp_kernelILb0ELb1E" in n},
+                                  6, True),
         "gated int8 one row": ({n: u for n, u in mlp8.items()
-                                if "gated_gemv_kernel" in n}, 1, False),
+                                if "gated_gemv_kernelILb0ELb0E" in n}, 1,
+                               False),
         "gated int4 one row": ({n: u for n, u in mlp4.items()
                                 if "gated_gemv_kernel" in n}, 1, False),
+        "ffn int8 one row": ({n: u for n, u in mlp8.items()
+                              if "gated_gemv_kernelILb0ELb1E" in n}, 1,
+                             False),
     }
     for what, (uses, n, hmma) in groups.items():
         check(len(uses) == n and all(u == hmma for u in uses.values()),
               f"{what} kernels: expected {n}, "
               f"{'all' if hmma else 'none'} with tensor-core instructions: "
               f"{uses}")
-        if what.startswith("gated"):
+        if what.startswith(("gated", "ffn")):
             check(not any(i2f[k] for k in uses),
                   f"{what} kernels convert integers with I2F: "
                   f"{[k for k in uses if i2f[k]]}")
@@ -770,16 +790,33 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     (w1, s1), (w2, s2) = q8(d, i), q8(i, d)
     b1 = 0.1 * torch.randn(i, generator=gen, device=dev)
     b2 = 0.1 * torch.randn(d, generator=gen, device=dev)
+    # the library chain: F.linear on weights dequantized to bf16 once, the
+    # activation, F.linear
+    w16_1 = (w1.float() * s1).t().contiguous().to(torch.bfloat16)
+    w16_2 = (w2.float() * s2).t().contiguous().to(torch.bfloat16)
+    b16_1, b16_2 = b1.to(torch.bfloat16), b2.to(torch.bfloat16)
     shapes = []
     for m, n in sorted(launches["ffn_int8"].items()):
         x = randn(m, d)
+        plan, _, start = fused_mlp.gated_geometry(m, d, i, sms, ffn=True)
+        w2_cut = w2.clone()
+        w2_cut[start:] = 0
         shapes.append(row(
             fused_mlp.ffn_int8, fused_mlp.ffn_int8_plain,
             (x, w1, s1, b1, w2, s2, b2),
             {"zeroed first-projection weights": (
-                x, torch.zeros_like(w1), s1, b1, w2, s2, b2)}, 2e-2, n,
+                x, torch.zeros_like(w1), s1, b1, w2, s2, b2),
+             f"W2 rows of the last slot ({start}:) zeroed": (
+                x, w1, s1, b1, w2_cut, s2, b2)}, 2e-2, n,
             2 * d * i + 4 * (2 * i + 2 * d) + m * d * (2 + 4), 2 * 2 * m * d * i,
-            shape=[m, d, i]))
+            repeat=True, shape=[m, d, i], cluster_cols_slots=plan,
+            library_chain_ms=time_ms(lambda x=x: F.linear(
+                F.silu(F.linear(x, w16_1, b16_1)), w16_2, b16_2)),
+            library_call="F.linear(x, W1_bf16, b1), silu, F.linear(., "
+                         "W2_bf16, b2) (cuBLAS, weights dequantized once); "
+                         "library_ms null: no one call"))
+        del w2_cut
+    del w16_1, w16_2
     out.append(("ffn_int8", "taste_spokenlm_tpu_torch/csrc/fused_mlp.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:383",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
@@ -954,6 +991,24 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     return out
 
 
+def relpos_library_chain(q_u, q_v, k, v, p):
+    """The rel-pos forward at full lengths as a chain of library calls:
+    ac = q_u k^T and q_v p^T by torch.bmm, the skew as a gather (score (i,
+    j) takes table row (T-1) - i + j), a causal masked softmax, torch.bmm
+    with v; -> o [B*H, T, dk]."""
+    b, t, h, dk = q_u.shape
+    heads = lambda x: x.transpose(1, 2).reshape(b * h, t, dk)  # noqa: E731
+    qu, qv, kk, vv = map(heads, (q_u, q_v, k, v))
+    table = p[:t].transpose(0, 1).repeat(b, 1, 1)          # [B*H, T, dk]
+    i = torch.arange(t, device=q_u.device)
+    idx = ((t - 1) - i[:, None] + i[None, :]).clamp_(0, t - 1)
+    bd = torch.gather(torch.bmm(qv, table.transpose(1, 2)), 2,
+                      idx[None].expand(b * h, t, t))
+    s = (torch.bmm(qu, kk.transpose(1, 2)) + bd) * dk ** -0.5
+    s = s.masked_fill(i[None, :] > i[:, None], float("-inf"))
+    return torch.bmm(torch.softmax(s, -1), vv)
+
+
 def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
     """The rel-pos attention forward and backward against their plain
     versions at the training path's shape (B, T, H, 128), bf16 (the path's
@@ -961,9 +1016,10 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
     max|plain| (bf16: the online softmax rounds each tile's probabilities
     to bf16 against its own running max), the LSE within 1e-4, the five
     gradients at the same tolerances relative to max|plain|, and the
-    backward twice bit-identical.  Reach, each past 5x the tolerance: p
-    zeroed, p shifted by one row (an off-by-one diagonal), the lengths
-    ignored (the ragged rows unmasked), and dp from one batch row only.
+    forward and the backward twice bit-identical.  Reach, each past 5x the
+    tolerance: p zeroed, p shifted by one row (an off-by-one diagonal), the
+    lengths ignored (the ragged rows unmasked), and dp from one batch row
+    only.
     -> the forward's and the backward's rows; each backward row's launch
     split is appended to `profiled`, to be traced last."""
     fwd_shapes, bwd_shapes = [], []
@@ -994,7 +1050,11 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
                    * 1.5).to(dtype))
         o, lse = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
         o_ref, lse_ref = plain_fwd(*xs, lens)
+        again = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
         torch.cuda.synchronize()
+        check(torch.equal(again[0], o) and torch.equal(again[1], lse),
+              f"relpos forward ({dtype}) is not bit-identical twice")
+        del again
         o_abs = (o.float() - o_ref.float()).abs().max().item()
         o_err = o_abs if f32 else rel(o, o_ref)
         lse_err = (lse - lse_ref).abs().max().item()
@@ -1053,14 +1113,20 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
         # forward: + o and the LSE written; 3 products of 2 dk flops a pair
         bnd, by = bound_ms(in_bytes + width * n_el + 4 * b * h * t,
                            6 * dk * pairs, peak)
+        chain = {} if f32 else {
+            "library_chain_ms": time_ms(lambda: relpos_library_chain(*xs),
+                                        reps=5),
+            "library_call": "torch.bmm for ac and bd, the gather skew, a "
+                            "masked softmax, torch.bmm with v (bf16); "
+                            "library_ms null: no one call"}
         fwd_shapes.append({
             **common, "launches": n_f, "max_abs_err": o_abs,
             "rel_err": o_err / scale, "lse_err": lse_err,
-            "broken_input": reach_fwd,
+            "repeat_identical": True, "broken_input": reach_fwd,
             "ms": time_ms(lambda: relpos_attention.relpos_causal_attention_fwd(*xs, full)),
             "plain_ms": time_ms(lambda: plain_fwd(*xs, full), reps=5),
             "ragged_ms": time_ms(lambda: relpos_attention.relpos_causal_attention_fwd(*xs, lens)),
-            "library_ms": None, "bound_ms": bnd, "bound_by": by})
+            "library_ms": None, **chain, "bound_ms": bnd, "bound_by": by})
         o_full, lse_full = relpos_attention.relpos_causal_attention_fwd(*xs, full)
         # backward: + o, dO and the LSE read, five gradients written; 8
         # products a pair (the scores' two again, dO.v, dv, dk, dq_u, dq_v,
@@ -1271,20 +1337,22 @@ def device_profile(run, wall_s: float):
         n, us = by_name.get(k.name, (0, 0.0))
         by_name[k.name] = (n + 1, us + k.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    # one kernel name per counted launch: matmul_int4 is int4_kernel or
-    # int4_kernel_split; a gated MLP is gated_mlp_kernel<Q4, ...> or
-    # gated_gemv_kernel<Q4>; a rel-pos backward is one dq_kernel
+    # one kernel name per counted launch ("|" joins parts that must all
+    # appear): matmul_int4 is int4_kernel or int4_kernel_split; a gated MLP
+    # is gated_mlp_kernel<Q4, false, ...> or gated_gemv_kernel<Q4, false>,
+    # ffn_int8 the same kernels <false, true, ...>; a rel-pos forward is
+    # fwd_kernel<float> or fwd_kernel_mma, a backward one dq_kernel
     # (dq_kernel<float> or dq_kernel_mma) among its five launches
-    expected = {"mlp_pass1": counts["ffn_int8"],
+    expected = {"gated_|<false, true": counts["ffn_int8"],
                 "mlp4_pass1": counts["ffn_int4"],
-                "gated_,<false": counts["gated_mlp_int8"],
-                "gated_,<true": counts["gated_mlp_int4"],
+                "gated_|<false, false": counts["gated_mlp_int8"],
+                "gated_|<true, false": counts["gated_mlp_int4"],
                 "int4_kernel": counts["matmul_int4"],
                 "flash_kernel_": counts["flash_attention"],
-                "fwd_kernel<": counts["relpos_causal_attention"],
+                "fwd_kernel": counts["relpos_causal_attention"],
                 "dq_kernel": counts["relpos_causal_attention_bwd"]}
     seen = {key: sum(1 for k in kernels
-                     if all(part in k.name for part in key.split(",")))
+                     if all(part in k.name for part in key.split("|")))
             for key in expected}
     return {"busy_s": busy_us / 1e6, "idle_share": 1.0 - busy_us / 1e6 / wall_s,
             "n_kernel_launches": len(kernels), "trace_complete": seen == expected,

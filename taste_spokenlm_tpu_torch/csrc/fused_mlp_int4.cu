@@ -342,13 +342,13 @@ extern "C" int tsk_gated_mlp_int4(const void* x, const void* wg, const void* sg,
   a.M = M; a.H = H; a.I = I; a.act = act;
   a.BI = tile; a.GIN = group_in; a.SPT = spt;
   a.C = cluster; a.TS = cols; a.slots = slots;
-  return gated::run<true>(a, (cudaStream_t)stream);
+  return gated::run<true, false>(a, (cudaStream_t)stream);
 }
 
 // The geometry of a plan (arguments as above) as the kernel takes it:
 // out[0] = S, the slots of `part`; out[1] = the first packed row of Wd
-// that the last slot owns.  An error where the kernel cannot take the
-// plan.
+// that the last slot owns; out[2] = the blocks of rows of x.  An error where
+// the kernel cannot take the plan.
 extern "C" int tsk_gated_geometry_int4(int M, int H, int I, int tile,
                                        int group_in, int spt, int cluster,
                                        int cols, int slots, int* out) {
@@ -357,7 +357,7 @@ extern "C" int tsk_gated_geometry_int4(int M, int H, int I, int tile,
   a.M = M; a.H = H; a.I = I;
   a.BI = tile; a.GIN = group_in; a.SPT = spt;
   a.C = cluster; a.TS = cols; a.slots = slots;
-  return gated::geometry<true>(a, out);
+  return gated::geometry<true, false>(a, out);
 }
 
 // Shapes as in the header; part is [I/2/R, M, H] f32 scratch.  group_in is

@@ -3,6 +3,13 @@
 // shared by csrc/fused_mlp.cu (int8 weights, per-channel scales) and
 // csrc/fused_mlp_int4.cu (nibble-packed weights, per-(plane, group) scales,
 // Wd packed per tile of BI rows of I).  See those headers for the layouts.
+// With FFN = true the same kernels compute the conformer's plain FFN,
+//   y = act(x W1 s1 + b1) W2 s2 + b2
+// (W1, s1 in the places of Wg, sg; W2, s2 in those of Wd, sd): one
+// first-projection matrix, b1 and the activation applied where the ranks
+// meet, s2 and b2 where the output is written (the last block's
+// slot-ordered sum where the plan leaves several slots).  Built for int8
+// (csrc/fused_mlp.cu); the int4 FFN is not built on them yet.
 //
 // Bound on the H100: the weight bytes (the Llama-1B MLP: 50.3 MB int8, or
 // 25.2 MB of nibbles and 1.6 MB of scales, about 15 / 8 us at 3.35 TB/s;
@@ -78,6 +85,8 @@ __device__ __forceinline__ int fdiv(int n, FastDiv f) {
 
 struct Args {
   const __nv_bfloat16* x;   // [M, H]
+  const float* b1;          // FFN: [I]
+  const float* b2;          // FFN: [H]
   const uint8_t* wg;        // int8 [H, I] / packed [H/2, I]
   const float* sg;          // [I] / [H/GIN, I]
   const uint8_t* wu;
@@ -302,8 +311,10 @@ __device__ __forceinline__ float4 quad(const float (&acc)[NC][2][4], int j,
 
 // NC1 16-column chunks a warp in the first projection (TS = 128 NC1), NC2
 // in the second (HC = 128 NC2)
-template <bool Q4, int NC1, int NC2>
+template <bool Q4, bool FFN, int NC1, int NC2>
 __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
+  static_assert(!(Q4 && FFN), "the int4 FFN is not built on this kernel");
+  constexpr int MATS = FFN ? 1 : 2;           // first-projection matrices
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -332,15 +343,16 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
   uint8_t* xs = smem;                                    // [MT][XK] bf16
   uint8_t* as = xs + MT * xs_ld;                         // [MT][TS] bf16
   uint8_t* w2s = as + MT * as_ld;                        // SB x [16][HC] bytes
-  uint8_t* ring = w2s + (size_t)SB * 16 * w2_ld;         // stages x 2 x 16 rows
-  const size_t stage_bytes = 2 * 16 * (size_t)w1_ld;
-  const size_t pf_bytes = (size_t)2 * MT * TS * sizeof(float);
+  uint8_t* ring = w2s + (size_t)SB * 16 * w2_ld;         // stages x MATS x 16 rows
+  const size_t stage_bytes = MATS * 16 * (size_t)w1_ld;
+  const size_t pf_bytes = (size_t)MATS * MT * TS * sizeof(float);
   const size_t ring_bytes = STAGES * stage_bytes > pf_bytes
                                 ? STAGES * stage_bytes : pf_bytes;
-  float* pf = reinterpret_cast<float*>(ring);            // [2][MT][TS], later
+  float* pf = reinterpret_cast<float*>(ring);            // [MATS][MT][TS], later
   float* sc = reinterpret_cast<float*>(ring + ring_bytes);
-  // int8: sc = sg [TS], su [TS], sd [HC]; int4 (staged): sc1 [2 mats][2
-  // planes][NG1][TS], sc2 [2 planes][NG2][HC]
+  // int8: sc = sg [TS], su [TS], sd [HC] (FFN: s1 [TS], b1 [TS], s2 [HC],
+  // b2 [HC]); int4 (staged): sc1 [2 mats][2 planes][NG1][TS], sc2 [2
+  // planes][NG2][HC]
   const int g1_first = Q4 ? fdiv(kb, g.gin) : 0;
   const int g2_first = Q4 ? fdiv(r0, g.gmid) : 0;
 
@@ -357,15 +369,16 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
     if (!Q4) return col0 + jc;
     return jc < R ? col0 + jc : col0 + g.BI / 2 + (jc - R);
   };
-  // a stage: 16 rows of Wg and Wu (NC1 16-byte copies a thread, at fixed
-  // offsets that step down 16 rows a stage)
+  // a stage: 16 rows of Wg and Wu (FFN: of W1; NC1 16-byte copies a
+  // thread, at fixed offsets that step down 16 rows a stage)
   const uint8_t* p1src[NC1];
   int p1dst[NC1], p1k[NC1];
-  bool p1ok[NC1];
+  bool p1ok[NC1], p1on[NC1];
 #pragma unroll
   for (int j = 0; j < NC1; ++j) {
     const int i = tid + j * THREADS, mat = i / TS, rr = (i % TS) / (TS / 16);
     const int jc = (i % (TS / 16)) * 16;
+    p1on[j] = mat < MATS;
     p1k[j] = kb + rr;
     p1ok[j] = col_ok(jc);
     p1src[j] = (mat ? g.wu : g.wg) + (long long)p1k[j] * g.I + w1_col(jc);
@@ -379,6 +392,7 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
       uint8_t* dst = ring + (size_t)slot * stage_bytes;
 #pragma unroll
       for (int j = 0; j < NC1; ++j) {
+        if (!p1on[j]) continue;
         const bool ok = p1ok[j] && p1k[j] + 16 * step < ke;
         cp_async16(dst + p1dst[j], ok ? p1src[j] + step * step_bytes : g.wg,
                    ok ? 16 : 0);
@@ -434,16 +448,17 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
   }
   // the scales, 4 a copy (runs of columns are multiples of 16, H of 4)
   if (!Q4) {
-    for (int i = tid * 4; i < 2 * TS + HC; i += THREADS * 4) {
+    for (int i = tid * 4; i < 2 * TS + (FFN ? 2 : 1) * HC; i += THREADS * 4) {
       const float* src = g.sg;
       bool ok;
       if (i < 2 * TS) {
         const int jc = i & (TS - 1);
         ok = jc < run_valid;
-        src = (i < TS ? g.sg : g.su) + col0 + jc;
+        src = (i < TS ? g.sg : FFN ? g.b1 : g.su) + col0 + jc;
       } else {
-        ok = hb + i - 2 * TS < g.H;
-        src = g.sd + hb + i - 2 * TS;
+        const int jc = (i - 2 * TS) & (HC - 1);
+        ok = hb + jc < g.H;
+        src = (i < 2 * TS + HC ? g.sd : g.b2) + hb + jc;
       }
       cp_async16(sc + i, ok ? src : g.sg, ok ? 16 : 0);
     }
@@ -515,14 +530,15 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
 #pragma unroll
     for (int j = 0; j < NC1; ++j) {
       ldsm_x2_t(bg[j], slot + (lane & 15) * w1_ld + wc0 + 16 * j);
-      ldsm_x2_t(bu[j], slot + (16 + (lane & 15)) * w1_ld + wc0 + 16 * j);
+      if constexpr (!FFN)
+        ldsm_x2_t(bu[j], slot + (16 + (lane & 15)) * w1_ld + wc0 + 16 * j);
     }
     const int k0 = step * 16;
     uint32_t a_lo[4];
     ldsm_x4(a_lo, xs + a_row * xs_ld + (k0 + a_col) * 2);
     if constexpr (!Q4) {
       step_products<false>(tg, a_lo, bg, 0);
-      step_products<false>(tu, a_lo, bu, 0);
+      if constexpr (!FFN) step_products<false>(tu, a_lo, bu, 0);
     } else {
       uint32_t a_hi[4];
       ldsm_x4(a_hi, xs + a_row * xs_ld + (KC + k0 + a_col) * 2);
@@ -560,11 +576,12 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
     for (int h = 0; h < 2; ++h) {
       const int row = gq + 8 * h, jc = wc0 + 16 * j + 4 * t;
       *reinterpret_cast<float4*>(pf + row * TS + jc) = quad(tg, j, h);
-      *reinterpret_cast<float4*>(pf + (MT + row) * TS + jc) = quad(tu, j, h);
+      if constexpr (!FFN)
+        *reinterpret_cast<float4*>(pf + (MT + row) * TS + jc) = quad(tu, j, h);
     }
   cluster.sync();
-  // a = bf16(act(g) u), row m, columns [j0, j0 + 4): the ranks' partials
-  // added in rank order
+  // a = bf16(act(g) u) (FFN: bf16(act(g s1 + b1))), row m, columns [j0, j0
+  // + 4): the ranks' partials added in rank order
   for (int i = tid; i < rows * (TS / 4); i += THREADS) {
     const int m = i / (TS / 4), j0 = (i % (TS / 4)) * 4;
     float4 pa[MAX_CLUSTER], pb[MAX_CLUSTER];
@@ -573,20 +590,28 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
       if (r < C) {
         const float* pr = cluster.map_shared_rank(pf, r);
         pa[r] = *reinterpret_cast<const float4*>(pr + m * TS + j0);
-        pb[r] = *reinterpret_cast<const float4*>(pr + (MT + m) * TS + j0);
+        if constexpr (!FFN)
+          pb[r] = *reinterpret_cast<const float4*>(pr + (MT + m) * TS + j0);
       }
     float4 gs = make_float4(0.f, 0.f, 0.f, 0.f), us = gs;
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
       if (r < C) {
         gs.x += pa[r].x; gs.y += pa[r].y; gs.z += pa[r].z; gs.w += pa[r].w;
-        us.x += pb[r].x; us.y += pb[r].y; us.z += pb[r].z; us.w += pb[r].w;
+        if constexpr (!FFN) {
+          us.x += pb[r].x; us.y += pb[r].y; us.z += pb[r].z; us.w += pb[r].w;
+        }
       }
     const float gv[4] = {gs.x, gs.y, gs.z, gs.w}, uv[4] = {us.x, us.y, us.z, us.w};
     __nv_bfloat16* arow = reinterpret_cast<__nv_bfloat16*>(as + m * as_ld);
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       float gval = gv[q], uval = uv[q];
+      if (FFN) {
+        arow[j0 + q] = __float2bfloat16(
+            act_fn(gval * sc[j0 + q] + sc[TS + j0 + q], g.act));
+        continue;
+      }
       if (!Q4) {
         gval *= sc[j0 + q];
         uval *= sc[TS + j0 + q];
@@ -662,6 +687,17 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
 
   // ---- the clusters' partials: one slot each, summed by the last block ----
   const float* sd_s = sc + 2 * TS;     // int8: sd of the rank's columns
+  const float* b2_s = sd_s + HC;       // FFN: b2 of the rank's columns
+  // int8: v sd (FFN: v s2 + b2), the output of columns [jc, jc + 4)
+  auto finish = [&](float4& v, int jc) {
+    if (Q4) return;
+    v.x *= sd_s[jc]; v.y *= sd_s[jc + 1];
+    v.z *= sd_s[jc + 2]; v.w *= sd_s[jc + 3];
+    if (FFN) {
+      v.x += b2_s[jc]; v.y += b2_s[jc + 1];
+      v.z += b2_s[jc + 2]; v.w += b2_s[jc + 3];
+    }
+  };
 #pragma unroll
   for (int j = 0; j < NC2; ++j)
 #pragma unroll
@@ -670,10 +706,7 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
       if (row >= rows || hb + jc >= g.H) continue;
       float4 v = quad(acc, j, h);
         if (g.S == 1) {
-          if (!Q4) {
-            v.x *= sd_s[jc]; v.y *= sd_s[jc + 1];
-            v.z *= sd_s[jc + 2]; v.w *= sd_s[jc + 3];
-          }
+          finish(v, jc);
           *reinterpret_cast<float4*>(g.out + (long long)(m0 + row) * g.H + hb + jc) = v;
         } else {
           *reinterpret_cast<float4*>(
@@ -685,36 +718,35 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
     __syncthreads();
     int* counter = g.arrivals + z * C + c;
     const int cols = min(HC, g.H - hb);
-    // the sum of the S slots of rows m, columns [jc, jc + 4), scaled
-    auto total = [&](int m, int jc) {
-      const float* p = g.part + (long long)(m0 + m) * g.H + hb + jc;
-      const long long slot = (long long)g.M * g.H;
-      float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int s0 = 0; s0 < g.S; s0 += 8) {     // 8 slots in flight
-        float4 v[8];
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (s0 + q < g.S)
-            v[q] = __ldcg(reinterpret_cast<const float4*>(p + (s0 + q) * slot));
-#pragma unroll
-        for (int q = 0; q < 8; ++q)
-          if (s0 + q < g.S) {
-            tot.x += v[q].x; tot.y += v[q].y; tot.z += v[q].z; tot.w += v[q].w;
-          }
-      }
-      if (!Q4) {
-        tot.x *= sd_s[jc]; tot.y *= sd_s[jc + 1];
-        tot.z *= sd_s[jc + 2]; tot.w *= sd_s[jc + 3];
-      }
-      *reinterpret_cast<float4*>(g.out + (long long)(m0 + m) * g.H + hb + jc) = tot;
-    };
     // the block's partials (ordered before by the barrier) are released,
     // and the other blocks' acquired, by one acq_rel atomic
     if (tid == 0) last = arrive(counter) == g.S - 1;
     __syncthreads();
     if (last) {
-      for (int m = 0; m < rows; ++m)
-        for (int jc = tid * 4; jc < cols; jc += THREADS * 4) total(m, jc);
+      // the sums of the S slots, in slot order, scaled: items (row, 4
+      // columns) over all the block's threads, 8 slots in flight
+      constexpr int Q = HC / 4;
+      const long long slot = (long long)g.M * g.H;
+      for (int i = tid; i < rows * Q; i += THREADS) {
+        const int m = i / Q, jc = (i % Q) * 4;
+        if (jc >= cols) continue;
+        const float* p = g.part + (long long)(m0 + m) * g.H + hb + jc;
+        float4 tot = make_float4(0.f, 0.f, 0.f, 0.f);
+        for (int s0 = 0; s0 < g.S; s0 += 8) {
+          float4 v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (s0 + q < g.S)
+              v[q] = __ldcg(reinterpret_cast<const float4*>(p + (s0 + q) * slot));
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (s0 + q < g.S) {
+              tot.x += v[q].x; tot.y += v[q].y; tot.z += v[q].z; tot.w += v[q].w;
+            }
+        }
+        finish(tot, jc);
+        *reinterpret_cast<float4*>(g.out + (long long)(m0 + m) * g.H + hb + jc) = tot;
+      }
       if (tid == 0) *counter = 0;
     }
   }
@@ -772,8 +804,10 @@ __device__ __forceinline__ void flush16(float (&tot)[16], float (&lo)[16],
 // contiguous run of rows in 16-byte loads, U rows in flight, then the second
 // over the cluster's rows of Wd for its own balanced range of output
 // columns.  The host sets the lane grids (g.CL1 x g.RL1, g.CL2 x g.RL2).
-template <bool Q4>
+template <bool Q4, bool FFN>
 __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
+  static_assert(!(Q4 && FFN), "the int4 FFN is not built on this kernel");
+  constexpr int MATS = FFN ? 1 : 2;   // first-projection matrices
   constexpr int U1 = 4, U = 8;   // rows of a lane in flight: phase 1, 2
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -799,13 +833,15 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     return t * g.BI + (jc < R ? 0 : g.BI / 2) + pr - t * (g.BI / 2);
   };
 
-  // shared memory: x [XK], the row lanes' sums [2][RL1][TSM] (phase 2:
-  // [RL2][HCM]), every rank's partials [C][2][TSM], a [TSM], the scales
+  // shared memory: x [XK], the row lanes' sums [MATS][RL1][TSM] (phase 2:
+  // [RL2][HCM]), every rank's partials [C][MATS][TSM], a [TSM], the scales
+  // (int8: sg, su [TSM] and sd [HCM]; FFN: s1, b1 [TSM], s2, b2 [HCM])
   float* xs = reinterpret_cast<float*>(smem);
   float* red = xs + XK;
-  const int RED = 2 * g.RL1 * TSM > g.RL2 * HCM ? 2 * g.RL1 * TSM : g.RL2 * HCM;
+  const int RED = MATS * g.RL1 * TSM > g.RL2 * HCM ? MATS * g.RL1 * TSM
+                                                   : g.RL2 * HCM;
   float* pf = red + RED;
-  float* av = pf + 2 * TSM * C;
+  float* av = pf + MATS * TSM * C;
   float* sc = av + TSM;
   float* sc2 = sc + (Q4 ? 2 * 2 * g.NG1 * TSM : 2 * TSM);
   const int g1_first = Q4 ? fdiv(kb, g.gin) : 0;
@@ -824,7 +860,8 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     for (int u = 0; u < U1; ++u) {
       const bool ok = r + u < r1e;
       ng[u] = ok ? ldg16(pg + (long long)(r + u) * g.I) : make_uint4(0u, 0u, 0u, 0u);
-      nu[u] = ok ? ldg16(pu + (long long)(r + u) * g.I) : make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (!FFN)
+        nu[u] = ok ? ldg16(pu + (long long)(r + u) * g.I) : make_uint4(0u, 0u, 0u, 0u);
     }
   };
   // the scales (4 a copy: runs are multiples of 16 columns, H of 16) go
@@ -833,11 +870,14 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     for (int i = tid * 4; i < 2 * TSM; i += THREADS * 4) {
       const int jc = i < TSM ? i : i - TSM;
       const bool ok = jc < TSc;
-      cp_async16(sc + i, ok ? (i < TSM ? g.sg : g.su) + p0 + jc : g.sg,
+      const float* second = FFN ? g.b1 : g.su;
+      cp_async16(sc + i, ok ? (i < TSM ? g.sg : second) + p0 + jc : g.sg,
                  ok ? 16 : 0);
     }
-    for (int jc = tid * 4; jc < HCc; jc += THREADS * 4)
+    for (int jc = tid * 4; jc < HCc; jc += THREADS * 4) {
       cp_async16(sc2 + jc, g.sd + hb + jc, 16);
+      if (FFN) cp_async16(sc2 + HCM + jc, g.b2 + hb + jc, 16);
+    }
   } else {
     for (int row = 0, mat = 0, p = 0, gi = 0; row < 2 * 2 * g.NG1; ++row) {
       const int grp = g1_first + gi;               // row (mat, p, gi)
@@ -899,7 +939,7 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
 #pragma unroll
     for (int u = 0; u < U1; ++u) {
       wg[u] = ng[u];
-      wu[u] = nu[u];
+      if constexpr (!FFN) wu[u] = nu[u];
     }
     load1(r + U1);
 #pragma unroll
@@ -918,7 +958,7 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
         fma16<true>(hu, xh, wu[u], 4);
       } else {
         fma16<false>(tg, xl, wg[u], 0);
-        fma16<false>(tu, xl, wu[u], 0);
+        if constexpr (!FFN) fma16<false>(tu, xl, wu[u], 0);
       }
     }
   }
@@ -929,19 +969,20 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     for (int q = 0; q < 16; q += 4) {
       *reinterpret_cast<float4*>(red + rl * TSM + jc1 + q) =
           make_float4(tg[q], tg[q + 1], tg[q + 2], tg[q + 3]);
-      *reinterpret_cast<float4*>(red + (g.RL1 + rl) * TSM + jc1 + q) =
-          make_float4(tu[q], tu[q + 1], tu[q + 2], tu[q + 3]);
+      if constexpr (!FFN)
+        *reinterpret_cast<float4*>(red + (g.RL1 + rl) * TSM + jc1 + q) =
+            make_float4(tu[q], tu[q + 1], tu[q + 2], tu[q + 3]);
     }
   }
   __syncthreads();
   // ... and go to every rank of the cluster, as its row c of partials
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-  for (int j = tid; j < 2 * TSc; j += THREADS) {
+  for (int j = tid; j < MATS * TSc; j += THREADS) {
     const bool up = j >= TSc;
     const float* col = red + (up ? g.RL1 * TSM + j - TSc : j);
     float v = 0.f;                    // lanes past the rows hold zeros
     for (int l = 0; l < g.RL1; ++l) v += col[l * TSM];
-    const int at = (2 * c + up) * TSM + j - (up ? TSc : 0);
+    const int at = (MATS * c + up) * TSM + j - (up ? TSc : 0);
 #pragma unroll
     for (int r = 0; r < MAX_CLUSTER; ++r)
       if (r < C) cluster.map_shared_rank(pf, r)[at] = v;
@@ -963,14 +1004,20 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
   for (int j = tid; j < TSc; j += THREADS) {
     float gs = 0.f, us = 0.f;
     for (int r = 0; r < C; ++r) {
-      gs += pf[2 * r * TSM + j];
-      us += pf[(2 * r + 1) * TSM + j];
+      gs += pf[MATS * r * TSM + j];
+      if constexpr (!FFN) us += pf[(2 * r + 1) * TSM + j];
     }
-    if (!Q4) {
-      gs *= sc[j];
-      us *= sc[TSM + j];
+    float a;
+    if (FFN) {
+      a = act_fn(gs * sc[j] + sc[TSM + j], g.act);
+    } else {
+      if (!Q4) {
+        gs *= sc[j];
+        us *= sc[TSM + j];
+      }
+      a = act_fn(gs, g.act) * us;
     }
-    av[j] = __bfloat162float(__float2bfloat16(act_fn(gs, g.act) * us));
+    av[j] = __bfloat162float(__float2bfloat16(a));
   }
   __syncthreads();
 
@@ -1021,7 +1068,7 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     float v = 0.f;
     for (int l = 0; l < g.RL2; ++l) v += red[l * HCM + j];
     if (g.S == 1)
-      g.out[hb + j] = Q4 ? v : v * sc2[j];
+      g.out[hb + j] = Q4 ? v : FFN ? v * sc2[j] + sc2[HCM + j] : v * sc2[j];
     else
       g.part[(long long)s * g.H + hb + j] = v;
   }
@@ -1053,6 +1100,10 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
           tot.x *= sc2[jc]; tot.y *= sc2[jc + 1];
           tot.z *= sc2[jc + 2]; tot.w *= sc2[jc + 3];
         }
+        if (FFN) {
+          const float* b2 = sc2 + HCM + jc;
+          tot.x += b2[0]; tot.y += b2[1]; tot.z += b2[2]; tot.w += b2[3];
+        }
         *reinterpret_cast<float4*>(g.out + hb + jc) = tot;
       }
       if (tid == 0) *counter = 0;
@@ -1067,8 +1118,8 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
 inline int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 // derive the launch geometry from the plan; false if the kernel cannot take
-// it
-inline bool derive(Args& a, bool q4) {
+// it (ffn: the plain FFN, one first-projection matrix and the biases)
+inline bool derive(Args& a, bool q4, bool ffn) {
   if (a.M <= 0 || a.H <= 0 || a.I <= 0 || a.C < 1 || a.C > MAX_CLUSTER ||
       (a.TS != 128 && a.TS != 256) || a.slots < 0 ||
       (a.slots > 0 && (a.M != 1 || a.H % 16)))
@@ -1100,15 +1151,15 @@ inline bool derive(Args& a, bool q4) {
     a.S = ceil_div(a.I, a.TS);
     a.K2 = a.TS;
   }
-  const size_t xk = q4 ? 2 * a.KC : a.KC;
+  const size_t xk = q4 ? 2 * a.KC : a.KC, mats = ffn ? 1 : 2;
   const size_t wd_ring = STAGES * 16 * (size_t)(a.HC + PAD);
-  const size_t stage = 2 * 16 * (size_t)(a.TS + PAD);
+  const size_t stage = mats * 16 * (size_t)(a.TS + PAD);
   size_t ring = STAGES * stage;
-  if (ring < 2 * MT * (size_t)a.TS * 4) ring = 2 * MT * (size_t)a.TS * 4;
+  if (ring < mats * MT * (size_t)a.TS * 4) ring = mats * MT * (size_t)a.TS * 4;
   size_t base = MT * (xk * 2 + PAD) + MT * (2 * (size_t)a.TS + PAD) +
                 wd_ring + ring;
   size_t scales = q4 ? 4 * (2 * 2 * (size_t)a.NG1 * a.TS + 2 * (size_t)a.NG2 * a.HC)
-                     : 4 * (2 * (size_t)a.TS + a.HC);
+                     : 4 * (2 * (size_t)a.TS + (ffn ? 2 : 1) * (size_t)a.HC);
   a.sc_smem = !q4 || base + scales <= SMEM_MAX;
   a.smem = base + (a.sc_smem ? scales : 0);
   if (a.simt) {
@@ -1138,19 +1189,20 @@ inline bool derive(Args& a, bool q4) {
       a.n_g2 = (a.I / 2) / a.GMID;
     }
     // x, the row lanes' sums, every rank's partials and a, the scales
-    const size_t red = 2 * (size_t)a.RL1 * a.TS > (size_t)a.RL2 * a.HC
-                           ? 2 * (size_t)a.RL1 * a.TS : (size_t)a.RL2 * a.HC;
+    const size_t red = mats * (size_t)a.RL1 * a.TS > (size_t)a.RL2 * a.HC
+                           ? mats * (size_t)a.RL1 * a.TS : (size_t)a.RL2 * a.HC;
     const size_t sc = q4 ? 2 * 2 * (size_t)a.NG1 * a.TS + 2 * (size_t)a.NG2 * a.HC
-                         : 2 * (size_t)a.TS + a.HC;
+                         : 2 * (size_t)a.TS + (ffn ? 2 : 1) * (size_t)a.HC;
     a.sc_smem = 1;
-    a.smem = 4 * (xk + red + (2 * (size_t)a.C + 1) * a.TS + sc);
+    a.smem = 4 * (xk + red + (mats * a.C + 1) * (size_t)a.TS + sc);
   }
   return a.smem <= SMEM_MAX;
 }
 
-template <bool Q4, bool SIMT, int NC1, int NC2>
+template <bool Q4, bool FFN, bool SIMT, int NC1, int NC2>
 int launch(const Args& a, cudaStream_t st) {
-  auto kern = SIMT ? gated_gemv_kernel<Q4> : gated_mlp_kernel<Q4, NC1, NC2>;
+  auto kern = SIMT ? gated_gemv_kernel<Q4, FFN>
+                   : gated_mlp_kernel<Q4, FFN, NC1, NC2>;
   static size_t set_to[64] = {};   // the attribute, per device and size
   int device = 0;
   cudaError_t e = cudaGetDevice(&device);
@@ -1183,14 +1235,14 @@ int launch(const Args& a, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
-template <bool Q4>
+template <bool Q4, bool FFN>
 int run(Args a, cudaStream_t st) {
-  if (!derive(a, Q4) || (a.S > 1 && (!a.part || !a.arrivals)))
+  if (!derive(a, Q4, FFN) || (a.S > 1 && (!a.part || !a.arrivals)))
     return (int)cudaErrorInvalidValue;
-  if (a.simt) return launch<Q4, true, 1, 1>(a, st);
+  if (a.simt) return launch<Q4, FFN, true, 1, 1>(a, st);
   const int nc1 = a.TS / 128, nc2 = a.HC / 128;
 #define TSK_GATED(N1, N2) \
-  if (nc1 == N1 && nc2 == N2) return launch<Q4, false, N1, N2>(a, st);
+  if (nc1 == N1 && nc2 == N2) return launch<Q4, FFN, false, N1, N2>(a, st);
   TSK_GATED(1, 1) TSK_GATED(1, 2) TSK_GATED(1, 4)
   TSK_GATED(2, 1) TSK_GATED(2, 2) TSK_GATED(2, 4)
 #undef TSK_GATED
@@ -1199,10 +1251,11 @@ int run(Args a, cudaStream_t st) {
 
 // the plan's geometry, as the kernel takes it: out[0] = S (the slots of
 // the workspace `part`), out[1] = the first row of Wd that slot S - 1 owns
-// (int4: a packed row)
-template <bool Q4>
+// (int4: a packed row), out[2] = Z (the row tiles of x, each with its
+// arrival counters)
+template <bool Q4, bool FFN>
 int geometry(Args a, int* out) {
-  if (!derive(a, Q4)) return (int)cudaErrorInvalidValue;
+  if (!derive(a, Q4, FFN)) return (int)cudaErrorInvalidValue;
   const int s = a.S - 1;
   if (a.simt)
     out[1] = 16 * (s * a.n16 / a.S);
@@ -1211,6 +1264,7 @@ int geometry(Args a, int* out) {
   else
     out[1] = s * a.TS;
   out[0] = a.S;
+  out[2] = a.simt ? 1 : a.Z;
   return 0;
 }
 

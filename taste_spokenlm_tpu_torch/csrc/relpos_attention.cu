@@ -19,11 +19,10 @@
 // Bound on the H100: operations (~3 T^2 dk B H forward and ~8 T^2 dk B H
 // backward over the causal half) at the stage-1 shape B=8, T=1599, H=8.
 //
-// Forward, and the whole float32 route: SIMT kernels, one CTA of 256
-// threads per 64 x 64 tile, 1 CTA per SM for the shared memory, every
-// product a true f32 FMA (no TF32, no tensor cores), operands widened to f32
-// on their way into shared memory; causal pruning: a query tile visits key
-// tiles k0 <= q0 only.
+// The float32 route: SIMT kernels, one CTA of 256 threads per 64 x 64 tile,
+// 1 CTA per SM for the shared memory, every product a true f32 FMA (no
+// TF32, no tensor cores), operands widened to f32 on their way into shared
+// memory; causal pruning: a query tile visits key tiles k0 <= q0 only.
 //   fwd:      (B*H, query tile): online softmax, o in the operand dtype and
 //             lse = m + log(max(l, 1e-30)) in f32, acc / max(l, 1e-30) as
 //             the TPU kernel (a row with no valid key gives 0);
@@ -35,8 +34,8 @@
 //             g = prob (dO . v - delta) / sqrt(dk) and rounds prob and g to
 //             the operand dtype before its products (the TPU kernel's cast
 //             points, relpos_attention.py:197-221).
-// The bfloat16 backward runs its products on the tensor cores: see "bf16
-// backward" below.
+// The bfloat16 route runs its products on the tensor cores, the forward
+// (fwd_kernel_mma) and the backward: see "bf16 on the tensor cores" below.
 #include "attention_core.cuh"
 
 using namespace tsk;
@@ -696,7 +695,8 @@ __global__ void __launch_bounds__(NT) dp_reduce_kernel(Args a) {
 }
 
 // ---------------------------------------------------------------------------
-// bf16 backward on the tensor cores (mma.sync m16n8k16, f32 sums)
+// bf16 on the tensor cores (mma.sync m16n8k16, f32 sums), forward and
+// backward
 //
 // Four warps, each owning 16 rows of a 64 x 64 (query, key) tile.  For a
 // tile pair the table window is Pw[w] = p[(T-1) - q0 - 63 + k0 + w], w < 128,
@@ -706,8 +706,11 @@ __global__ void __launch_bounds__(NT) dp_reduce_kernel(Args a) {
 // as X[rl][15 - rl + c] from its own shared scratch: the TPU kernel's
 // _skew_left as one offset read.  The same offset in the other direction
 // is its _skew_right: gw[rl][15 - rl + c] = g[rl][c] (bf16, zero elsewhere)
-// and dq_v += gw . Pw[wb..wb+79].
+// and dq_v += gw . Pw[wb..wb+79].  score_tile forms the scores for both
+// directions.
 //
+//   fwd_kernel_mma  (query tile, b*h): the scores of every key tile j <= i,
+//                   an online softmax in registers, o += bf16(e) . V;
 //   dq_kernel_mma   (query tile, b*h): scores, prob and g of every key tile
 //                   j <= i (K, V and the window through a two-stage cp.async
 //                   ring); dq_u += g . K (g from registers as the A operand),
@@ -741,14 +744,21 @@ __device__ __forceinline__ int pair_of(int qt, int kt) {
 }
 
 // rows r0 .. r0+n-1 of a [rows, 128] bf16 operand with row stride `rs`
-// into shared [n][LDB]; rows outside [0, hi) are zero-filled
-__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
-                                        long long rs, int r0, int n, int hi) {
-  for (int i = threadIdx.x; i < n * (D / 8); i += NTB) {
+// into shared [n][LDB]; rows outside [0, hi) are zero-filled; thread t of
+// the nt threads that share the copy
+__device__ __forceinline__ void cp_rows_by(bf16* dst, const bf16* src,
+                                           long long rs, int r0, int n,
+                                           int hi, int t, int nt) {
+  for (int i = t; i < n * (D / 8); i += nt) {
     const int r = i / (D / 8), c = i % (D / 8), g = r0 + r;
     const bool in = g >= 0 && g < hi;
     cp_async<16>(dst + r * LDB + c * 8, src + (in ? g * rs : 0) + c * 8, in);
   }
+}
+// ... by the CTA's NTB threads
+__device__ __forceinline__ void cp_rows(bf16* dst, const bf16* src,
+                                        long long rs, int r0, int n, int hi) {
+  cp_rows_by(dst, src, rs, r0, n, hi, threadIdx.x, NTB);
 }
 
 // a stored 64 x 64 bf16 tile into shared [64][LDT]
@@ -767,17 +777,18 @@ struct PairTiles {
   const float *lse, *dl;      // [64] of the query rows
 };
 
-// prob and g of the warp's 16 query rows against the 64 keys, in the
-// accumulator layout (masked entries 0): s = (ac + bd) / sqrt(dk), prob =
-// exp(s - lse), g = prob (dO . v - delta) / sqrt(dk), all f32, the Pallas
-// kernel's arithmetic.  xs is the warp's scratch; it is free on return.
-__device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
-                                            int q0, int k0, int len, int T,
-                                            float (&prob)[8][4],
-                                            float (&g)[8][4]) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int gr = lane >> 2, t4 = lane & 3, r16 = warp * 16;
-  {  // X = Qv . Pw[wb + n]^T, n < 80
+// The raw scores ac + bd (f32, unscaled, unmasked) of the warp's 16 query
+// rows r16.. against the 64 keys of a tile pair, in the accumulator layout:
+// X = Qv . Pw[wb + n]^T, n < 80 (wb = 48 - r16), into the warp's scratch
+// xs; ac = Qu . K^T; then the bd term of row rl, key c by one offset read,
+// X[rl][15 - rl + c].  xs is free on return.  Used by the forward
+// (fwd_kernel_mma) and by the backward's dq launch (pair_prob_g).
+__device__ __forceinline__ void score_tile(const bf16* qu, const bf16* qv,
+                                           const bf16* k, const bf16* pw,
+                                           float* xs, int r16,
+                                           float (&s)[8][4]) {
+  const int lane = threadIdx.x & 31, gr = lane >> 2, t4 = lane & 3;
+  {
     const int wb = 48 - r16;
     float x[10][4];
 #pragma unroll
@@ -787,11 +798,11 @@ __device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
 #pragma unroll
     for (int kk = 0; kk < D; kk += 16) {
       uint32_t a[4];
-      ldsm_x4(a, a_rows(t.qv, LDB, r16, kk, lane));
+      ldsm_x4(a, a_rows(qv, LDB, r16, kk, lane));
 #pragma unroll
       for (int j = 0; j < 10; j += 2) {
         uint32_t b[4];
-        ldsm_x4(b, b_rows(t.pw, LDB, wb + j * 8, kk, lane));
+        ldsm_x4(b, b_rows(pw, LDB, wb + j * 8, kk, lane));
         mma_bf16(x[j], a, b[0], b[1]);
         mma_bf16(x[j + 1], a, b[2], b[3]);
       }
@@ -804,24 +815,48 @@ __device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
           make_float2(x[j][2], x[j][3]);
     }
   }
-  // ac = Qu . K^T
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) prob[j][e] = g[j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
     uint32_t a[4];
-    ldsm_x4(a, a_rows(t.qu, LDB, r16, kk, lane));
+    ldsm_x4(a, a_rows(qu, LDB, r16, kk, lane));
 #pragma unroll
     for (int j = 0; j < 8; j += 2) {
       uint32_t b[4];
-      ldsm_x4(b, b_rows(t.k, LDB, j * 8, kk, lane));
-      mma_bf16(prob[j], a, b[0], b[1]);
-      mma_bf16(prob[j + 1], a, b[2], b[3]);
+      ldsm_x4(b, b_rows(k, LDB, j * 8, kk, lane));
+      mma_bf16(s[j], a, b[0], b[1]);
+      mma_bf16(s[j + 1], a, b[2], b[3]);
     }
   }
   __syncwarp();
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int rl = gr + 8 * (e >> 1), c = j * 8 + 2 * t4 + (e & 1);
+      s[j][e] += xs[rl * LDX + 15 - rl + c];
+    }
+  __syncwarp();
+}
+
+// prob and g of the warp's 16 query rows against the 64 keys, in the
+// accumulator layout (masked entries 0): s = (ac + bd) / sqrt(dk), prob =
+// exp(s - lse), g = prob (dO . v - delta) / sqrt(dk), all f32, the Pallas
+// kernel's arithmetic.  xs is the warp's scratch; it is free on return.
+__device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
+                                            int q0, int k0, int len, int T,
+                                            float (&prob)[8][4],
+                                            float (&g)[8][4]) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int gr = lane >> 2, t4 = lane & 3, r16 = warp * 16;
+  score_tile(t.qu, t.qv, t.k, t.pw, xs, r16, prob);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) g[j][e] = 0.f;
   const float lse0 = t.lse[r16 + gr], lse1 = t.lse[r16 + gr + 8];
   const float dl0 = t.dl[r16 + gr], dl1 = t.dl[r16 + gr + 8];
 #pragma unroll
@@ -831,10 +866,9 @@ __device__ __forceinline__ void pair_prob_g(const PairTiles& t, float* xs,
       const int rl = gr + 8 * (e >> 1), c = j * 8 + 2 * t4 + (e & 1);
       const int row = q0 + r16 + rl, col = k0 + c;
       const bool ok = col <= row && col < len && row < T;
-      const float s = (prob[j][e] + xs[rl * LDX + 15 - rl + c]) * kScale;
-      prob[j][e] = ok ? expf(s - (e >> 1 ? lse1 : lse0)) : 0.f;
+      prob[j][e] = ok ? expf(prob[j][e] * kScale - (e >> 1 ? lse1 : lse0))
+                      : 0.f;
     }
-  __syncwarp();
   // dO . V^T, then g
 #pragma unroll
   for (int kk = 0; kk < D; kk += 16) {
@@ -869,6 +903,224 @@ __device__ __forceinline__ void store_rows(bf16* out, long long rs, int r0,
       *reinterpret_cast<__nv_bfloat162*>(out + row * rs + j * 8 + 2 * t4) =
           __floats2bfloat162_rn(acc[j][2 * half], acc[j][2 * half + 1]);
   }
+}
+
+// quad (the 4 lanes holding one accumulator row) max and sum
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The bf16 forward on the tensor cores: one CTA per (query tile, b*h), the
+// longest query tiles first, in FWD_GROUPS groups of NW warps; each warp
+// owns 16 query rows, and group g takes the key tiles j <= i with kt = g
+// (mod FWD_GROUPS), so that two groups of one CTA hide each other's
+// latencies.  Q_u and Q_v are staged once for all groups; each group's K,
+// V and table window come through its own cp.async ring of 2 / FWD_GROUPS
+// stages (one group: the next tile loads while this one computes).  Per
+// key tile: the scores by score_tile (the backward's), the mask where the
+// tile crosses the diagonal or the length, and an online softmax in the
+// accumulator layout (row max and sum over the quad; exponents in base 2
+// on the SFU, the scale and log2(e) folded into one multiply), the o
+// fragments rescaled by alpha, e rounded to bf16 and packed into A
+// fragments from registers, V by ldmatrix.trans and o += e . V on
+// mma.sync.  The groups' (m, l, o) meet in shared memory at the end.  o =
+// acc / max(l, 1e-30) in bf16 and lse = m + log(max(l, 1e-30)) in f32, as
+// fwd_kernel<T>.
+constexpr int FWD_GROUPS = 2;
+constexpr int kFwdStages = 2 / FWD_GROUPS;     // ring stages a group
+constexpr int kFwdMmaSmem =
+    (2 * kTileB + FWD_GROUPS * kFwdStages * 4 * kTileB) * 2 +
+    FWD_GROUPS * NW * kXs * 4;
+constexpr float kLog2Scale = kScale * kLog2e;  // scores in base 2
+constexpr float kLn2 = 0.6931471805599453f;
+
+__global__ void __launch_bounds__(NTB * FWD_GROUPS, 1) fwd_kernel_mma(Args a) {
+  constexpr int NTF = NTB * FWD_GROUPS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qu = reinterpret_cast<bf16*>(smem_raw);   // [64][LDB]
+  bf16* Qv = Qu + kTileB;                         // [64][LDB]
+  bf16* rings = Qv + kTileB;   // per group, per stage {K, V, Pw (2 tiles)}
+  float* xs = reinterpret_cast<float*>(rings + FWD_GROUPS * kFwdStages * 4 * kTileB);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp / NW, gt = tid % NTB;      // group, thread in it
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int T_ = a.T, nq = (T_ + BT - 1) / BT;
+  const int qt = nq - 1 - blockIdx.x, q0 = qt * BT;   // long rows first
+  const long long rs = (long long)a.H * D;
+  const long long off = (long long)b * T_ * rs + (long long)h * D;
+  const bf16* k = (const bf16*)a.k + off;
+  const bf16* v = (const bf16*)a.v + off;
+  const bf16* p = (const bf16*)a.p + (long long)h * D;
+  const int len = a.len[b];
+  const int n_k = len > 0 ? min(qt, (len - 1) / BT) + 1 : 0;
+  // this group's key tiles kt = grp + FWD_GROUPS * it, it < n_g
+  const int n_g = n_k > grp ? (n_k - grp + FWD_GROUPS - 1) / FWD_GROUPS : 0;
+  bf16* ring = rings + grp * kFwdStages * 4 * kTileB;
+
+  auto load = [&](int it) {
+    const int kt = grp + FWD_GROUPS * it;
+    bf16* st = ring + (it % kFwdStages) * 4 * kTileB;
+    cp_rows_by(st, k, rs, kt * BT, BT, T_, gt, NTB);
+    cp_rows_by(st + kTileB, v, rs, kt * BT, BT, T_, gt, NTB);
+    cp_rows_by(st + 2 * kTileB, p, rs, (T_ - 1) - q0 - 63 + kt * BT, 2 * BT,
+               T_, gt, NTB);
+  };
+  auto group_sync = [&]() {
+    if (FWD_GROUPS == 1)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + grp), "r"(NTB) : "memory");
+  };
+  cp_rows_by(Qu, (const bf16*)a.qu + off, rs, q0, BT, T_, tid, NTF);
+  cp_rows_by(Qv, (const bf16*)a.qv + off, rs, q0, BT, T_, tid, NTF);
+  if (n_g > 0) load(0);
+  cp_commit();
+  if (kFwdStages == 1) {   // Q from every thread's copies, before the loop
+    cp_wait<0>();
+    __syncthreads();
+  }
+
+  const int gr = lane >> 2, t4 = lane & 3, r16 = (warp % NW) * 16;
+  float* xw = xs + warp * kXs;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, o[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+
+  for (int it = 0; it < n_g; ++it) {
+    if (kFwdStages == 2) {
+      if (it + 1 < n_g) load(it + 1);
+      cp_commit();
+      cp_wait<1>();
+      group_sync();
+    } else if (it > 0) {
+      cp_wait<0>();
+      group_sync();
+    }
+    const bf16* st = ring + (it % kFwdStages) * 4 * kTileB;
+    const bf16* V = st + kTileB;
+    float s[8][4];
+    score_tile(Qu, Qv, st, st + 2 * kTileB, xw, r16, s);
+    // scores in base 2; -inf where masked (only in a tile that crosses the
+    // warp's diagonal or the length); the row max over the quad
+    const int k0 = (grp + FWD_GROUPS * it) * BT;
+    const bool edge = k0 + BT - 1 > q0 + r16 || k0 + BT > len;
+    float mx[2] = {kNegInf, kNegInf};
+    uint32_t ok = 0xffffffffu;        // bit 4 j + e: entry (j, e) is valid
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int rl = gr + 8 * (e >> 1), col = k0 + j * 8 + 2 * t4 + (e & 1);
+        const bool in = !edge || (col <= q0 + r16 + rl && col < len);
+        if (!in) ok &= ~(1u << (4 * j + e));
+        s[j][e] = in ? s[j][e] * kLog2Scale : kNegInf;
+        mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+    float mn[2], alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      mn[u] = fmaxf(m[u], quad_max(mx[u]));
+      alpha[u] = fast_exp2(m[u] - mn[u]);
+    }
+    // e = 2^(s - m), 0 where masked; l sums it in f32 before the cast
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = (ok >> (4 * j + e)) & 1
+                            ? fast_exp2(s[j][e] - mn[e >> 1]) : 0.f;
+        s[j][e] = x;
+        sum[e >> 1] += x;
+      }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      l[u] = l[u] * alpha[u] + quad_sum(sum[u]);
+      m[u] = mn[u];
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+    // o += bf16(e) . V
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      uint32_t ea[4];
+      pack_a(ea, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        uint32_t f[4];
+        ldsm_x4_trans(f, b_cols(V, LDB, j * 8, kk * 16, lane));
+        mma_bf16(o[j], ea, f[0], f[1]);
+        mma_bf16(o[j + 1], ea, f[2], f[3]);
+      }
+    }
+    group_sync();   // the stage is refilled next
+    if (kFwdStages == 1 && it + 1 < n_g) {
+      load(it + 1);
+      cp_commit();
+    }
+  }
+  if (FWD_GROUPS > 1) {
+    // the groups' (m, l, o) meet: group g > 0 leaves its own in the rings
+    // ([value][thread in the group]), group 0 folds them in group order
+    constexpr int NV = 2 + 2 + 64;
+    float* mg = reinterpret_cast<float*>(rings);
+    __syncthreads();   // every group is done with its ring
+    if (grp > 0) {
+      float* at = mg + (grp - 1) * NV * NTB + gt;
+      at[0] = m[0]; at[NTB] = m[1]; at[2 * NTB] = l[0]; at[3 * NTB] = l[1];
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at[(4 + 4 * j + e) * NTB] = o[j][e];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+    for (int g2 = 1; g2 < FWD_GROUPS; ++g2) {
+      const float* at = mg + (g2 - 1) * NV * NTB + gt;
+      float a0[2], a1[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const float m2 = at[u * NTB], mn = fmaxf(m[u], m2);
+        a0[u] = fast_exp2(m[u] - mn);
+        a1[u] = fast_exp2(m2 - mn);
+        l[u] = l[u] * a0[u] + at[(2 + u) * NTB] * a1[u];
+        m[u] = mn;
+      }
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[j][e] = o[j][e] * a0[e >> 1] + at[(4 + 4 * j + e) * NTB] * a1[e >> 1];
+    }
+  }
+  float lc[2];
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    lc[u] = fmaxf(l[u], 1e-30f);
+    const float inv = 1.f / lc[u];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      o[j][2 * u] *= inv;
+      o[j][2 * u + 1] *= inv;
+    }
+  }
+  store_rows((bf16*)a.o_out + off, rs, q0 + r16, T_, o);
+  if (t4 == 0)
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int row = q0 + r16 + gr + 8 * u;
+      // m in base 2; a row with no valid key keeps the sentinel
+      const float mnat = m[u] == kNegInf ? kNegInf : m[u] * kLn2;
+      if (row < T_) a.lse_out[(long long)bh * T_ + row] = mnat + logf(lc[u]);
+    }
 }
 
 constexpr int kDqMmaSmem = (3 * kTileB + 2 * 4 * kTileB) * 2 + NW * kXs * 4 +
@@ -1166,12 +1418,18 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// f32: the SIMT kernel; bf16: the tensor-core kernel
 template <typename T>
 int run_fwd(const Args& a, cudaStream_t s) {
-  int err = set_smem(fwd_kernel<T>, kFwdSmem);
+  const bool mma = sizeof(T) == 2;
+  int err = mma ? set_smem(fwd_kernel_mma, kFwdMmaSmem)
+                : set_smem(fwd_kernel<float>, kFwdSmem);
   if (err) return err;
   dim3 grid((a.T + BT - 1) / BT, a.B * a.H);
-  fwd_kernel<T><<<grid, NT, kFwdSmem, s>>>(a);
+  if (mma)
+    fwd_kernel_mma<<<grid, NTB * FWD_GROUPS, kFwdMmaSmem, s>>>(a);
+  else
+    fwd_kernel<float><<<grid, NT, kFwdSmem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

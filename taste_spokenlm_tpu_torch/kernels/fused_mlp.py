@@ -18,14 +18,15 @@ in packed row t*bi/2 + r the low nibble is I-row t*bi + r and the high
 nibble I-row t*bi + bi/2 + r, and tile t's scales are rows [t*spt,
 (t+1)*spt), low-plane groups first.  Byte-identical to the JAX package's.
 
-Bound on the H100: the weight bytes at decode.  The gated MLPs are one CUDA
-launch a call (csrc/gated_mlp.cuh: thread-block clusters over I, the
-clusters' partials summed in a fixed order by the last block to arrive; one
-row of x on the SIMT units, more rows on the tensor cores); `gated_plan`
-picks the route, the cluster, its columns and the number of clusters, and
-the kernel's library says how many partial sums that plan leaves
-(`gated_geometry`).  The FFNs are two CUDA launches a call (a split over I and a
-deterministic second pass).  `launches` counts one per call.
+Bound on the H100: the weight bytes at decode.  The gated MLPs and
+`ffn_int8` are one CUDA launch a call (csrc/gated_mlp.cuh, the FFN as its
+compile-time FFN variant: thread-block clusters over I, the clusters'
+partials summed in a fixed order by the last block to arrive; one row of x
+on the SIMT units, more rows on the tensor cores); `gated_plan` picks the
+route, the cluster, its columns and the number of clusters, and the
+kernel's library says how many partial sums that plan leaves
+(`gated_geometry`).  `ffn_int4` is two CUDA launches a call (a split over I
+and a deterministic second pass).  `launches` counts one per call.
 """
 
 from __future__ import annotations
@@ -44,12 +45,13 @@ from taste_spokenlm_tpu_torch.kernels.int4_matmul import \
     matmul_int4_plain as _dot_int4
 
 MLP_TILE = 512
-SUB = 32                  # I columns per first-projection subtile (kernel)
+SUB = 32                  # the int8 kernels take I % SUB == 0
 _ACTS = {"silu": 0, "swish": 0, "relu": 1, "gelu": 2}
 _SIGNATURE = {
     "tsk_gated_mlp_int8": (_build.P,) * 10 + (_build.I,) * 7 + (_build.P,),
     "tsk_gated_geometry_int8": (_build.I,) * 6 + (_build.P,),
-    "tsk_ffn_int8": (_build.P,) * 9 + (_build.I,) * 5 + (_build.P,)}
+    "tsk_ffn_int8": (_build.P,) * 10 + (_build.I,) * 7 + (_build.P,),
+    "tsk_ffn_geometry_int8": (_build.I,) * 6 + (_build.P,)}
 SUBR4 = 16                # packed second-projection rows per subtile (int4)
 _SIGNATURE4 = {
     "tsk_gated_mlp_int4": (_build.P,) * 10 + (_build.I,) * 10 + (_build.P,),
@@ -112,16 +114,6 @@ def ffn_int8_plain(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
     return (b2.float() + (a @ w2.float()) * s2.float()).reshape(*lead, d)
 
 
-def _splits(m: int, i: int, device) -> int:
-    """How many I ranges pass 1 splits into: the most (each a multiple of
-    SUB columns) with about two blocks per SM over all row tiles."""
-    tiles = 1 if m == 1 else -(-m // 8)
-    target = 2 * _build.sm_count(device)
-    n_sub = i // SUB
-    return max(d for d in range(1, n_sub + 1)
-               if n_sub % d == 0 and (d * tiles <= target or d == 1))
-
-
 def _prepare(fn_name, x, mats, vecs, activation, packed: bool = False):
     """Check what the kernel takes; -> (x as [M, H] bf16, out [M, H] f32).
     mats are the int8 (or, `packed`, the uint8 int4) matrices, vecs the f32
@@ -145,11 +137,6 @@ def _prepare(fn_name, x, mats, vecs, activation, packed: bool = False):
     xm = x.reshape(-1, h).to(torch.bfloat16).contiguous()
     out = torch.empty((xm.shape[0], h), dtype=torch.float32, device=x.device)
     return xm, out
-
-
-def _scratch(m: int, h: int, i: int, device) -> torch.Tensor:
-    s = _splits(m, i, device) if m else 1
-    return torch.empty((s, m, h), dtype=torch.float32, device=device)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -189,17 +176,16 @@ def gated_plan(m: int, h: int, i: int, sms: int, tile: Optional[int] = None
     contraction rows and output columns;
     such a block fits in shared memory (at most about 110 KB of 226, int4
     scales staged only where they fit).  The plan takes the most blocks
-    (clusters x ranks) that still fit on the card in one wave, and among
-    those the fewer columns past I, the wider columns (longer weight runs,
-    fewer partials to sum), then the smaller cluster; where none fits in one
-    wave, the fewest blocks.  Row tiles multiply the blocks of every
-    candidate alike and do not enter the choice."""
+    (clusters x ranks x row tiles) that still fit on the card in one wave,
+    and among those the fewer columns past I, the wider columns (longer
+    weight runs, fewer partials to sum), then the smaller cluster; where
+    none fits in one wave, the fewest blocks."""
     int4 = tile is not None
     k1 = h // 2 if int4 else h
     if m == 1 and h % 16 == 0:
         cluster = min(GEMV_CLUSTER, max(1, h // 16))
         return cluster, GATED_COLS[0], gemv_slots(i, cluster, sms, int4)
-    best = None
+    best, tiles = None, _cdiv(m, GATED_ROWS)
     for cols in GATED_COLS:
         for cluster in GATED_CLUSTERS:
             kc = _cdiv(_cdiv(k1, cluster), 16) * 16
@@ -208,7 +194,7 @@ def gated_plan(m: int, h: int, i: int, sms: int, tile: Optional[int] = None
                     or hc not in (128, 256, 512):
                 continue
             slots = gated_clusters(i, cols, tile)
-            blocks = slots * cluster
+            blocks = slots * cluster * tiles
             key = ((0, blocks) if blocks <= sms else (-1, -blocks),
                    i - slots * cols, cols, -cluster)
             if best is None or key > best[0]:
@@ -219,34 +205,43 @@ def gated_plan(m: int, h: int, i: int, sms: int, tile: Optional[int] = None
 
 
 @functools.lru_cache(maxsize=None)
-def _geometry(dims: Tuple[int, ...], plan: Tuple[int, int, int]
-              ) -> Tuple[int, int]:
-    out = (ctypes.c_int * 2)()
+def _geometry(dims: Tuple[int, ...], plan: Tuple[int, int, int],
+              ffn: bool = False) -> Tuple[int, int, int]:
+    """(S, the last slot's first row of Wd, row tiles of x) as the kernel
+    derives them from the plan."""
+    out = (ctypes.c_int * 3)()
     if len(dims) == 3:
         lib = _build.load("fused_mlp", _SIGNATURE)
-        err = lib.tsk_gated_geometry_int8(*dims, *plan, ctypes.addressof(out))
+        fn = lib.tsk_ffn_geometry_int8 if ffn else lib.tsk_gated_geometry_int8
+        err = fn(*dims, *plan, ctypes.addressof(out))
     else:
         lib = _build.load("fused_mlp_int4", _SIGNATURE4)
         err = lib.tsk_gated_geometry_int4(*dims, *plan, ctypes.addressof(out))
     if err:
         raise ValueError(f"gated MLP: the kernel cannot take plan {plan} "
                          f"at (M, H, I, ...) = {dims}")
-    return out[0], out[1]
+    return out[0], out[1], out[2]
 
 
 def gated_geometry(m: int, h: int, i: int, sms: int,
                    tile: Optional[int] = None, group_in: int = 1,
-                   spt: int = 2) -> Tuple[Tuple[int, int, int], int, int]:
+                   spt: int = 2, ffn: bool = False
+                   ) -> Tuple[Tuple[int, int, int], int, int]:
     """(plan, S, row) of a gated kernel's call on a CUDA device with `sms`
     SMs (int8; int4 where `tile` is given, with the first projection's
-    packed rows a scale row and Wd's scale rows a tile): the plan
-    `gated_plan` picks, and as the kernel derives them from it
-    (tsk_gated_geometry_int8 / _int4) the S slots of its partial sums and
-    the first row of Wd that slot S - 1 owns (int4: a packed row of the
-    per-tile packing).  Raises where the kernel cannot take the plan."""
+    packed rows a scale row and Wd's scale rows a tile; `ffn`: the int8
+    conformer FFN on the same kernels, one first-projection matrix): the
+    plan `gated_plan` picks, and as the kernel derives them from it
+    (tsk_gated_geometry_int8 / _int4, tsk_ffn_geometry_int8) the S slots of
+    its partial sums and the first row of Wd (W2) that slot S - 1 owns
+    (int4: a packed row of the per-tile packing).  Raises where the kernel
+    cannot take the plan."""
+    if ffn and tile is not None:
+        raise ValueError("gated_geometry: the int4 FFN does not run on the "
+                         "gated kernels")
     plan = gated_plan(m, h, i, sms, tile)
     dims = (m, h, i) if tile is None else (m, h, i, tile, group_in, spt)
-    slots, row = _geometry(dims, plan)
+    slots, row, _ = _geometry(dims, plan, ffn)
     return plan, slots, row
 
 
@@ -298,7 +293,8 @@ def gated_mlp_int8(x, wg, sg, wu, su, wd, sd, activation: str = "silu"):
 
 def ffn_int8(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
     """The conformer FFN, -> [..., D] f32.  CPU tensors take the plain
-    version; CUDA tensors launch csrc/fused_mlp.cu."""
+    version; CUDA tensors launch csrc/fused_mlp.cu (one launch, the gated
+    kernels' FFN variant under `gated_plan`'s plan)."""
     if x.device.type == "cpu":
         return ffn_int8_plain(x, w1, s1, b1, w2, s2, b2, activation)
     if x.device.type != "cuda":
@@ -308,13 +304,17 @@ def ffn_int8(x, w1, s1, b1, w2, s2, b2, activation: str = "swish"):
             or b1.shape != (i,) or s2.shape != (d,) or b2.shape != (d,):
         raise ValueError("ffn_int8: shapes do not fit")
     xm, out = _prepare("ffn_int8", x, (w1, w2), (s1, b1, s2, b2), activation)
-    part = _scratch(xm.shape[0], d, i, x.device)
-    if xm.shape[0]:
+    m = xm.shape[0]
+    if m:
+        plan, slots, _ = gated_geometry(m, d, i, _build.sm_count(x.device),
+                                        ffn=True)
+        part, arrivals = _gated_buffers("ffn_int8", m, d, slots, plan[0],
+                                        x.device)
         lib = _build.load("fused_mlp", _SIGNATURE)
         p = _build.ptr
         err = lib.tsk_ffn_int8(
-            p(xm), p(w1), p(s1), p(b1), p(w2), p(s2), p(b2), p(part), p(out),
-            xm.shape[0], d, i, i // part.shape[0], _ACTS[activation],
+            p(xm), p(w1), p(s1), p(b1), p(w2), p(s2), p(b2), _opt_ptr(part),
+            p(out), _opt_ptr(arrivals), m, d, i, _ACTS[activation], *plan,
             _build.stream_of(x))
         _build.check(err, "ffn_int8")
         ffn_int8.launches += 1

@@ -19,12 +19,15 @@ so its gradients repeat bit for bit.
 
 Bound on the H100: at the stage-1 S3 stack's shape (B=8, T=1599, H=8,
 dk=128, bf16) the ~3 T^2 dk B H forward and ~8 T^2 dk B H backward
-operations over the causal half, not the bytes.  The forward, and the whole
-float32 route, run them on the SIMT f32 units (true f32 FMAs, never TF32).
-The bfloat16 backward runs them on the tensor cores (mma.sync, bf16
-operands, f32 sums): delta = rowsum(dO . o); per query tile the scores,
-prob and g of each key tile (the bd term as q_v times a 128-row table
-window, skewed by one offset read from shared memory), dq_u and dq_v, and
+operations over the causal half, not the bytes.  The float32 route runs
+them on the SIMT f32 units (true f32 FMAs, never TF32).  The bfloat16 route
+runs them on the tensor cores (mma.sync, bf16 operands, f32 sums).  Its
+forward is one launch: per query tile (the longest first) the scores of
+every key tile j <= i (the bd term as q_v times a 128-row table window,
+skewed by one offset read from shared memory), an online softmax in
+registers, and o += bf16(e) . v, the key tiles through a two-stage cp.async
+ring.  Its backward: delta = rowsum(dO . o); per query tile the same scores
+(one device function for both), prob and g of each key tile, dq_u and dq_v, and
 prob and g stored per tile pair in bf16; per key tile dk and dv from the
 stored tiles; per tile diagonal, whose pairs share one table window, dp's
 window partial from the stored g; then dp summed over the batch and the

@@ -287,18 +287,42 @@ def test_gated_mlp_int8_replays_in_a_graph(dev, m):
     _graph_replays(fused_mlp.gated_mlp_int8, x, (wg, sg, wu, su, wd, sd))
 
 
-@pytest.mark.parametrize("m", [1, 40, 256])
-def test_ffn_int8_matches_plain(dev, m):
-    g = torch.Generator().manual_seed(5)
-    d, i = 1024, 2048
+def _ffn8(g, d, i, dev):
+    """The conformer FFN's int8 weights, scales and biases (w1, s1, b1, w2,
+    s2, b2), fan-in scaled and seeded."""
     (w1, s1), (w2, s2) = _q8(g, d, i, dev), _q8(g, i, d, dev)
     b1 = (0.1 * torch.randn(i, generator=g)).to(dev)
     b2 = (0.1 * torch.randn(d, generator=g)).to(dev)
+    return w1, s1, b1, w2, s2, b2
+
+
+# the S3 stack's decode step (M = 1: the SIMT kernel) and its 131-row
+# prefill, rows on either side of the 16-row tiles, a tiny width
+@pytest.mark.parametrize("m,d,i", [(1, 1024, 2048), (40, 1024, 2048),
+                                   (131, 1024, 2048), (256, 1024, 2048),
+                                   (3, 32, 64)])
+def test_ffn_int8_matches_plain(dev, m, d, i):
+    g = torch.Generator().manual_seed(5)
+    args = _ffn8(g, d, i, dev)
     x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
-    out = fused_mlp.ffn_int8(x, w1, s1, b1, w2, s2, b2)
-    ref = fused_mlp.ffn_int8_plain(x, w1, s1, b1, w2, s2, b2)
+    out = fused_mlp.ffn_int8(x, *args)
+    ref = fused_mlp.ffn_int8_plain(x, *args)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= 2e-2
+    for _ in range(2):          # no float atomics: the same bits every call
+        assert torch.equal(fused_mlp.ffn_int8(x, *args), out)
+    # the first projection reaches the output: zeroed, it moves it past
+    # the tolerance
+    no_w1 = fused_mlp.ffn_int8(x, torch.zeros_like(args[0]), *args[1:])
+    assert _rel(no_w1, ref) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("m", [1, 131])
+def test_ffn_int8_replays_in_a_graph(dev, m):
+    g = torch.Generator().manual_seed(23)
+    args = _ffn8(g, 1024, 2048, dev)
+    x = torch.randn(m, 1024, generator=g).to(dev, torch.bfloat16)
+    _graph_replays(fused_mlp.ffn_int8, x, args)
 
 
 @pytest.mark.parametrize("m,d,n", [(1, 2048, 128256), (40, 2048, 4097),
@@ -448,22 +472,31 @@ def test_gated_mlp_int4_replays_in_a_graph(dev, m):
     _graph_replays(fused_mlp.gated_mlp_int4, x, (wg, sg, wu, su, wd, sd))
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4"])
+@pytest.mark.parametrize("kind", ["int8", "int4", "ffn_int8"])
 def test_gated_geometry_matches_the_plan(dev, kind):
     """The kernel takes gated_plan's plan at the path's shapes and the tiny
     widths, its slot count (which sizes the partial sums) is the one the
     plan ranks its candidates by, and its last slot starts where the plan's
-    last cluster does (int8: an I row; int4: a packed row)."""
+    last cluster does (int8: an I row; int4: a packed row); the FFN's too,
+    at its own shapes (the S3 stack's decode step and prefill)."""
     sms = _build.sm_count(dev)
-    for m, h, i in [*GATED_SHAPES, (3, 256, 1024), (5, 64, 128),
-                    (2, 32, 64)]:
+    ffn = kind == "ffn_int8"
+    shapes = ([(1, 1024, 2048), (131, 1024, 2048), (40, 1024, 2048)] if ffn
+              else GATED_SHAPES)
+    for m, h, i in [*shapes, (3, 256, 1024), (5, 64, 128), (2, 32, 64)]:
         tile = fused_mlp.mlp_tile(i) if kind == "int4" else None
         extra = (() if tile is None else
                  (tile, int4_matmul._group(h),
                   tile // int4_matmul._group(tile)))
-        plan, slots, row = fused_mlp.gated_geometry(m, h, i, sms, *extra)
+        plan, slots, row = fused_mlp.gated_geometry(m, h, i, sms, *extra,
+                                                    ffn=ffn)
         assert plan == fused_mlp.gated_plan(m, h, i, sms, tile)
         cluster, cols, simt = plan
+        # the kernel's row tiles (its arrival counters) as the plan counts
+        # them
+        dims = (m, h, i) if tile is None else (m, h, i, *extra)
+        tiles = fused_mlp._geometry(dims, plan, ffn)[2]
+        assert tiles == (1 if simt else -(-m // fused_mlp.GATED_ROWS))
         if simt:
             chunks = i // 32 if tile else i // 16
             assert (slots, row) == (simt, 16 * ((simt - 1) * chunks // simt))
@@ -508,12 +541,14 @@ def _relpos_inputs(g, b, t, h, dtype, dev):
     (3, 2048, 3, (2048, 1999, 64), torch.bfloat16),
     (3, 257, 2, (257, 1, 256), torch.bfloat16),
     (3, 257, 2, (257, 1, 256), torch.float32),
+    (8, 1599, 8, (1599, 1199, 700, 266, 1598, 999, 499, 299), torch.bfloat16),
 ])
 def test_relpos_attention_matches_plain(dev, b, t, h, lens, dtype):
     """Forward (o and LSE) and the five gradients against the plain
-    versions, ragged lengths and an odd B*H; the backward twice gives the
-    same bits (no atomics).  T = 257 leaves one row in the last query, key
-    and diagonal tile, beside rows of length 1 and T - 1."""
+    versions, ragged lengths and an odd B*H; the forward and the backward
+    twice give the same bits (no atomics).  T = 257 leaves one row in the
+    last query, key and diagonal tile, beside rows of length 1 and T - 1;
+    [8, 1599, 8] is the stage-1 training shape."""
     g = torch.Generator().manual_seed(11)
     xs = _relpos_inputs(g, b, t, h, dtype, dev)
     lens = torch.tensor(lens, dtype=torch.int32, device=dev)
@@ -521,6 +556,8 @@ def test_relpos_attention_matches_plain(dev, b, t, h, lens, dtype):
     o, lse = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
     o_ref, lse_ref = relpos_attention.relpos_causal_attention_plain(*xs, lens)
     torch.cuda.synchronize()
+    o2, lse2 = relpos_attention.relpos_causal_attention_fwd(*xs, lens)
+    assert torch.equal(o2, o) and torch.equal(lse2, lse)
     err = (o.float() - o_ref.float()).abs().max().item()
     if dtype == torch.float32:
         assert err <= tol, err

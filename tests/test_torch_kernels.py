@@ -381,7 +381,8 @@ def test_gated_mlp_plan(kind, m, h, i, sms):
     column width the kernel takes, every rank with contraction rows and
     128, 256 or 512 output columns, arrival counters for every rank and row tile,
     slots that cover I (int4: each inside one tile of Wd), and no candidate
-    with more blocks that still fit on the card in one wave."""
+    with more blocks (row tiles counted) that still fit on the card in one
+    wave; where none fits, none with fewer blocks."""
     int4 = kind == "int4"
     tile = fused_mlp.mlp_tile(i) if int4 else None
     cluster, cols, slots = fused_mlp.gated_plan(m, h, i, sms, tile)
@@ -412,14 +413,40 @@ def test_gated_mlp_plan(kind, m, h, i, sms):
         assert (per_tile - 1) * cols // 2 < tile // 2 <= per_tile * cols // 2
     else:
         assert (slots - 1) * cols < i <= slots * cols
-    blocks = slots * cluster
+    tiles = -(-m // fused_mlp.GATED_ROWS)
+    blocks = slots * cluster * tiles
     for cl in fused_mlp.GATED_CLUSTERS:
         for co in fused_mlp.GATED_COLS:
-            more = fused_mlp.gated_clusters(i, co, tile) * cl
+            more = fused_mlp.gated_clusters(i, co, tile) * cl * tiles
             if ranks_ok(cl) and blocks <= sms:
                 assert not blocks < more <= sms
+            elif ranks_ok(cl):          # none fits in one wave: the fewest
+                assert more >= blocks
     if (h, i) == (2048, 8192) and sms == 132:   # the prefill, timed
         assert (cluster, cols) == (4, 256)
+
+
+# ffn_int8 on the gated kernels: (M, H, I, SMs) -> (plan, partial-sum
+# slots); the S3 stack's FFN at decode (M = 1) and at the 131-row prefill,
+# at 132 and 114 SMs, and a tiny width
+@pytest.mark.parametrize("m,h,i,sms,plan,slots", [
+    (1, 1024, 2048, 132, (8, 128, 15), 15),
+    (131, 1024, 2048, 132, (2, 256, 0), 8),
+    (1, 1024, 2048, 114, (8, 128, 12), 12),
+    (131, 1024, 2048, 114, (2, 256, 0), 8),
+    (2, 32, 64, 132, (1, 128, 0), 1)])
+def test_ffn_int8_plan(m, h, i, sms, plan, slots):
+    """ffn_int8 takes gated_plan's plan (one first-projection matrix in
+    place of two changes each block's bytes, not its blocks or slots): at
+    one row the SIMT kernel on 15 clusters of 8 (12 on 114 SMs), at 131 rows
+    nine 16-row tiles, for which no plan fits in one wave, so the fewest
+    blocks: 2-block clusters over 256 columns of I (144 blocks), and the
+    partial sums' slots those plans leave; every rule of the gated plan
+    holds too."""
+    assert fused_mlp.gated_plan(m, h, i, sms) == plan
+    cluster, cols, simt = plan
+    assert (simt or fused_mlp.gated_clusters(i, cols)) == slots
+    test_gated_mlp_plan("int8", m, h, i, sms)
 
 
 def _lop3(a, b, c, lut):
@@ -833,3 +860,93 @@ def test_relpos_bwd_tile_decomposition_matches_plain(t):
         err = (got - want).abs().max() / want.abs().max()
         assert err.item() <= 1e-5, (name, err.item())
     assert bool((dp[t:] == 0).all())
+
+
+def _relpos_fwd_by_tiles(q_u, q_v, k, v, p, lengths):
+    """o and the LSE computed the way the bf16 forward kernel
+    (csrc/relpos_attention.cu, fwd_kernel_mma with score_tile) decomposes
+    them, in f32: 64-row query tiles, each 16-row group wi reading the 80
+    rows from 48 - 16 wi of its key tile's 128-row table window (from (T-1)
+    - q0 - 63 + k0), its bd term X[rl][15 - rl + c] of X = q_v .
+    window^T; two groups of warps taking the key tiles j <= i in turn
+    (group kt % 2), each with its own online softmax (running max m, alpha =
+    exp(m_old - m_new) rescaling l and the o sum), e rounded to the value
+    dtype before e . v, l summed before the rounding; the groups' (m, l, o)
+    folded in group order at the end; o = acc / max(l, 1e-30) and lse = m +
+    log(max(l, 1e-30))."""
+    b, t, h, dk = q_u.shape
+    nt, scale = -(-t // 64), dk ** -0.5
+    pad = lambda x: torch.cat([x, x.new_zeros((nt * 64 - t,) + x.shape[1:])])  # noqa: E731
+    o = torch.zeros(b, nt * 64, h, dk)
+    lse = torch.zeros(b, h, nt * 64)
+    for bi in range(b):
+        qu, qv, kk, vv = (pad(x[bi]) for x in (q_u, q_v, k, v))
+        n = int(lengths[bi])
+        for hi in range(h):
+            for qt in range(nt):
+                q0 = 64 * qt
+                groups = [[torch.full((64,), -1e30), torch.zeros(64),
+                           torch.zeros(64, dk)] for _ in range(2)]
+                for kt in range(min(qt, (n - 1) // 64) + 1 if n > 0 else 0):
+                    m, l, acc = groups[kt % 2]
+                    k0 = 64 * kt
+                    rows = torch.arange(t - 1 - q0 - 63 + k0,
+                                        t - 1 - q0 - 63 + k0 + 128)
+                    ok = (rows >= 0) & (rows < t)
+                    win = torch.zeros(128, dk)
+                    win[ok] = p[rows[ok], hi]
+                    qs, ks = slice(q0, q0 + 64), slice(k0, k0 + 64)
+                    s = qu[qs, hi] @ kk[ks, hi].t()
+                    for wi in range(4):
+                        wb = 48 - 16 * wi
+                        x = qv[q0 + 16 * wi:q0 + 16 * wi + 16, hi] \
+                            @ win[wb:wb + 80].t()              # [16, 80]
+                        for rl in range(16):
+                            s[16 * wi + rl] += x[rl, 15 - rl:79 - rl]
+                    i = torch.arange(q0, q0 + 64)[:, None]
+                    j = torch.arange(k0, k0 + 64)[None, :]
+                    mask = (j <= i) & (j < n)
+                    s = torch.where(mask, s * scale, torch.tensor(-1e30))
+                    m_new = torch.maximum(m, s.amax(1))
+                    alpha = torch.exp(m - m_new)
+                    e = torch.where(mask, torch.exp(s - m_new[:, None]),
+                                    torch.zeros(()))
+                    l = l * alpha + e.sum(1)
+                    acc = acc * alpha[:, None] \
+                        + e.to(v.dtype).float() @ vv[ks, hi].float()
+                    groups[kt % 2] = [m_new, l, acc]
+                (m, l, acc), (m1, l1, acc1) = groups
+                m_new = torch.maximum(m, m1)
+                a0, a1 = torch.exp(m - m_new), torch.exp(m1 - m_new)
+                l = l * a0 + l1 * a1
+                acc = acc * a0[:, None] + acc1 * a1[:, None]
+                m = m_new
+                lc = torch.clamp(l, min=1e-30)
+                o[bi, q0:q0 + 64, hi] = acc / lc[:, None]
+                lse[bi, hi, q0:q0 + 64] = m + torch.log(lc)
+    return o[:, :t], lse[..., :t].reshape(b * h, t)
+
+
+@pytest.mark.parametrize("t", [200, 257, 320])
+def test_relpos_fwd_tile_decomposition_matches_plain(t):
+    """The design of the bf16 forward (64-row query tiles, each warp's
+    80-row table window and one offset read for the bd term, two groups'
+    online softmaxes across alternate key tiles and their fold, e cast
+    before its product with v), written
+    in f32 torch, against relpos_causal_attention_plain: T one row past a
+    tile (257), a ragged last tile (200, 320), B = 2, H = 2, ragged lengths;
+    o within 1e-5 of its largest value and the LSE within 1e-5 (the same
+    f32 arithmetic in another order; in f32 the cast of e is exact).  It
+    checks the design, not the kernel: it runs a test-local copy of the
+    kernel's index arithmetic, and the kernel itself is held against the
+    plain forward on the card (test_torch_cuda.py,
+    test_relpos_attention_matches_plain)."""
+    b, h = 2, 2
+    xs = [torch.from_numpy(x) for x in _relpos_inputs(b, t, h, seed=t + 5)]
+    lens = torch.tensor([t, t // 2 + 3])
+    o_ref, lse_ref = relpos_attention.relpos_causal_attention_plain(*xs,
+                                                                     lens)
+    o, lse = _relpos_fwd_by_tiles(*xs, lens)
+    err = (o - o_ref).abs().max() / o_ref.abs().max()
+    assert err.item() <= 1e-5, err.item()
+    assert (lse - lse_ref).abs().max().item() <= 1e-5
