@@ -21,15 +21,16 @@ quantizer (quant.py).  In order it:
    checks in the SASS (cuobjdump) that every bf16 flash kernel, the bf16
    rel-pos forward and the backward's three product kernels, every DiT
    GEMM and attention kernel and every tensor-core kernel of the gated
-   int8 / int4 MLPs and of the int8 FFN (the ones that run M > 1) issue
-   tensor-core instructions, that no f32 flash or rel-pos kernel and no
-   one-row kernel does, and that no kernel of the gated MLPs or of the int8
-   FFN (their one-row SIMT kernels too) issues an int-to-float conversion
+   int8 / int4 MLPs and of the int8 / int4 FFNs (the ones that run M > 1)
+   issue tensor-core instructions, that no f32 flash or rel-pos kernel and
+   no one-row kernel does, and that no kernel of the gated MLPs or of the
+   FFNs (their one-row SIMT kernels too) issues an int-to-float conversion
    (I2F);
 3. runs, on the int8 model, the full-width reconstruction (step 4) and a
    full-width completion (step 5); then frees it, builds the int4 model and
-   runs the same completion on it (step 6); frees that, builds the bf16
-   training model and runs the stage-1 step (step 7); frees that and runs
+   runs the same completion on it (step 6); frees that, runs the serving
+   tiers' fidelity gate (step 6), builds the bf16 training model and runs
+   the stage-1 step (step 7); frees that and runs
    the decode-layout tools (step 8).  Each counted run
    has every launch count set to 0 just before it and read just after, and
    prints its peak device memory.  The serving paths' conformers run at
@@ -64,7 +65,28 @@ quantizer (quant.py).  In order it:
    gated_mlp_int4 / ffn_int4 and every other projection (Llama qkv / o, S3
    qkv / out, the S3 head) runs matmul_int4; it must launch the int8 MLPs
    0 times.  It prints its greedy text agreement with the int8 tier (not a
-   gate: JAX's floor for the int4 tier is against f32);
+   gate: JAX's floor for the int4 tier is against f32).  Then the serving
+   tiers' fidelity gate, "serving_fidelity"
+   (taste_spokenlm_tpu_torch/scripts/serving_fidelity.py --reach, each
+   row's model freed before the next is built): an f32 model with LoRA
+   adapters at the JAX script's weight scales, and from its weights the
+   bf16 merged, int8 and int4 serving layouts, each running 64 greedy joint
+   steps, the synthesis of the f32 row's taste rows (512 S3 steps) and the
+   flow on the f32 row's S3 tokens from one fixed noise; and, for each
+   layout, its float twin: the f32 model on the layout's own weights,
+   dequantized.  Each tier's kernels must launch exactly as the rows'
+   runs imply, every row's waveform be finite and the f32 row's
+   trajectories not degenerate.  Every serving row must stay within
+   TWIN_TOL of its twin (text and S3 logits on their shared history,
+   relative to max |logit|; the flow's mel - z), and the reach row (int8,
+   the S3 FFN W2 scales doubled, against the int8 twin) must leave it.
+   The JAX script's floors but tf_taste (greedy text trajectory >= 0.98
+   bf16 / int8, >= 0.90 int4; S3 trajectory >= 0.98 bf16, >= 0.95 int8;
+   mel rel err <= 0.05 / 0.05 / 0.10) are evaluated and each miss printed,
+   beside the twins' own trajectory agreement and the f32 row's top-2
+   logit margins: on these weights the twins miss the same floors with
+   no serving kernel in their path (PERF.md §6), so a miss does not fail
+   the run;
 7. the stage-1 training step as bench.py:186-300 runs it: TasteConfig.full()
    in bf16 (segmenter and RVQ f32) from the same seed-0 float weights,
    per-layer remat, the rvq phase (whisper encoder frozen), Adam lr 1e-4
@@ -122,15 +144,15 @@ quantizer (quant.py).  In order it:
    M <= 8 the contraction of its first slice only must move it past 5x the
    tolerance; the fused MLPs 2e-2 relative
    (their bf16 activation can differ by one bf16 step where the f32 sums
-   differ), the gated ones and ffn_int8 bit-identical twice; and swapped
+   differ), bit-identical twice; and swapped
    nibble planes, a zeroed gate or first projection, (int4) a second
-   projection packed untiled, (gated, ffn_int8) the Wd / W2 rows of the
+   projection packed untiled, the Wd / W2 (packed) rows of the
    last slot of the kernel's plan zeroed and, at M = 42, the last 8 rows of
    x scaled by 100 must each move the output by more than 5x the
    tolerance.  Each gated row also times, for information, the same MLP as
    a chain of library calls (cuBLAS bf16 on weights dequantized once: x @
    Wgu, silu * mul, @ Wd) and as the port's own unfused chain (matmul_int8
-   / matmul_int4 gate-up, silu * mul, down); each ffn_int8 row the library
+   / matmul_int4 gate-up, silu * mul, down); each FFN row the library
    chain F.linear, silu, F.linear.  The rel-pos attention at the training
    shape (B=8, T=1599, H=8, dk=128), bf16 and f32, ragged lengths: o within
    2e-2 of max|plain| (bf16) or 1e-4 abs (f32), the LSE within 1e-4, the
@@ -195,7 +217,8 @@ from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
-from taste_spokenlm_tpu_torch.scripts import profile_fusion, profile_lmhead
+from taste_spokenlm_tpu_torch.scripts import (profile_fusion, profile_lmhead,
+                                              serving_fidelity)
 from taste_spokenlm_tpu_torch.train import optim, train_step
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
@@ -252,10 +275,10 @@ def tensor_core_check() -> dict:
     (cuobjdump) of the built flash, rel-pos, DiT and fused-MLP libraries:
     every bf16 flash kernel, the bf16 rel-pos forward and the backward's
     three product kernels, every DiT GEMM and attention kernel and every
-    tensor-core kernel of the gated MLPs and of the int8 FFN must issue
-    HMMA; no f32 flash or rel-pos kernel may (those routes stay true f32),
-    nor the one-row kernels.  No kernel of the gated MLPs or of the int8 FFN
-    may issue I2F: their weights become floats by bit operations."""
+    tensor-core kernel of the gated MLPs and of the FFNs must issue HMMA;
+    no f32 flash or rel-pos kernel may (those routes stay true f32), nor
+    the one-row kernels.  No kernel of the gated MLPs or of the FFNs may
+    issue I2F: their weights become floats by bit operations."""
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     i2f = {}
 
@@ -275,7 +298,8 @@ def tensor_core_check() -> dict:
     # (kernels, expected number, must issue HMMA); "IfE" marks the float
     # instantiations of the rel-pos templates (forward and f32 backward);
     # in the int8 library "ILb0ELb0E" the gated MLP's kernels <Q4 = false,
-    # FFN = false, ...> and "ILb0ELb1E" the FFN's <false, true, ...>
+    # FFN = false, ...> and "ILb0ELb1E" the FFN's <false, true, ...>, in
+    # the int4 library "ILb1ELb0E" and "ILb1ELb1E"
     groups = {
         "flash bf16": ({n: u for n, u in flash.items()
                         if "flash_kernel_bf16" in n}, 3, True),
@@ -296,17 +320,25 @@ def tensor_core_check() -> dict:
                                      if "gated_mlp_kernelILb0ELb0E" in n},
                                     6, True),
         "gated int4 tensor cores": ({n: u for n, u in mlp4.items()
-                                     if "gated_mlp_kernel" in n}, 6, True),
+                                     if "gated_mlp_kernelILb1ELb0E" in n},
+                                    6, True),
         "ffn int8 tensor cores": ({n: u for n, u in mlp8.items()
                                    if "gated_mlp_kernelILb0ELb1E" in n},
+                                  6, True),
+        "ffn int4 tensor cores": ({n: u for n, u in mlp4.items()
+                                   if "gated_mlp_kernelILb1ELb1E" in n},
                                   6, True),
         "gated int8 one row": ({n: u for n, u in mlp8.items()
                                 if "gated_gemv_kernelILb0ELb0E" in n}, 1,
                                False),
         "gated int4 one row": ({n: u for n, u in mlp4.items()
-                                if "gated_gemv_kernel" in n}, 1, False),
+                                if "gated_gemv_kernelILb1ELb0E" in n}, 1,
+                               False),
         "ffn int8 one row": ({n: u for n, u in mlp8.items()
                               if "gated_gemv_kernelILb0ELb1E" in n}, 1,
+                             False),
+        "ffn int4 one row": ({n: u for n, u in mlp4.items()
+                              if "gated_gemv_kernelILb1ELb1E" in n}, 1,
                              False),
     }
     for what, (uses, n, hmma) in groups.items():
@@ -874,9 +906,19 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
     d, i = s3.output_size, s3.linear_units
     w1, s1 = q4(d, i)
     w2, s2, w2_flat, s2_flat, n_tiles = q4(i, d, tiled=True)
+    tile = fused_mlp.mlp_tile(i)
+    w16_1 = int4_matmul.dequantize_int4(w1, s1).t().contiguous().to(
+        torch.bfloat16)
+    w16_2 = fused_mlp.dequantize_int4_tiled(w2, s2, tile).t().contiguous().to(
+        torch.bfloat16)
     shapes = []
     for m, n in sorted(launches["ffn_int4"].items()):
         x = randn(m, d)
+        plan, _, start = fused_mlp.gated_geometry(
+            m, d, i, sms, tile, (d // 2) // (s1.shape[0] // 2),
+            s2.shape[0] // (i // tile), ffn=True)
+        w2_cut = w2.clone()
+        w2_cut[start:] = 0
         shapes.append(row(
             fused_mlp.ffn_int4, fused_mlp.ffn_int4_plain,
             (x, w1, s1, b1, w2, s2, b2), {
@@ -885,9 +927,19 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
                 "swapped nibble planes of w2": (x, w1, s1, b1, swap(w2), s2,
                                                 b2),
                 f"w2 packed untiled ({n_tiles} tiles)": (
-                    x, w1, s1, b1, w2_flat, s2_flat, b2)}, 2e-2, n,
+                    x, w1, s1, b1, w2_flat, s2_flat, b2),
+                f"W2 packed rows of the last slot ({start}:) zeroed": (
+                    x, w1, s1, b1, w2_cut, s2, b2)}, 2e-2, n,
             nbytes4(d, i) + nbytes4(i, d) + 4 * (i + d) + m * d * (2 + 4),
-            2 * 2 * m * d * i, shape=[m, d, i]))
+            2 * 2 * m * d * i, repeat=True, shape=[m, d, i],
+            cluster_cols_slots=plan,
+            library_chain_ms=time_ms(lambda x=x: F.linear(
+                F.silu(F.linear(x, w16_1, b16_1)), w16_2, b16_2)),
+            library_call="F.linear(x, W1_bf16, b1), silu, F.linear(., "
+                         "W2_bf16, b2) (cuBLAS, weights dequantized once); "
+                         "library_ms null: no one call"))
+        del w2_cut
+    del w16_1, w16_2
     out.append(("ffn_int4", "taste_spokenlm_tpu_torch/csrc/fused_mlp_int4.cu",
                 "taste_spokenlm_tpu/ops/pallas/fused_mlp.py:312",
                 "rel err <= 2e-2 of max|plain| (bf16 activation)", shapes))
@@ -1340,11 +1392,11 @@ def device_profile(run, wall_s: float):
     # one kernel name per counted launch ("|" joins parts that must all
     # appear): matmul_int4 is int4_kernel or int4_kernel_split; a gated MLP
     # is gated_mlp_kernel<Q4, false, ...> or gated_gemv_kernel<Q4, false>,
-    # ffn_int8 the same kernels <false, true, ...>; a rel-pos forward is
+    # an FFN the same kernels <Q4, true, ...>; a rel-pos forward is
     # fwd_kernel<float> or fwd_kernel_mma, a backward one dq_kernel
     # (dq_kernel<float> or dq_kernel_mma) among its five launches
     expected = {"gated_|<false, true": counts["ffn_int8"],
-                "mlp4_pass1": counts["ffn_int4"],
+                "gated_|<true, true": counts["ffn_int4"],
                 "gated_|<false, false": counts["gated_mlp_int8"],
                 "gated_|<true, false": counts["gated_mlp_int4"],
                 "int4_kernel": counts["matmul_int4"],
@@ -1379,42 +1431,12 @@ class VocabScan:
 def configs():
     """(float layout, {tier: serving layout}) of TasteConfig.full(): the
     serving ones are bench.py:755-811 with BENCH_FUSED_MLP=1, and BENCH_QUANT
-    unset ("int8") or 4 ("int4")."""
+    unset ("int8") or 4 ("int4") (quant.serving_config)."""
     cfg = TasteConfig.full()
     cfg = cfg.replace(flow=cfg.flow.replace(fused_dit_serving=True),
                       hift=cfg.hift.replace(pallas_conv=True))
-    sd, lm = cfg.speech_decoder, cfg.spoken_lm
-    return cfg, {tier: cfg.replace(
-        spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
-            quantized_serving=tier, quantized_embed_serving="int4head",
-            fused_qkv_serving=True, fused_mlp_serving=True)),
-        speech_decoder=sd.replace(llm=sd.llm.replace(
-            quantized_serving=tier, fused_qkv_serving=True,
-            fused_mlp_serving=True))) for tier in ("int8", "int4")}
-
-
-def serving_state_dict(sd: dict, cfg: TasteConfig, tier: str) -> dict:
-    """The float model's state dict -> the serving layout's, by the port's
-    quantizer: LoRA merged, the Llama in the tier with the int4 tied head,
-    fused qkv and separate MLP projections (int4: down_proj packed per
-    tile); the S3 llm stack (int4: w_2 per tile) and its head likewise."""
-    lm_pre, llm_pre = "spoken_lm.language_model.", "speech_decoder.llm."
-    head = "speech_decoder.llm_decoder"
-    sub = lambda pre: {k[len(pre):]: v for k, v in sd.items()  # noqa: E731
-                       if k.startswith(pre)}
-    lora = cfg.spoken_lm.lora
-    lm = quant.quantize_llama_params(
-        quant.merge_lora_params(sub(lm_pre), lora.alpha, lora.r),
-        include_embed=True, mode=tier, embed_head_mode="int4head",
-        fuse_qkv=True, fused_mlp=True)
-    enc = quant.quantize_encoder_params(sub(llm_pre), mode=tier, fuse_qkv=True,
-                                        fused_mlp=True)
-    out = {k: v for k, v in sd.items()
-           if not k.startswith((lm_pre, llm_pre, head + "."))}
-    out.update({lm_pre + k: v for k, v in lm.items()})
-    out.update({llm_pre + k: v for k, v in enc.items()})
-    out.update(quant.quantize_dense_leaf(sd, head, tier))
-    return out
+    return cfg, {tier: quant.serving_config(cfg, tier)
+                 for tier in ("int8", "int4")}
 
 
 def build_model(dev, gen, tier: str):
@@ -1429,7 +1451,8 @@ def build_model(dev, gen, tier: str):
         sd = random_state_dict(float_model, gen)
         del float_model
         model = TasteForCausalLM(cfg, **kw)
-    model.load_state_dict(serving_state_dict(sd, cfg, tier), strict=True)
+    model.load_state_dict(quant.serving_state_dict(sd, cfg, tier),
+                          strict=True)
     return model.eval(), cfg, n_float
 
 
@@ -1586,6 +1609,28 @@ def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
     mm[(1, cfg.speech_decoder.llm_output_size,
         cfg.speech_decoder.speech_token_size + 1)] = n_s3
     return {"gated_mlp_int4": gated, "ffn_int4": per_s3, "matmul_int4": mm}
+
+
+def fidelity_launches(cfg: TasteConfig, fidelity: dict) -> dict:
+    """{kernel: launches} of the serving fidelity path, from each row's run:
+    a quantized row launches its tier's completion kernels (its own joint
+    decode steps and S3 length), the fused DiT over its synthesis and over
+    the flow on the f32 row's tokens, and the kernel convs once; the f32
+    and bf16 rows and the float twins launch none of the kernels."""
+    total: dict = {}
+    for name, row in fidelity["rows"].items():
+        tier = {"int8": "int8", "int4": "int4",
+                serving_fidelity.REACH: "int8"}.get(name)
+        if tier is None:
+            continue
+        runs = merge_launches(
+            quantized_launches(cfg, tier, row["jd_steps"], row["s3_tokens"]),
+            {"fused_dit_block": dit_shapes(cfg, row["syn_mel_frames"]),
+             "conv1d_same": conv_shapes(cfg)},
+            {"fused_dit_block": dit_shapes(cfg, row["mel_frames"])})
+        for kernel, shapes in runs.items():
+            total[kernel] = total.get(kernel, 0) + sum(shapes.values())
+    return total
 
 
 def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
@@ -2167,6 +2212,36 @@ def main(argv=None) -> int:
         greedy["int4"][0][:n] == greedy["int8"][0][:n]).float().mean().item(),
         "note": "information, not a gate"})
     del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the serving tiers' fidelity gate ----
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    fidelity = serving_fidelity.main(["--reach"])
+    counts = launch_counts()
+    check_counts(counts, fidelity_launches(cfg, fidelity), "serving_fidelity")
+    for name, row in fidelity["rows"].items():
+        check(name == "f32" or all(row.get(m) is not None or m.startswith(
+            "jd_taste") for m in serving_fidelity.METRICS),
+              f"serving_fidelity: {name} lacks a metric: {row}")
+    log({"serving_fidelity": {
+        **fidelity, "wall_s": time.perf_counter() - t0,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": counts}})
+    log(f"serving fidelity: JAX's trajectory floors "
+        f"{'held' if fidelity['floors_pass'] else 'missed'} "
+        f"{json.dumps(fidelity['floor_misses'])}")
+    # each serving row computes what its own weights define: its logits
+    # and its flow's field stay within TWIN_TOL of its float twin's, and
+    # the reach row (doubled W2 scales) leaves them
+    check(not fidelity["twin_misses"],
+          f"serving_fidelity: rows leave their float twins: "
+          f"{fidelity['twin_misses']}")
+    check(bool(fidelity["reach"]["caught_by"]),
+          "serving_fidelity: the gate is blind: the int8 row with doubled "
+          "S3 W2 scales stays within every tolerance of its twin")
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -7,9 +7,11 @@
 //   y = act(x W1 s1 + b1) W2 s2 + b2
 // (W1, s1 in the places of Wg, sg; W2, s2 in those of Wd, sd): one
 // first-projection matrix, b1 and the activation applied where the ranks
-// meet, s2 and b2 where the output is written (the last block's
+// meet, s2 (int8) and b2 where the output is written (the last block's
 // slot-ordered sum where the plan leaves several slots).  Built for int8
-// (csrc/fused_mlp.cu); the int4 FFN is not built on them yet.
+// (csrc/fused_mlp.cu) and int4 (csrc/fused_mlp_int4.cu: W2 packed per
+// tile as Wd, each (plane, group) partial scaled on its own, so no s2 at
+// the end).
 //
 // Bound on the H100: the weight bytes (the Llama-1B MLP: 50.3 MB int8, or
 // 25.2 MB of nibbles and 1.6 MB of scales, about 15 / 8 us at 3.35 TB/s;
@@ -313,7 +315,6 @@ __device__ __forceinline__ float4 quad(const float (&acc)[NC][2][4], int j,
 // in the second (HC = 128 NC2)
 template <bool Q4, bool FFN, int NC1, int NC2>
 __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
-  static_assert(!(Q4 && FFN), "the int4 FFN is not built on this kernel");
   constexpr int MATS = FFN ? 1 : 2;           // first-projection matrices
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -351,8 +352,11 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
   float* pf = reinterpret_cast<float*>(ring);            // [MATS][MT][TS], later
   float* sc = reinterpret_cast<float*>(ring + ring_bytes);
   // int8: sc = sg [TS], su [TS], sd [HC] (FFN: s1 [TS], b1 [TS], s2 [HC],
-  // b2 [HC]); int4 (staged): sc1 [2 mats][2 planes][NG1][TS], sc2 [2
-  // planes][NG2][HC]
+  // b2 [HC]); int4 (staged): sc1 [MATS][2 planes][NG1][TS], sc2 [2
+  // planes][NG2][HC] (FFN: then b1 [TS], b2 [HC])
+  float* sc2 = sc + MATS * 2 * g.NG1 * TS;                // int4
+  float* b1_4 = sc2 + 2 * g.NG2 * HC;                     // int4 FFN
+  float* b2_4 = b1_4 + TS;
   const int g1_first = Q4 ? fdiv(kb, g.gin) : 0;
   const int g2_first = Q4 ? fdiv(r0, g.gmid) : 0;
 
@@ -463,7 +467,7 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
       cp_async16(sc + i, ok ? src : g.sg, ok ? 16 : 0);
     }
   } else if (g.sc_smem) {
-    for (int row = 0, mat = 0, p = 0, gi = 0; row < 2 * 2 * g.NG1; ++row) {
+    for (int row = 0, mat = 0, p = 0, gi = 0; row < MATS * 2 * g.NG1; ++row) {
       const int grp = g1_first + gi;                   // row (mat, p, gi)
       for (int jc = tid * 4; jc < TS; jc += THREADS * 4) {
         const bool ok = grp < g.n_g1 && col_ok(jc);
@@ -476,7 +480,6 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
         if (++p == 2) p = 0, ++mat;
       }
     }
-    float* sc2 = sc + 2 * 2 * g.NG1 * TS;
     for (int row = 0; row < 2 * g.NG2; ++row) {        // (plane, group)
       const int p = row >= g.NG2, grp = g2_first + row - p * g.NG2;
       for (int jc = tid * 4; jc < HC; jc += THREADS * 4) {
@@ -484,6 +487,16 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
         const float* src =
             g.sd + (long long)(t4 * g.SPT + p * (g.SPT / 2) + grp) * g.H + hb + jc;
         cp_async16(sc2 + row * HC + jc, ok ? src : g.sd, ok ? 16 : 0);
+      }
+    }
+    if (FFN) {        // b1 of the cluster's two runs, b2 of the rank's columns
+      for (int jc = tid * 4; jc < TS; jc += THREADS * 4) {
+        const bool ok = col_ok(jc);
+        cp_async16(b1_4 + jc, ok ? g.b1 + w1_col(jc) : g.b1, ok ? 16 : 0);
+      }
+      for (int jc = tid * 4; jc < HC; jc += THREADS * 4) {
+        const bool ok = hb + jc < g.H;
+        cp_async16(b2_4 + jc, ok ? g.b2 + hb + jc : g.b2, ok ? 16 : 0);
       }
     }
   }
@@ -512,8 +525,14 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
   auto flush1 = [&](int grp) {
     flush(tg, lg, hg, [&](int j, int q) { return s1(0, 0, grp, j, q); },
           [&](int j, int q) { return s1(0, 1, grp, j, q); });
-    flush(tu, lu, hu, [&](int j, int q) { return s1(1, 0, grp, j, q); },
-          [&](int j, int q) { return s1(1, 1, grp, j, q); });
+    if constexpr (!FFN)
+      flush(tu, lu, hu, [&](int j, int q) { return s1(1, 0, grp, j, q); },
+            [&](int j, int q) { return s1(1, 1, grp, j, q); });
+  };
+  // int4 FFN: b1 of cluster column jc
+  auto b1_at = [&](int jc) -> float {
+    if (g.sc_smem) return b1_4[jc];
+    return col_ok(jc) ? __ldg(g.b1 + w1_col(jc)) : 0.f;
   };
   const int a_row = (lane & 7) + 8 * ((lane >> 3) & 1), a_col = 8 * (lane >> 4);
   for (int step = 0; step < n1; ++step) {
@@ -550,16 +569,20 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
         if (lo == kg0 && hi == kg0 + 16) {
           step_products<true>(lg, a_lo, bg, 0);
           step_products<true>(hg, a_hi, bg, 4);
-          step_products<true>(lu, a_lo, bu, 0);
-          step_products<true>(hu, a_hi, bu, 4);
+          if constexpr (!FFN) {
+            step_products<true>(lu, a_lo, bu, 0);
+            step_products<true>(hu, a_hi, bu, 4);
+          }
         } else {
           uint32_t ml[4], mh[4];
           mask_a(ml, a_lo, lo - kg0, hi - kg0, t);
           mask_a(mh, a_hi, lo - kg0, hi - kg0, t);
           step_products<true>(lg, ml, bg, 0);
           step_products<true>(hg, mh, bg, 4);
-          step_products<true>(lu, ml, bu, 0);
-          step_products<true>(hu, mh, bu, 4);
+          if constexpr (!FFN) {
+            step_products<true>(lu, ml, bu, 0);
+            step_products<true>(hu, mh, bu, 4);
+          }
         }
         if (hi == (grp + 1) * g.GIN || hi == ke) flush1(grp);
         lo = hi;
@@ -580,8 +603,9 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
         *reinterpret_cast<float4*>(pf + (MT + row) * TS + jc) = quad(tu, j, h);
     }
   cluster.sync();
-  // a = bf16(act(g) u) (FFN: bf16(act(g s1 + b1))), row m, columns [j0, j0
-  // + 4): the ranks' partials added in rank order
+  // a = bf16(act(g) u) (FFN: bf16(act(g s1 + b1)), int4 g already
+  // scaled), row m, columns [j0, j0 + 4): the ranks' partials added in rank
+  // order
   for (int i = tid; i < rows * (TS / 4); i += THREADS) {
     const int m = i / (TS / 4), j0 = (i % (TS / 4)) * 4;
     float4 pa[MAX_CLUSTER], pb[MAX_CLUSTER];
@@ -608,8 +632,9 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
     for (int q = 0; q < 4; ++q) {
       float gval = gv[q], uval = uv[q];
       if (FFN) {
-        arow[j0 + q] = __float2bfloat16(
-            act_fn(gval * sc[j0 + q] + sc[TS + j0 + q], g.act));
+        const float pre = Q4 ? gval + b1_at(j0 + q)
+                             : gval * sc[j0 + q] + sc[TS + j0 + q];
+        arow[j0 + q] = __float2bfloat16(act_fn(pre, g.act));
         continue;
       }
       if (!Q4) {
@@ -631,8 +656,7 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
   if constexpr (Q4) { zero(lo2); zero(hi2); }
   auto s2 = [&](int p, int grp, int j, int q) -> float {
     const int jc = (warp + 8 * j) * 16 + 4 * t + q;
-    if (g.sc_smem)
-      return sc[2 * 2 * g.NG1 * TS + (p * g.NG2 + grp - g2_first) * HC + jc];
+    if (g.sc_smem) return sc2[(p * g.NG2 + grp - g2_first) * HC + jc];
     if (hb + jc >= g.H) return 0.f;
     return __ldg(g.sd + (long long)(t4 * g.SPT + p * (g.SPT / 2) + grp) * g.H +
                  hb + jc);
@@ -687,15 +711,20 @@ __global__ void __launch_bounds__(THREADS, 1) gated_mlp_kernel(const Args g) {
 
   // ---- the clusters' partials: one slot each, summed by the last block ----
   const float* sd_s = sc + 2 * TS;     // int8: sd of the rank's columns
-  const float* b2_s = sd_s + HC;       // FFN: b2 of the rank's columns
-  // int8: v sd (FFN: v s2 + b2), the output of columns [jc, jc + 4)
+  // int8: v sd (FFN: v s2 + b2), int4: v (FFN: v + b2), the output of
+  // columns [jc, jc + 4)
   auto finish = [&](float4& v, int jc) {
-    if (Q4) return;
-    v.x *= sd_s[jc]; v.y *= sd_s[jc + 1];
-    v.z *= sd_s[jc + 2]; v.w *= sd_s[jc + 3];
+    if (!Q4) {
+      v.x *= sd_s[jc]; v.y *= sd_s[jc + 1];
+      v.z *= sd_s[jc + 2]; v.w *= sd_s[jc + 3];
+    }
     if (FFN) {
-      v.x += b2_s[jc]; v.y += b2_s[jc + 1];
-      v.z += b2_s[jc + 2]; v.w += b2_s[jc + 3];
+      float b[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        b[q] = !Q4 ? sd_s[HC + jc + q]
+               : g.sc_smem ? b2_4[jc + q] : __ldg(g.b2 + hb + jc + q);
+      v.x += b[0]; v.y += b[1]; v.z += b[2]; v.w += b[3];
     }
   };
 #pragma unroll
@@ -806,9 +835,10 @@ __device__ __forceinline__ void flush16(float (&tot)[16], float (&lo)[16],
 // columns.  The host sets the lane grids (g.CL1 x g.RL1, g.CL2 x g.RL2).
 template <bool Q4, bool FFN>
 __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
-  static_assert(!(Q4 && FFN), "the int4 FFN is not built on this kernel");
   constexpr int MATS = FFN ? 1 : 2;   // first-projection matrices
-  constexpr int U1 = 4, U = 8;   // rows of a lane in flight: phase 1, 2
+  // rows of a lane in flight, phase 1 and 2: the int4 FFN's lanes walk 3
+  // rows at the S3 shape, and its shorter unrolled loops are faster there
+  constexpr int U1 = Q4 && FFN ? 2 : 4, U = Q4 && FFN ? 4 : 8;
   extern __shared__ __align__(128) uint8_t smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
@@ -835,7 +865,9 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
 
   // shared memory: x [XK], the row lanes' sums [MATS][RL1][TSM] (phase 2:
   // [RL2][HCM]), every rank's partials [C][MATS][TSM], a [TSM], the scales
-  // (int8: sg, su [TSM] and sd [HCM]; FFN: s1, b1 [TSM], s2, b2 [HCM])
+  // (int8: sg, su [TSM] and sd [HCM]; FFN: s1, b1 [TSM], s2, b2 [HCM];
+  // int4: [MATS][2 planes][NG1][TSM], FFN: b1 [TSM], then [2][NG2][HCM],
+  // FFN: b2 [HCM])
   float* xs = reinterpret_cast<float*>(smem);
   float* red = xs + XK;
   const int RED = MATS * g.RL1 * TSM > g.RL2 * HCM ? MATS * g.RL1 * TSM
@@ -843,7 +875,9 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
   float* pf = red + RED;
   float* av = pf + MATS * TSM * C;
   float* sc = av + TSM;
-  float* sc2 = sc + (Q4 ? 2 * 2 * g.NG1 * TSM : 2 * TSM);
+  float* b1s = sc + (Q4 ? MATS * 2 * g.NG1 * TSM : TSM);
+  float* sc2 = Q4 ? b1s + (FFN ? TSM : 0) : sc + 2 * TSM;
+  float* b2s = sc2 + (Q4 ? 2 * g.NG2 * HCM : HCM);
   const int g1_first = Q4 ? fdiv(kb, g.gin) : 0;
   const int g2_first = Q4 ? fdiv(p0, g.gmid) : 0;
 
@@ -879,9 +913,14 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
       if (FFN) cp_async16(sc2 + HCM + jc, g.b2 + hb + jc, 16);
     }
   } else {
-    for (int row = 0, mat = 0, p = 0, gi = 0; row < 2 * 2 * g.NG1; ++row) {
+    // only the groups that the rank's rows (ng1) and the cluster's rows of
+    // Wd (ng2) touch: each staged copy costs time at decode; NG1 / NG2 size
+    // the room for the most
+    const int ng1 = ke > kb ? fdiv(ke - 1, g.gin) - g1_first + 1 : 0;
+    const int ng2 = fdiv(p0 + R - 1, g.gmid) - g2_first + 1;
+    for (int row = 0, mat = 0, p = 0, gi = 0; row < MATS * 2 * g.NG1; ++row) {
       const int grp = g1_first + gi;               // row (mat, p, gi)
-      for (int jc = tid * 4; jc < TSc; jc += THREADS * 4) {
+      for (int jc = tid * 4; gi < ng1 && jc < TSc; jc += THREADS * 4) {
         const bool ok = grp < g.n_g1;
         const float* src = (mat ? g.su : g.sg) +
                            (long long)(p * g.n_g1 + grp) * g.I + w1_col(jc & ~15) +
@@ -896,12 +935,20 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     // Wd's groups: global packed-row group gg, in tile gg / (SPT/2)
     for (int row = 0; row < 2 * g.NG2; ++row) {        // (plane, group)
       const int p = row >= g.NG2, gg = g2_first + row - p * g.NG2;
+      if (gg - g2_first >= ng2) continue;
       const int t = fdiv(gg, g.spt2);
       const bool ok = gg < g.n_g2;
       const float* src = g.sd + (long long)(t * g.SPT + p * (g.SPT / 2) + gg -
                                             t * (g.SPT / 2)) * g.H + hb;
       for (int jc = tid * 4; jc < HCc; jc += THREADS * 4)
         cp_async16(sc2 + row * HCM + jc, ok ? src + jc : g.sd, ok ? 16 : 0);
+    }
+    if (FFN) {        // b1 of the cluster's columns (its 16-row chunks'
+                      // runs), b2 of the rank's
+      for (int jc = tid * 4; jc < TSc; jc += THREADS * 4)
+        cp_async16(b1s + jc, g.b1 + w1_col(jc & ~15) + (jc & 15), 16);
+      for (int jc = tid * 4; jc < HCc; jc += THREADS * 4)
+        cp_async16(b2s + jc, g.b2 + hb + jc, 16);
     }
   }
   cp_commit();
@@ -931,8 +978,9 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     const int gi = gp - g1_first;
     flush16(tg, lg, hg, sc + (0 * g.NG1 + gi) * TSM + jc1,
             sc + (1 * g.NG1 + gi) * TSM + jc1);
-    flush16(tu, lu, hu, sc + (2 * g.NG1 + gi) * TSM + jc1,
-            sc + (3 * g.NG1 + gi) * TSM + jc1);
+    if constexpr (!FFN)
+      flush16(tu, lu, hu, sc + (2 * g.NG1 + gi) * TSM + jc1,
+              sc + (3 * g.NG1 + gi) * TSM + jc1);
   };
   for (int r = r1; r < r1e; r += U1) {
     uint4 wg[U1], wu[U1];
@@ -954,8 +1002,10 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
         const float xh = xs[KC + r + u - kb];
         fma16<true>(lg, xl, wg[u], 0);
         fma16<true>(hg, xh, wg[u], 4);
-        fma16<true>(lu, xl, wu[u], 0);
-        fma16<true>(hu, xh, wu[u], 4);
+        if constexpr (!FFN) {
+          fma16<true>(lu, xl, wu[u], 0);
+          fma16<true>(hu, xh, wu[u], 4);
+        }
       } else {
         fma16<false>(tg, xl, wg[u], 0);
         if constexpr (!FFN) fma16<false>(tu, xl, wu[u], 0);
@@ -1009,7 +1059,7 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
     }
     float a;
     if (FFN) {
-      a = act_fn(gs * sc[j] + sc[TSM + j], g.act);
+      a = act_fn(Q4 ? gs + b1s[j] : gs * sc[j] + b1s[j], g.act);
     } else {
       if (!Q4) {
         gs *= sc[j];
@@ -1067,10 +1117,13 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
   for (int j = tid; j < HCc; j += THREADS) {
     float v = 0.f;
     for (int l = 0; l < g.RL2; ++l) v += red[l * HCM + j];
-    if (g.S == 1)
-      g.out[hb + j] = Q4 ? v : FFN ? v * sc2[j] + sc2[HCM + j] : v * sc2[j];
-    else
+    if (g.S == 1) {
+      if (!Q4) v *= sc2[j];
+      if (FFN) v += b2s[j];
+      g.out[hb + j] = v;
+    } else {
       g.part[(long long)s * g.H + hb + j] = v;
+    }
   }
   if (g.S > 1) {
     __shared__ int last;
@@ -1101,7 +1154,7 @@ __global__ void __launch_bounds__(THREADS) gated_gemv_kernel(const Args g) {
           tot.z *= sc2[jc + 2]; tot.w *= sc2[jc + 3];
         }
         if (FFN) {
-          const float* b2 = sc2 + HCM + jc;
+          const float* b2 = b2s + jc;
           tot.x += b2[0]; tot.y += b2[1]; tot.z += b2[2]; tot.w += b2[3];
         }
         *reinterpret_cast<float4*>(g.out + hb + jc) = tot;
@@ -1158,7 +1211,11 @@ inline bool derive(Args& a, bool q4, bool ffn) {
   if (ring < mats * MT * (size_t)a.TS * 4) ring = mats * MT * (size_t)a.TS * 4;
   size_t base = MT * (xk * 2 + PAD) + MT * (2 * (size_t)a.TS + PAD) +
                 wd_ring + ring;
-  size_t scales = q4 ? 4 * (2 * 2 * (size_t)a.NG1 * a.TS + 2 * (size_t)a.NG2 * a.HC)
+  // the scales (int4: sized by the first projection's matrices) and the
+  // FFN's biases
+  const size_t biases = ffn ? a.TS + (size_t)a.HC : 0;
+  size_t scales = q4 ? 4 * (mats * 2 * a.NG1 * (size_t)a.TS +
+                            2 * (size_t)a.NG2 * a.HC + biases)
                      : 4 * (2 * (size_t)a.TS + (ffn ? 2 : 1) * (size_t)a.HC);
   a.sc_smem = !q4 || base + scales <= SMEM_MAX;
   a.smem = base + (a.sc_smem ? scales : 0);
@@ -1191,7 +1248,9 @@ inline bool derive(Args& a, bool q4, bool ffn) {
     // x, the row lanes' sums, every rank's partials and a, the scales
     const size_t red = mats * (size_t)a.RL1 * a.TS > (size_t)a.RL2 * a.HC
                            ? mats * (size_t)a.RL1 * a.TS : (size_t)a.RL2 * a.HC;
-    const size_t sc = q4 ? 2 * 2 * (size_t)a.NG1 * a.TS + 2 * (size_t)a.NG2 * a.HC
+    const size_t sc = q4 ? mats * 2 * (size_t)a.NG1 * a.TS +
+                               2 * (size_t)a.NG2 * a.HC +
+                               (ffn ? a.TS + (size_t)a.HC : 0)
                          : 2 * (size_t)a.TS + (ffn ? 2 : 1) * (size_t)a.HC;
     a.sc_smem = 1;
     a.smem = 4 * (xk + red + (mats * a.C + 1) * (size_t)a.TS + sc);

@@ -18,15 +18,14 @@ in packed row t*bi/2 + r the low nibble is I-row t*bi + r and the high
 nibble I-row t*bi + bi/2 + r, and tile t's scales are rows [t*spt,
 (t+1)*spt), low-plane groups first.  Byte-identical to the JAX package's.
 
-Bound on the H100: the weight bytes at decode.  The gated MLPs and
-`ffn_int8` are one CUDA launch a call (csrc/gated_mlp.cuh, the FFN as its
-compile-time FFN variant: thread-block clusters over I, the clusters'
-partials summed in a fixed order by the last block to arrive; one row of x
-on the SIMT units, more rows on the tensor cores); `gated_plan` picks the
-route, the cluster, its columns and the number of clusters, and the
-kernel's library says how many partial sums that plan leaves
-(`gated_geometry`).  `ffn_int4` is two CUDA launches a call (a split over I
-and a deterministic second pass).  `launches` counts one per call.
+Bound on the H100: the weight bytes at decode.  All four are one CUDA
+launch a call (csrc/gated_mlp.cuh, the FFNs as its compile-time FFN
+variant: thread-block clusters over I, the clusters' partials summed in a
+fixed order by the last block to arrive; one row of x on the SIMT units,
+more rows on the tensor cores); `gated_plan` picks the route, the cluster,
+its columns and the number of clusters, and the kernel's library says how
+many partial sums that plan leaves (`gated_geometry`).  `launches` counts
+one per call.
 """
 
 from __future__ import annotations
@@ -52,11 +51,12 @@ _SIGNATURE = {
     "tsk_gated_geometry_int8": (_build.I,) * 6 + (_build.P,),
     "tsk_ffn_int8": (_build.P,) * 10 + (_build.I,) * 7 + (_build.P,),
     "tsk_ffn_geometry_int8": (_build.I,) * 6 + (_build.P,)}
-SUBR4 = 16                # packed second-projection rows per subtile (int4)
+TILE4 = 32                # the int4 kernels take tile % TILE4 == 0
 _SIGNATURE4 = {
     "tsk_gated_mlp_int4": (_build.P,) * 10 + (_build.I,) * 10 + (_build.P,),
     "tsk_gated_geometry_int4": (_build.I,) * 9 + (_build.P,),
-    "tsk_ffn_int4": (_build.P,) * 9 + (_build.I,) * 8 + (_build.P,)}
+    "tsk_ffn_int4": (_build.P,) * 10 + (_build.I,) * 10 + (_build.P,),
+    "tsk_ffn_geometry_int4": (_build.I,) * 9 + (_build.P,)}
 # the gated kernels (csrc/gated_mlp.cuh): rows of x a block (tensor
 # cores), the cluster sizes and columns of I a cluster they take
 GATED_ROWS = 16
@@ -216,7 +216,8 @@ def _geometry(dims: Tuple[int, ...], plan: Tuple[int, int, int],
         err = fn(*dims, *plan, ctypes.addressof(out))
     else:
         lib = _build.load("fused_mlp_int4", _SIGNATURE4)
-        err = lib.tsk_gated_geometry_int4(*dims, *plan, ctypes.addressof(out))
+        fn = lib.tsk_ffn_geometry_int4 if ffn else lib.tsk_gated_geometry_int4
+        err = fn(*dims, *plan, ctypes.addressof(out))
     if err:
         raise ValueError(f"gated MLP: the kernel cannot take plan {plan} "
                          f"at (M, H, I, ...) = {dims}")
@@ -229,16 +230,13 @@ def gated_geometry(m: int, h: int, i: int, sms: int,
                    ) -> Tuple[Tuple[int, int, int], int, int]:
     """(plan, S, row) of a gated kernel's call on a CUDA device with `sms`
     SMs (int8; int4 where `tile` is given, with the first projection's
-    packed rows a scale row and Wd's scale rows a tile; `ffn`: the int8
+    packed rows a scale row and Wd's scale rows a tile; `ffn`: the
     conformer FFN on the same kernels, one first-projection matrix): the
     plan `gated_plan` picks, and as the kernel derives them from it
-    (tsk_gated_geometry_int8 / _int4, tsk_ffn_geometry_int8) the S slots of
-    its partial sums and the first row of Wd (W2) that slot S - 1 owns
-    (int4: a packed row of the per-tile packing).  Raises where the kernel
-    cannot take the plan."""
-    if ffn and tile is not None:
-        raise ValueError("gated_geometry: the int4 FFN does not run on the "
-                         "gated kernels")
+    (tsk_gated_geometry_int8 / _int4, tsk_ffn_geometry_int8 / _int4) the S
+    slots of its partial sums and the first row of Wd (W2) that slot S - 1
+    owns (int4: a packed row of the per-tile packing).  Raises where the
+    kernel cannot take the plan."""
     plan = gated_plan(m, h, i, sms, tile)
     dims = (m, h, i) if tile is None else (m, h, i, tile, group_in, spt)
     slots, row, _ = _geometry(dims, plan, ffn)
@@ -402,9 +400,9 @@ def _int4_geometry(fn_name, x, w1, s1, w2, s2, tile):
     if w1.shape != (h // 2, i) or w2.shape != (i // 2, h) or h % 2:
         raise ValueError(f"{fn_name}: packed weights {tuple(w1.shape)} and "
                          f"{tuple(w2.shape)} do not fit x [..., {h}]")
-    if h % 4 or i % tile or tile % (2 * SUBR4) or i % 4:
+    if h % 4 or i % tile or tile % TILE4:
         raise ValueError(f"{fn_name}: needs H % 4 == 0, I % tile == 0 and "
-                         f"tile % {2 * SUBR4} == 0 (H={h}, I={i}, tile={tile})")
+                         f"tile % {TILE4} == 0 (H={h}, I={i}, tile={tile})")
     n_in, n_tiles = s1.shape[0], i // tile
     if s1.shape != (n_in, i) or n_in % 2 or (h // 2) % (n_in // 2) \
             or s2.dim() != 2 or s2.shape[1] != h or s2.shape[0] % n_tiles:
@@ -416,41 +414,6 @@ def _int4_geometry(fn_name, x, w1, s1, w2, s2, tile):
     if any(t.dtype != torch.uint8 for t in (w1, w2)):
         raise TypeError(f"{fn_name}: packed weights must be uint8")
     return h, i, tile, (h // 2) // (n_in // 2), spt
-
-
-def _unit_rows(m: int, i: int, tile: int, device) -> int:
-    """Packed second-projection rows per pass-1 block: the fewest (a
-    multiple of SUBR4 dividing tile/2, so a block stays in one tile) with
-    about two blocks per SM over all row tiles."""
-    tiles = 1 if m == 1 else -(-m // 8)
-    target = 2 * _build.sm_count(device)
-    half = tile // 2
-    for r in range(SUBR4, half + 1, SUBR4):
-        if half % r == 0 and (i // 2 // r) * tiles <= target:
-            return r
-    return half
-
-
-def _launch_int4(fn_name, c_name, x, args, activation, tile):
-    """Check and launch the int4 FFN; `args` are its six weight, scale and
-    bias tensors in the C function's order: (w1, s1, b1, w2, s2, b2)."""
-    w1, s1, w2, s2 = args[0], args[1], args[3], args[4]
-    h, i, tile, group_in, spt = _int4_geometry(fn_name, x, w1, s1, w2, s2,
-                                               tile)
-    xm, out = _prepare(fn_name, x, [t for t in args if t.dtype == torch.uint8],
-                       [t for t in args if t.dtype != torch.uint8], activation,
-                       packed=True)
-    m = xm.shape[0]
-    if m:
-        r = _unit_rows(m, i, tile, x.device)
-        part = torch.empty((i // 2 // r, m, h), dtype=torch.float32,
-                           device=x.device)
-        lib = _build.load("fused_mlp_int4", _SIGNATURE4)
-        err = getattr(lib, c_name)(
-            *map(_build.ptr, (xm, *args, part, out)), m, h, i, tile, group_in,
-            spt, r, _ACTS[activation], _build.stream_of(x))
-        _build.check(err, fn_name)
-    return out.reshape(*x.shape[:-1], h), m > 0
 
 
 def gated_mlp_int4(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
@@ -489,17 +452,33 @@ def gated_mlp_int4(x, wg, sg, wu, su, wd, sd, activation: str = "silu",
 
 def ffn_int4(x, w1, s1, b1, w2, s2, b2, activation: str = "swish", tile=None):
     """The int4 conformer FFN, -> [..., D] f32.  CPU tensors take the plain
-    version; CUDA tensors launch csrc/fused_mlp_int4.cu."""
+    version; CUDA tensors launch csrc/fused_mlp_int4.cu (one launch, the
+    gated kernels' FFN variant under `gated_plan`'s plan)."""
     if x.device.type == "cpu":
         return ffn_int4_plain(x, w1, s1, b1, w2, s2, b2, activation, tile)
     if x.device.type != "cuda":
         raise ValueError(f"ffn_int4: unsupported device {x.device}")
     if b1.shape != (w1.shape[1],) or b2.shape != (x.shape[-1],):
         raise ValueError("ffn_int4: biases do not fit")
-    out, launched = _launch_int4("ffn_int4", "tsk_ffn_int4", x,
-                                 (w1, s1, b1, w2, s2, b2), activation, tile)
-    ffn_int4.launches += launched
-    return out
+    d, i, tile, group_in, spt = _int4_geometry("ffn_int4", x, w1, s1, w2, s2,
+                                               tile)
+    xm, out = _prepare("ffn_int4", x, (w1, w2), (s1, b1, s2, b2), activation,
+                       packed=True)
+    m = xm.shape[0]
+    if m:
+        plan, slots, _ = gated_geometry(m, d, i, _build.sm_count(x.device),
+                                        tile, group_in, spt, ffn=True)
+        part, arrivals = _gated_buffers("ffn_int4", m, d, slots, plan[0],
+                                        x.device)
+        lib = _build.load("fused_mlp_int4", _SIGNATURE4)
+        p = _build.ptr
+        err = lib.tsk_ffn_int4(
+            p(xm), p(w1), p(s1), p(b1), p(w2), p(s2), p(b2), _opt_ptr(part),
+            p(out), _opt_ptr(arrivals), m, d, i, tile, group_in, spt,
+            _ACTS[activation], *plan, _build.stream_of(x))
+        _build.check(err, "ffn_int4")
+        ffn_int4.launches += 1
+    return out.reshape(*x.shape[:-1], d)
 
 
 gated_mlp_int4.launches = 0

@@ -24,9 +24,10 @@ from typing import Dict
 
 import torch
 
-from taste_spokenlm_tpu_torch.kernels.fused_mlp import (mlp_tile,
-                                                        quantize_int4_tiled)
-from taste_spokenlm_tpu_torch.kernels.int4_matmul import quantize_int4
+from taste_spokenlm_tpu_torch.kernels.fused_mlp import (
+    dequantize_int4_tiled, mlp_tile, quantize_int4_tiled)
+from taste_spokenlm_tpu_torch.kernels.int4_matmul import (dequantize_int4,
+                                                          quantize_int4)
 
 _PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
          "down_proj")
@@ -188,4 +189,125 @@ def quantize_encoder_params(sd: Dict, mode: str = "int8",
             continue
         tiled = fused_mlp and mode == "int4" and parts[3] == "w_2"
         out.update(quantize_dense_leaf(sd, base, "int4_tiled" if tiled else mode))
+    return out
+
+
+def serving_config(cfg, tier: str):
+    """The serving layout of a float TasteConfig in `tier` ("int8" or
+    "int4"), as bench.py:755-811 builds it with BENCH_FUSED_MLP=1 (and
+    BENCH_QUANT=4 for int4): LoRA merged, the Llama in the tier with the
+    int4 tied head, fused qkv and fused MLPs, the S3 llm stack likewise,
+    fused DiT blocks and the kernel convs."""
+    sd, lm = cfg.speech_decoder, cfg.spoken_lm
+    return cfg.replace(
+        flow=cfg.flow.replace(fused_dit_serving=True),
+        hift=cfg.hift.replace(pallas_conv=True),
+        spoken_lm=lm.replace(use_lora=False, llama=lm.llama.replace(
+            quantized_serving=tier, quantized_embed_serving="int4head",
+            fused_qkv_serving=True, fused_mlp_serving=True)),
+        speech_decoder=sd.replace(llm=sd.llm.replace(
+            quantized_serving=tier, fused_qkv_serving=True,
+            fused_mlp_serving=True)))
+
+
+def serving_state_dict(sd: Dict, cfg, tier: str) -> Dict:
+    """The float TasteForCausalLM's state dict -> the layout of
+    serving_config(., tier) (`cfg`): LoRA merged, the Llama in the tier
+    with the int4 tied head, fused qkv and separate MLP projections (int4:
+    down_proj packed per tile); the S3 llm stack (int4: w_2 per tile) and
+    its head likewise; every other entry as it is."""
+    lm_pre, llm_pre = "spoken_lm.language_model.", "speech_decoder.llm."
+    head = "speech_decoder.llm_decoder"
+    sub = lambda pre: {k[len(pre):]: v for k, v in sd.items()  # noqa: E731
+                       if k.startswith(pre)}
+    lora = cfg.spoken_lm.lora
+    lm = quantize_llama_params(
+        merge_lora_params(sub(lm_pre), lora.alpha, lora.r),
+        include_embed=True, mode=tier, embed_head_mode="int4head",
+        fuse_qkv=True, fused_mlp=True)
+    enc = quantize_encoder_params(sub(llm_pre), mode=tier, fuse_qkv=True,
+                                  fused_mlp=True)
+    out = {k: v for k, v in sd.items()
+           if not k.startswith((lm_pre, llm_pre, head + "."))}
+    out.update({lm_pre + k: v for k, v in lm.items()})
+    out.update({llm_pre + k: v for k, v in enc.items()})
+    out.update(quantize_dense_leaf(sd, head, tier))
+    return out
+
+
+def float_layout_config(cfg):
+    """The float config whose state dict dequantized_state_dict(., cfg)
+    fills: `cfg` with nothing quantized, fused or run by a kernel, and the
+    Llama's head untied where the layout stores the tied table twice (an
+    int8 embedding table and an int4 head)."""
+    sd, lm = cfg.speech_decoder, cfg.spoken_lm
+    llama = lm.llama
+    return cfg.replace(
+        flow=cfg.flow.replace(fused_dit_serving=False),
+        hift=cfg.hift.replace(pallas_conv=False),
+        spoken_lm=lm.replace(llama=llama.replace(
+            quantized_serving=False, quantized_embed_serving=False,
+            fused_qkv_serving=False, fused_mlp_serving=False,
+            tie_word_embeddings=(llama.tie_word_embeddings
+                                 and not llama.quantized_embed_serving))),
+        speech_decoder=sd.replace(llm=sd.llm.replace(
+            quantized_serving=False, fused_qkv_serving=False,
+            fused_mlp_serving=False)))
+
+
+def dequantized_state_dict(sd: Dict, cfg) -> Dict:
+    """A state dict in the layout of `cfg` (a serving_config, or a float
+    config) -> the f32 state dict of float_layout_config(cfg) holding the
+    same weights: each quantized kernel the float matrix it stands for
+    (int8 per channel, int4 per group and, for a fused MLP's second
+    projection, per tile), fused qkv kernels and biases split, the int8
+    embedding table and the int4 head apart; every other float entry cast
+    to f32."""
+    llama = cfg.spoken_lm.llama
+    q_out = llama.num_attention_heads * llama.head_dim
+    kv_out = llama.num_key_value_heads * llama.head_dim
+    splits = {"qkv_proj": (("q_proj", "k_proj", "v_proj"),
+                           (q_out, kv_out, kv_out)),
+              "linear_qkv": (("linear_q", "linear_k", "linear_v"), None)}
+    out: Dict = {}
+
+    def put(pre: str, leaf: str, t: torch.Tensor) -> None:
+        base, _, name = pre.rpartition(".")
+        if name not in splits:
+            out[f"{pre}.{leaf}"] = t.contiguous()
+            return
+        names, sizes = splits[name]
+        parts = t.split(sizes) if sizes else t.chunk(len(names))
+        for n, part in zip(names, parts):
+            out[f"{base}.{n}.{leaf}"] = part.contiguous()
+
+    kernels = ("base_q", "base_q4", "kernel_q", "kernel_q4")
+    scale_of = lambda pre, leaf: (  # noqa: E731
+        f"{pre}.{'base_scale' if leaf[0] == 'b' else 'scale'}")
+    used = {scale_of(*k.rpartition(".")[::2]) for k in sd
+            if k.rpartition(".")[2] in kernels}
+    for key, val in sd.items():
+        pre, _, leaf = key.rpartition(".")
+        if leaf in kernels:
+            scale = sd[scale_of(pre, leaf)]
+            if not leaf.endswith("q4"):
+                w = val.float() * scale.float()[None, :]
+            elif pre.endswith(("mlp.down_proj", "feed_forward.w_2")):
+                w = dequantize_int4_tiled(val, scale, mlp_tile(2 * val.shape[0]))
+            else:
+                w = dequantize_int4(val, scale)
+            put(pre, "weight", w.T)
+        elif key in used or leaf in ("embedding_scale", "head_scale4"):
+            continue
+        elif leaf == "embedding_q":
+            out[f"{pre}.weight"] = (val.float()
+                                    * sd[f"{pre}.embedding_scale"][:, None])
+        elif leaf == "head_q4":
+            head = pre.rpartition(".")[0] + ".lm_head.weight"
+            out[head] = dequantize_int4(val, sd[f"{pre}.head_scale4"]).T \
+                .contiguous()
+        elif leaf == "bias" and pre.endswith("linear_qkv"):
+            put(pre, "bias", val.float())
+        else:
+            out[key] = val.float() if val.is_floating_point() else val
     return out

@@ -1,10 +1,11 @@
-"""Time the gated int8 / int4 MLP kernels and the int8 FFN that runs on
-them under candidate plans at the path's shapes, the timings
+"""Time the gated int8 / int4 MLP kernels and the int8 / int4 FFNs that
+run on them under candidate plans at the path's shapes, the timings
 `kernels/fused_mlp.py:gated_plan` is set from.
 
 For each kernel and shape (the gated MLPs at the S3-stack and Llama decode
-steps, M = 1, and the Llama prefill, M = 42; `ffn_int8` at the S3 stack's
-decode step, its 131-row prefill and 40 rows) it prints one JSON line: the
+steps, M = 1, and the Llama prefill, M = 42; `ffn_int8` and `ffn_int4` at
+the S3 stack's decode step, its 131-row prefill and 40 rows) it prints one
+JSON line: the
 median device microseconds of a call (CUDA events after a device sleep, 20 calls after 3
 of warm-up, as chip_smoke.py times a kernel) under every candidate plan
 (cluster, cols, slots) the kernel takes, and the plan that `gated_plan`
@@ -42,7 +43,7 @@ from taste_spokenlm_tpu_torch.scripts._variant import held, load_variant
 
 SHAPES = ((1, 1024, 2048), (1, 2048, 8192), (42, 2048, 8192))
 FFN_SHAPES = ((1, 1024, 2048), (131, 1024, 2048), (40, 1024, 2048))
-KERNELS = ("gated_mlp_int8", "gated_mlp_int4", "ffn_int8")
+KERNELS = ("gated_mlp_int8", "gated_mlp_int4", "ffn_int8", "ffn_int4")
 SIMT = ((8, 15), (8, 14), (8, 12), (4, 30), (4, 28), (4, 24), (2, 66),
         (2, 64), (2, 60))
 
@@ -126,18 +127,29 @@ def main(argv=None) -> None:
             with open(opts.out, "a") as f:
                 f.write(line + "\n")
 
-    for m, h, i in FFN_SHAPES if "ffn_int8" in kernels else ():
+    for m, h, i in FFN_SHAPES if {"ffn_int8", "ffn_int4"} & set(kernels) \
+            else ():
         x = torch.randn(m, h, generator=gen, device=dev).to(torch.bfloat16)
-        (w1, s1), (w2, s2) = ((d["base_q"], d["base_scale"]) for d in (
-            quant.quantize_kernel(weights(*shape))
-            for shape in ((h, i), (i, h))))
         b1 = 0.1 * torch.randn(i, generator=gen, device=dev)
         b2 = 0.1 * torch.randn(h, generator=gen, device=dev)
-        ffn = (w1, s1, b1, w2, s2, b2)
-        us = {str(plan): time_plan(plan, fused_mlp.ffn_int8, x, ffn)
-              for plan in candidates(m)}
-        report("ffn_int8", (m, h, i), us, fused_mlp.gated_geometry(
-            m, h, i, sms, ffn=True)[0])
+        tile = fused_mlp.mlp_tile(i)
+        if "ffn_int8" in kernels:
+            (w1, s1), (w2, s2) = ((d["base_q"], d["base_scale"]) for d in (
+                quant.quantize_kernel(weights(*shape))
+                for shape in ((h, i), (i, h))))
+            ffn = (w1, s1, b1, w2, s2, b2)
+            us = {str(plan): time_plan(plan, fused_mlp.ffn_int8, x, ffn)
+                  for plan in candidates(m)}
+            report("ffn_int8", (m, h, i), us,
+                   fused_mlp.gated_plan(m, h, i, sms))
+        if "ffn_int4" in kernels:
+            w1, s1 = int4_matmul.quantize_int4(weights(h, i))
+            w2, s2 = fused_mlp.quantize_int4_tiled(weights(i, h), tile)
+            ffn = (w1, s1, b1, w2, s2, b2)
+            us = {str(plan): time_plan(plan, fused_mlp.ffn_int4, x, ffn)
+                  for plan in candidates(m)}
+            report("ffn_int4", (m, h, i), us,
+                   fused_mlp.gated_plan(m, h, i, sms, tile))
     for m, h, i in SHAPES:
         if not {"gated_mlp_int8", "gated_mlp_int4"} & set(kernels):
             break

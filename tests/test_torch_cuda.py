@@ -472,19 +472,19 @@ def test_gated_mlp_int4_replays_in_a_graph(dev, m):
     _graph_replays(fused_mlp.gated_mlp_int4, x, (wg, sg, wu, su, wd, sd))
 
 
-@pytest.mark.parametrize("kind", ["int8", "int4", "ffn_int8"])
+@pytest.mark.parametrize("kind", ["int8", "int4", "ffn_int8", "ffn_int4"])
 def test_gated_geometry_matches_the_plan(dev, kind):
     """The kernel takes gated_plan's plan at the path's shapes and the tiny
     widths, its slot count (which sizes the partial sums) is the one the
     plan ranks its candidates by, and its last slot starts where the plan's
-    last cluster does (int8: an I row; int4: a packed row); the FFN's too,
-    at its own shapes (the S3 stack's decode step and prefill)."""
+    last cluster does (int8: an I row; int4: a packed row); the FFNs' too,
+    at their own shapes (the S3 stack's decode step and prefill)."""
     sms = _build.sm_count(dev)
-    ffn = kind == "ffn_int8"
+    ffn = kind.startswith("ffn")
     shapes = ([(1, 1024, 2048), (131, 1024, 2048), (40, 1024, 2048)] if ffn
               else GATED_SHAPES)
     for m, h, i in [*shapes, (3, 256, 1024), (5, 64, 128), (2, 32, 64)]:
-        tile = fused_mlp.mlp_tile(i) if kind == "int4" else None
+        tile = fused_mlp.mlp_tile(i) if kind.endswith("int4") else None
         extra = (() if tile is None else
                  (tile, int4_matmul._group(h),
                   tile // int4_matmul._group(tile)))
@@ -509,23 +509,49 @@ def test_gated_geometry_matches_the_plan(dev, kind):
             assert row == i // 2 - tile // 2 + (per_tile - 1) * cols // 2
 
 
-@pytest.mark.parametrize("m,d,i,act", [(1, 1024, 2048, "swish"),
-                                       (131, 1024, 2048, "swish"),
-                                       (7, 256, 1024, "relu"),
-                                       (2, 32, 64, "swish")])
-def test_ffn_int4_matches_plain(dev, m, d, i, act):
-    g = torch.Generator().manual_seed(8)
+def _ffn4(g, d, i, dev):
+    """The conformer FFN's int4 weights, scales and biases (w1, s1, b1, w2,
+    s2, b2), W2 packed per tile, fan-in scaled and seeded."""
     tile = fused_mlp.mlp_tile(i)
     w1, s1 = _q4(g, d, i, dev)
     w2, s2 = _q4(g, i, d, dev, tile)
     b1 = (0.1 * torch.randn(i, generator=g)).to(dev)
     b2 = (0.1 * torch.randn(d, generator=g)).to(dev)
+    return w1, s1, b1, w2, s2, b2
+
+
+# the S3 stack's decode step (M = 1: the SIMT kernel) and its 131-row
+# prefill, rows on either side of the 16-row tiles, a relu FFN over two
+# tiles of W2, a tiny width
+@pytest.mark.parametrize("m,d,i,act", [(1, 1024, 2048, "swish"),
+                                       (40, 1024, 2048, "swish"),
+                                       (131, 1024, 2048, "swish"),
+                                       (256, 1024, 2048, "swish"),
+                                       (7, 256, 1024, "relu"),
+                                       (2, 32, 64, "swish")])
+def test_ffn_int4_matches_plain(dev, m, d, i, act):
+    g = torch.Generator().manual_seed(8)
+    w1, s1, b1, w2, s2, b2 = _ffn4(g, d, i, dev)
     x = torch.randn(m, d, generator=g).to(dev, torch.bfloat16)
     args = (x, w1, s1, b1, w2, s2, b2, act)
     out = fused_mlp.ffn_int4(*args)
     ref = fused_mlp.ffn_int4_plain(*args)
     torch.cuda.synchronize()
     assert _rel(out, ref) <= 2e-2
+    for _ in range(2):          # no float atomics: the same bits every call
+        assert torch.equal(fused_mlp.ffn_int4(*args), out)
+    # the first projection reaches the output: zeroed, it moves it past
+    # the tolerance
+    no_w1 = fused_mlp.ffn_int4(x, torch.zeros_like(w1), *args[2:])
+    assert _rel(no_w1, ref) > 5 * 2e-2
+
+
+@pytest.mark.parametrize("m", [1, 131])
+def test_ffn_int4_replays_in_a_graph(dev, m):
+    g = torch.Generator().manual_seed(24)
+    args = _ffn4(g, 1024, 2048, dev)
+    x = torch.randn(m, 1024, generator=g).to(dev, torch.bfloat16)
+    _graph_replays(fused_mlp.ffn_int4, x, args)
 
 
 def _relpos_inputs(g, b, t, h, dtype, dev):

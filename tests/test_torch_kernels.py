@@ -449,6 +449,47 @@ def test_ffn_int8_plan(m, h, i, sms, plan, slots):
     test_gated_mlp_plan("int8", m, h, i, sms)
 
 
+# ffn_int4 on the gated kernels: (M, H, I, SMs) -> (plan, partial-sum
+# slots, the last slot's first packed row of W2); as test_ffn_int8_plan,
+# W2 packed per tile of mlp_tile(I) = 512 rows (64 at the tiny width)
+@pytest.mark.parametrize("m,h,i,sms,plan,slots,row", [
+    (1, 1024, 2048, 132, (8, 128, 15), 15, 944),
+    (131, 1024, 2048, 132, (2, 256, 0), 8, 896),
+    (1, 1024, 2048, 114, (8, 128, 12), 12, 928),
+    (131, 1024, 2048, 114, (2, 256, 0), 8, 896),
+    (2, 32, 64, 132, (1, 128, 0), 1, 0)])
+def test_ffn_int4_plan(m, h, i, sms, plan, slots, row):
+    """ffn_int4 takes gated_plan's int4 plan: at one row the SIMT kernel on
+    15 clusters of 8 (12 on 114 SMs), each owning a balanced range of the
+    I/32 chunks of 16 packed rows; at 131 rows, where no plan fits in one
+    wave, 2-block clusters over 256 columns of I, two clusters a tile of
+    W2 (144 blocks).  The last slot starts at the packed row the kernel's
+    geometry derives (tsk_ffn_geometry_int4, held equal on the card), and
+    under the per-tile pairing that row's low and high nibbles are the I
+    rows t*tile + r and t*tile + tile/2 + r of one tile t, which also holds
+    every row the slot owns on the tensor cores."""
+    tile = fused_mlp.mlp_tile(i)
+    assert fused_mlp.gated_plan(m, h, i, sms, tile) == plan
+    cluster, cols, simt = plan
+    assert (simt or fused_mlp.gated_clusters(i, cols, tile)) == slots
+    half = tile // 2
+    if simt:
+        chunks = i // 32                       # 16 packed rows each
+        first = 16 * ((slots - 1) * chunks // slots)
+        last = i // 2 - 1
+    else:
+        per_tile = -(-half // (cols // 2))
+        s = slots - 1
+        first = s // per_tile * half + s % per_tile * (cols // 2)
+        last = first + min(cols // 2, half - s % per_tile * (cols // 2)) - 1
+        assert last // half == first // half   # one tile of W2
+    assert first == row and last == i // 2 - 1
+    t, r = divmod(first, half)
+    low, high = t * tile + r, t * tile + half + r
+    assert (low, high) == ((i - tile + r), (i - half + r))
+    test_gated_mlp_plan("int4", m, h, i, sms)
+
+
 def _lop3(a, b, c, lut):
     """PTX lop3.b32 on int64 tensors of 32-bit words: bit j of the result
     is bit ((a_j << 2) | (b_j << 1) | c_j) of lut."""
