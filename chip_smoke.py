@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU: reconstruction, completion in the
-int8 and the int4 serving tiers, the stage-1 training step, and the
-decode-layout tools (profile_lmhead, profile_fusion).
+int8 and the int4 serving tiers, streaming (the chunked synthesis and the
+pipelined completion), the stage-1 training step, and the decode-layout
+tools (profile_lmhead, profile_fusion).
 
     python3 chip_smoke.py
 
@@ -26,8 +27,9 @@ quantizer (quant.py).  In order it:
    no one-row kernel does, and that no kernel of the gated MLPs or of the
    FFNs (their one-row SIMT kernels too) issues an int-to-float conversion
    (I2F);
-3. runs, on the int8 model, the full-width reconstruction (step 4) and a
-   full-width completion (step 5); then frees it, builds the int4 model and
+3. runs, on the int8 model, the full-width reconstruction (step 4), a
+   full-width completion (step 5) and the streaming path (step 5s); then
+   frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, runs the serving
    tiers' fidelity gate (step 6), builds the bf16 training model and runs
    the stage-1 step (step 7); frees that and runs
@@ -61,6 +63,33 @@ quantizer (quant.py).  In order it:
    >= 0.98 of the steps unless the runs part that way at a near-tie of
    the random weights' logits, zeroed Llama MLPs moving those logits past
    the tolerance, and the prefill hidden states differing;
+5s. streaming ("streaming"), on the int8 model, at bench.py:1212-1230's
+   geometry (a first chunk of 16 S3 tokens, then 50 and 446, left context
+   25, crossfade 2, 512 S3 steps; joint-decode chunks of 16 then 48,
+   synthesis from 2 words) with step 5's sampler, taste rows and 128-token
+   asr buffers.  StreamingSynthesizer and CompletionStreamer run directly
+   (TasteEngine's token buckets and fixed chunks do not fit that
+   geometry); TasteEngine's tokenize, reconstruct, synthesize_stream and
+   complete_stream run once each at the engine's own.  Checks: the counted synthesis
+   stream and pipelined stream each launch ffn_int8, fused_dit_block,
+   conv1d_same (and gated_mlp_int8, matmul_int4) exactly as the chunks
+   they ran imply (`stream_launches`: prefill rows, executed S3 and joint
+   steps, none in a history replay, each window's DiT and conv shapes);
+   one seed gives one token stream; the stream's tokens equal
+   synthesize_from_taste's on one drawn S3 gumbel; finite chunks, the
+   total length within 2 spf a chunk of floor(n mpt) spf and continuous
+   seams (tests/test_streaming.py:190-201); in the pipelined stream
+   n_words never falls, the last chunk has jd_done and the committed
+   tokens are in the vocabulary; a stream resumed after its first chunk
+   within LOGIT_TOL of the uninterrupted stream's S3 logits over the next
+   chunk (and out of it when its history is replayed out of order);
+   the flow's mel - z with kernels within 2e-2 of the plain
+   versions' at each window size (32, 134, 816 frames); the engine's
+   tokenize agrees with the unpadded tower (>= 0.99), its streams end
+   finite and its reconstruction gives finite audio.  It prints stream_first_s (median of 3), ttfa_p50_s (median of
+   5), the pipelined wall and RTF (median of 3, with their runs), the
+   non-streaming TTFA (the median of three offline completions' decode +
+   synthesis walls), the path's wall and peak memory;
 6. the int4 completion: step 5 on the int4 model, where the fused MLPs are
    gated_mlp_int4 / ffn_int4 and every other projection (Llama qkv / o, S3
    qkv / out, the S3 head) runs matmul_int4; it must launch the int8 MLPs
@@ -120,10 +149,11 @@ quantizer (quant.py).  In order it:
    weight bytes' HBM bound (the tools' weights make x overflow to inf /
    NaN after a few layers; the timing does not depend on the values);
 9. holds each kernel against its plain PyTorch version at the shapes the
-   five counted runs gave it, and times kernel, plain version and a
-   library call that computes the same function (CUDA events, median of 20
-   after warm-up).  Tolerances: flash attention (float32) 1e-4 abs, as both
-   sides do true f32 arithmetic in another summation order, (bf16) 2e-2 of
+   counted runs gave it (the streaming windows' DiT and conv shapes
+   too), and times kernel, plain version and a library call that
+   computes the same function (CUDA events, median of 20 after warm-up).
+   Tolerances: flash attention (float32) 1e-4 abs, as both sides do
+   true f32 arithmetic in another summation order, (bf16) 2e-2 of
    max|plain|; V rolled by one key and the values of the ragged last key
    tile scaled by 100 must each move it past 5x the tolerance; the bf16 conv
    2e-2 relative to the plain version's f32-accumulated result, as both
@@ -175,7 +205,8 @@ quantizer (quant.py).  In order it:
     python3 chip_smoke.py --profile
 
 adds torch.profiler traces of one reconstruction and of its flow, in each
-tier one joint decode and one synthesis, and one training step: the
+tier one joint decode and one synthesis, one pipelined stream and one
+training step: the
 device's busy time, its idle share of the wall time, the kernels with the
 most device time, and whether the trace holds every launch that the
 kernels' counters saw (for information only: a trace that misses a launch
@@ -203,6 +234,7 @@ import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch import quant
 from taste_spokenlm_tpu_torch.config import TasteConfig
+from taste_spokenlm_tpu_torch.frontend import streaming
 from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               flash_attention, fused_dit,
                                               fused_mlp, int4_matmul,
@@ -217,6 +249,8 @@ from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
+from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
+from taste_spokenlm_tpu_torch.serving.server import TasteEngine
 from taste_spokenlm_tpu_torch.scripts import (profile_fusion, profile_lmhead,
                                               serving_fidelity)
 from taste_spokenlm_tpu_torch.train import optim, train_step
@@ -459,13 +493,14 @@ def flash_shapes(cfg: TasteConfig, n_frames: int, b: int = B,
             w.encoder_layers}
 
 
-def dit_shapes(cfg: TasteConfig, mel_len: int):
-    """{(T, valid keys): launches} of the fused DiT block: the U-Net halves
-    T once per down block but the last; 2B rows per call (CFG)."""
+def dit_shapes(cfg: TasteConfig, mel_len: int, t_mel: int = MEL_LEN_MAX):
+    """{(T, valid keys): launches} of the fused DiT block in one flow
+    inference over `t_mel` frames, `mel_len` of them valid: the U-Net
+    halves T once per down block but the last; 2B rows per call (CFG)."""
     f = cfg.flow
     inner = f.estimator_num_heads * f.estimator_attention_head_dim
     n_ch = len(f.estimator_channels)
-    ts, valids = [MEL_LEN_MAX], [mel_len]
+    ts, valids = [t_mel], [mel_len]
     for _ in range(n_ch - 1):
         ts.append((ts[-1] + 1) // 2)
         valids.append((valids[-1] + 1) // 2)
@@ -484,11 +519,12 @@ def dit_shapes(cfg: TasteConfig, mel_len: int):
     return {k: v * f.n_timesteps for k, v in per_call.items()}
 
 
-def conv_shapes(cfg: TasteConfig):
-    """{(C, T, K, D): launches} of conv1d_same in HiFT's ResBlocks."""
+def conv_shapes(cfg: TasteConfig, t_mel: int = MEL_LEN_MAX):
+    """{(C, T, K, D): launches} of conv1d_same in HiFT's ResBlocks over
+    `t_mel` mel frames (the kernel takes T >= 4096 only)."""
     h = cfg.hift
     shapes = {}
-    t = MEL_LEN_MAX
+    t = t_mel
     for i, (u, k) in enumerate(zip(h.upsample_rates, h.upsample_kernel_sizes)):
         ch = h.base_channels // (2 ** (i + 1))
         t = (t - 1) * u + k - 2 * ((k - u) // 2)
@@ -1639,7 +1675,8 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
     repeat and the greedy kernels-against-plain checks (and, with
     `profile`, traces of one joint decode and one synthesis).  ->
     ({kernel: {shape: launches}} and the launch counts of the counted run,
-    the greedy text ids with kernels, their number of tokens)."""
+    the greedy text ids with kernels, their number of tokens, and the
+    counted run's llm indices and joint decode)."""
     complete(model, cfg, x, lm, scfg, tables, gen)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1743,7 +1780,355 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
                 x["speaker_embeds"], taste, ids, lens, words,
                 max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX,
                 generator=gen), walls["synthesis_s"])})
-    return launches, counts, tok_k["llm_token_ids"][0], n
+    return launches, counts, tok_k["llm_token_ids"][0], n, (idx, dec)
+
+
+# ---------------------------------------------------------------------------
+# streaming: the chunked synthesis and the pipelined completion
+# ---------------------------------------------------------------------------
+
+# bench.py:1212-1230: a first chunk of 16 S3 tokens, then 50 and 446, 25
+# tokens of left context, a crossfade of 2; the joint decode in chunks of
+# 16, then 48, synthesis from 2 words on
+STREAM = dict(chunk_tokens=50, left_ctx_tokens=25, crossfade_tokens=2,
+              first_chunk_tokens=16, chunk_schedule=(50, 446),
+              max_speech_steps=MAX_SPEECH)
+PIPELINE = dict(jd_first_chunk=16, jd_chunk=48, min_start_words=2)
+MIN_STREAM_AUDIO_S = 0.5   # a pipelined stream's least audio (bench.py:1313)
+
+
+def stream_launches(cfg: TasteConfig, model, ran: dict, jd: bool) -> dict:
+    """{kernel: {shape: launches}} of one stream, from what it ran
+    (the "ran" record its chunks carry): per S3 prefill the 131 prefix rows through every
+    layer's ffn_int8, one row per executed S3 step, none in a history
+    replay (512 rows, past FUSED_MLP_MAX_ROWS: the unfused math); per
+    vocoder window the fused DiT over its mel frames and the kernel convs
+    at its lengths; with `jd`, per joint step the tied head's matmul_int4
+    and one row of every Llama layer's gated_mlp_int8, and the 42-row
+    prefill once."""
+    s3, llama = cfg.speech_decoder.llm, cfg.spoken_lm.llama
+    out = {"ffn_int8": {1: s3.num_blocks * ran["s3_steps"],
+                        B * (3 + SYN_ASR): s3.num_blocks * ran["s3_prefills"]},
+           "fused_dit_block": {}, "conv1d_same": {}}
+    flow = model.voice_generator.flow
+    for mw, n_tok in ran["windows"]:
+        valid = int(flow.mel_lengths(torch.tensor(n_tok)).clamp(max=mw))
+        out = merge_launches(out, {
+            "fused_dit_block": dit_shapes(cfg, valid, mw),
+            "conv1d_same": conv_shapes(cfg, mw)})
+    if jd:
+        h, i = llama.hidden_size, llama.intermediate_size
+        out["gated_mlp_int8"] = {
+            (1, h, i): llama.num_hidden_layers * ran["jd_steps"],
+            (B * (1 + T_TOK + cfg.spoken_lm.delay), h, i):
+                llama.num_hidden_layers * ran["jd_prefills"]}
+        out["matmul_int4"] = {(1, h, llama.vocab_size): ran["jd_steps"]}
+    return {k: {s: n for s, n in v.items() if n} for k, v in out.items()}
+
+
+def seam_check(chunks, spf: int, mpt: float, what: str) -> dict:
+    """tests/test_streaming.py:190-201 on the stream's wav: finite chunks,
+    a length within 2 spf a chunk of floor(n mpt) spf, and near each seam
+    a first difference within 5x the largest one away from the seams."""
+    for c in chunks:
+        check(bool(np.isfinite(c["wav"]).all()), f"{what}: a non-finite chunk")
+    wav = np.concatenate([c["wav"] for c in chunks], axis=1)
+    n = sum(c["n_new"] for c in chunks)
+    expect = int(np.floor(n * mpt)) * spf
+    check(abs(wav.shape[1] - expect) <= 2 * spf * len(chunks),
+          f"{what}: {wav.shape[1]} samples for {n} tokens, expected {expect}")
+    d = np.abs(np.diff(wav[0]))
+    seams = np.cumsum([c["wav"].shape[1] for c in chunks])[:-1]
+    interior = np.ones(len(d), bool)
+    for sm in seams:
+        interior[max(0, sm - 4):sm + 4] = False
+    base = float(d[interior].max())
+    worst = max((float(d[max(0, sm - 4):sm + 4].max()) for sm in seams),
+                default=0.0)
+    check(base > 0 and worst <= 5.0 * base + 1e-6,
+          f"{what}: a seam jumps {worst}, 5x the interior's {base}")
+    return {"tokens": n, "samples": wav.shape[1], "chunks": len(chunks),
+            "seam_max_diff": worst, "interior_max_diff": base}
+
+
+def recorded_s3_chunk(model, state, steps: int):
+    """stream_decode_chunk, recording the S3 logits of every step."""
+    logits = []
+    hook = model.speech_decoder.llm_decoder.register_forward_hook(
+        lambda mod, args, out: logits.append(out.float()))
+    try:
+        tokens, state = model.stream_decode_chunk(state, steps)
+    finally:
+        hook.remove()
+    return tokens, state, torch.stack(logits)
+
+
+def resume_check(model, syn_in, gumbel):
+    """A stream resumed after its first chunk (re-prefill + the replay of
+    its 16 tokens) against the uninterrupted stream, over the next chunk
+    of 50: the S3 logits on their shared history, relative to max |logit|
+    (the replay writes K / V through cuBLAS and the unfused FFN, the steps
+    through the one-row kernels: bf16 rounding apart, not bit for bit); and,
+    as the check's reach, the first step resumed from the same tokens
+    replayed out of order (rolled by one)."""
+    spk, taste, ids, lens, words = syn_in
+    fc, c = STREAM["first_chunk_tokens"], STREAM["chunk_tokens"]
+    state = model.stream_synth_init(spk, taste, ids, lens, words, MAX_SPEECH,
+                                    {"gumbel": gumbel})
+    first, state = model.stream_decode_chunk(state, fc)
+    tok_u, _, lg_u = recorded_s3_chunk(model, state, c)
+    aue = model.spoken_lm.get_audio_embeds_from_taste(model._cb(), lens,
+                                                      words, taste)
+
+    def resume(committed):
+        hist = torch.zeros((B, MAX_SPEECH), dtype=torch.long,
+                           device=spk.device)
+        hist[:, :fc] = committed.clamp(min=0)
+        return recorded_s3_chunk(model, model.speech_decoder
+                                 .generate_stream_resume(
+                                     spk, aue, lens, ids, lens, hist, fc,
+                                     max_steps=MAX_SPEECH, gumbel=gumbel), c)
+    tok_r, _, lg_r = resume(first)
+    # the check's reach: the committed tokens replayed out of order move
+    # the first resumed step's logits past the tolerance
+    lg_x = resume(first.roll(1, dims=1))[2]
+    reach = ((lg_x[0] - lg_u[0]).abs().max() / lg_u[0].abs().max()).item()
+    steps = min(len(lg_u), len(lg_r))
+    parted = (tok_u[0, :steps] != tok_r[0, :steps]).nonzero()
+    shared = steps if len(parted) == 0 else int(parted[0]) + 1
+    rel = ((lg_r[:shared] - lg_u[:shared]).abs().max()
+           / lg_u[:shared].abs().max()).item()
+    agree = (tok_u[0, :steps] == tok_r[0, :steps]).float().mean().item()
+    return {"logit_rel_err": rel, "shared_steps": shared,
+            "token_agreement": agree, "rolled_history_rel_err": reach}
+
+
+def window_parity(model, cfg: TasteConfig, tokens, spk, gen) -> dict:
+    """The flow over one window of each size the stream vocodes (its first
+    16, 75 and 471 tokens at 32, 134 and 816 frames): mel - z with kernels
+    against the plain versions for one start noise z."""
+    flow = model.voice_generator.flow
+    mpt = streaming.mel_per_token(cfg.flow)
+    lc = STREAM["left_ctx_tokens"]
+    out = {}
+    for n_tok in (STREAM["first_chunk_tokens"],) + tuple(
+            c + lc for c in STREAM["chunk_schedule"]):
+        mw = int(np.ceil(n_tok * mpt)) + 4
+        if n_tok == STREAM["first_chunk_tokens"]:
+            check(mw == streaming.StreamingSynthesizer(
+                model, **STREAM)._geometry(n_tok)[3], "first window size")
+        win = tokens[:, :n_tok].clamp(min=0)
+        lengths = torch.full((B,), win.shape[1], device=spk.device)
+        z = torch.randn((B, mw, cfg.flow.output_size), generator=gen,
+                        device=spk.device)
+        mel_k = flow.inference(win, lengths, spk, mw, z=z)[0]
+        model.set_use_kernels(False)
+        mel_p = flow.inference(win, lengths, spk, mw, z=z)[0]
+        model.set_use_kernels(True)
+        valid = flow.mel_lengths(lengths).clamp(max=mw)
+        rel = increment_err(mel_k, mel_p, z, valid)[1]
+        check(rel <= 2e-2, f"streaming: flow mel rel err {rel} > 2e-2 on "
+                           f"mel - z at a {mw}-frame window")
+        out[mw] = rel
+    return out
+
+
+@torch.no_grad()
+def streaming_path(model, cfg: TasteConfig, x, lm, scfg, tables, gen, run,
+                   profile: bool):
+    """The streaming path on the int8 model, at the bench's geometry
+    (STREAM, PIPELINE) with the completion's taste rows, sampler and 128-
+    token asr buffers: StreamingSynthesizer and CompletionStreamer driven
+    directly, as TasteEngine's token buckets (16 / 32 / 64) and its fixed
+    chunking do not fit that geometry; TasteEngine's own entry points run
+    once each at its geometry.  -> ([{kernel: {shape: launches}}] and
+    [launch counts], one for each counted stream)."""
+    idx, dec = run
+    dev = idx.device
+    spk = x["speaker_embeds"]
+    taste, ids, lens, words = synth_batch(cfg, dec, dev)
+    syn_in = (spk, taste, ids, lens, words)
+    pipe_in = (spk, idx, lm["llm_token_ids"], lm["llm_token_lengths"],
+               lm["llm_word_ids"], ids, words)
+    syn = streaming.StreamingSynthesizer(model, **STREAM)
+    pipe = streaming.CompletionStreamer(model, scfg, tables, **STREAM,
+                                        **PIPELINE)
+    mpt = streaming.mel_per_token(cfg.flow)
+    vocab = cfg.speech_decoder.speech_token_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+
+    def drain(streamer, *args, **kw):
+        t0 = time.perf_counter()
+        chunks = list(streamer.stream(*args, **kw))
+        return chunks, time.perf_counter() - t0
+
+    def first_chunk_s(streamer, *args, **kw):
+        t0 = time.perf_counter()
+        it = streamer.stream(*args, **kw)
+        first = next(it)
+        dt = time.perf_counter() - t0
+        it.close()
+        check(first["n_new"] > 0, "streaming: an empty first chunk")
+        return dt
+
+    # warm-up (cuBLAS plans at the windows' shapes), then the counted
+    # stream of the same seed: the same tokens
+    warm, _ = drain(syn, 7, *syn_in)
+    reset_launch_counts()
+    chunks, syn_wall = drain(syn, 7, *syn_in)
+    syn_counts = launch_counts()
+    syn_ran = chunks[-1]["ran"]
+    syn_launches = stream_launches(cfg, model, syn_ran, jd=False)
+    check_counts(syn_counts, {k: sum(v.values())
+                              for k, v in syn_launches.items()},
+                 "streaming synthesis")
+    tok = np.concatenate([c["tokens"] for c in chunks], axis=1)
+    check(np.array_equal(tok, np.concatenate([c["tokens"] for c in warm],
+                                             axis=1)),
+          "streaming: one seed gave two token streams")
+    check(chunks[-1]["is_last"], "streaming: the last chunk is not last")
+    spf = int(np.prod(cfg.hift.upsample_rates)) * cfg.hift.istft_hop_len
+    syn_seams = seam_check(chunks, spf, mpt, "streaming synthesis")
+
+    # the stream against synthesize_from_taste on one drawn S3 gumbel
+    gumbel = gumbel_noise((MAX_SPEECH, B, vocab + 1), gen, dev)
+    offline = model.synthesize_from_taste(*syn_in,
+                                          max_speech_steps=MAX_SPEECH,
+                                          mel_len_max=MEL_LEN_MAX,
+                                          gumbel=gumbel)
+    drawn, _ = drain(syn, 7, *syn_in, draws={"s3_gumbel": gumbel})
+    tok_d = np.concatenate([c["tokens"] for c in drawn], axis=1)
+    n_off = int(offline["speech_token_lengths"][0])
+    off = offline["speech_token_ids"][0, :n_off].cpu().numpy()
+    check(np.array_equal(tok_d[tok_d >= 0], off),
+          f"streaming: the stream's {int((tok_d >= 0).sum())} tokens differ "
+          f"from synthesize_from_taste's {n_off} on one S3 gumbel")
+
+    stream_firsts = [first_chunk_s(syn, 20 + i, *syn_in) for i in range(3)]
+
+    # the pipelined completion: a warm-up, the counted stream, first audio
+    # five times and the whole stream three times
+    drain(pipe, 30, *pipe_in, max_steps=LM_STEPS)
+    reset_launch_counts()
+    pchunks, _ = drain(pipe, 31, *pipe_in, max_steps=LM_STEPS)
+    pipe_counts = launch_counts()
+    pipe_ran = pchunks[-1]["ran"]
+    pipe_launches = stream_launches(cfg, model, pipe_ran, jd=True)
+    check_counts(pipe_counts, {k: sum(v.values())
+                               for k, v in pipe_launches.items()},
+                 "pipelined completion")
+    check(bool(pchunks) and pchunks[-1]["is_last"] and pchunks[-1]["jd_done"],
+          "pipelined: the stream did not end with the joint decode done")
+    n_words = [c["n_words"] for c in pchunks]
+    check(n_words == sorted(n_words), f"pipelined: n_words fell: {n_words}")
+    ptok = np.concatenate([c["tokens"] for c in pchunks], axis=1)
+    live = ptok[ptok >= 0]
+    check(live.size > 0 and bool((live < vocab).all()),
+          "pipelined: committed tokens outside the speech vocabulary")
+    pipe_seams = seam_check(pchunks, spf, mpt, "pipelined completion")
+    ttfa = [first_chunk_s(pipe, 40 + i, *pipe_in, max_steps=LM_STEPS)
+            for i in range(5)]
+    full = [drain(pipe, 50 + i, *pipe_in, max_steps=LM_STEPS)
+            for i in range(3)]
+    walls_e2e = [w for _, w in full]
+    audio = [sum(c["wav"].shape[1] for c in ch) / cfg.hift.sampling_rate
+             for ch, _ in full]
+    rtfs = [w / a for w, a in zip(walls_e2e, audio)]
+    check(min(audio) > MIN_STREAM_AUDIO_S,
+          f"pipelined: degenerate streams {audio} s")
+    # the same request served offline: first audio after the whole joint
+    # decode and the whole synthesis, three times
+    offline_walls = [complete(model, cfg, x, lm, scfg, tables, gen)[3]
+                     for _ in range(3)]
+    offline_ttfa = [w["joint_decode_s"] + w["synthesis_s"]
+                    for w in offline_walls]
+
+    resume = resume_check(model, syn_in, gumbel)
+    check(resume["logit_rel_err"] <= LOGIT_TOL,
+          f"streaming: a resumed stream's S3 logits {resume['logit_rel_err']} "
+          f"from the uninterrupted stream's (relative), > {LOGIT_TOL}")
+    check(resume["rolled_history_rel_err"] > LOGIT_TOL,
+          "streaming: the resume check is blind: a history replayed out of "
+          f"order moves the logits only {resume['rolled_history_rel_err']}")
+    windows = window_parity(model, cfg, torch.from_numpy(tok).to(dev), spk,
+                            gen)
+
+    # TasteEngine's entry points at its own geometry (token buckets 16 / 32
+    # / 64, chunks of 50, 128 S3 steps)
+    engine = TasteEngine(model, cfg)
+    engine._tables = tables
+    asr = x["asr_token_ids"][0].tolist()
+    asr_words = x["asr_word_ids"][0].tolist()
+    got = engine.tokenize(x["audio_features"][0].cpu().numpy(), asr,
+                          asr_words)
+    ref = model.audio_tower(x["audio_features"], x["asr_token_ids"],
+                            x["asr_token_lengths"], x["asr_word_ids"]
+                            )["quantized_indices"][0].cpu().numpy()
+    # the engine pads the 40 tokens to its 64-token bucket
+    tok_agree = float((got == ref).mean()) if got.shape == ref.shape else 0.0
+    check(tok_agree >= 0.99, f"engine: tokenize agrees {tok_agree} with the "
+                             "unpadded tower, < 0.99")
+    n_taste = max(int(dec["num_taste_words"][0]), 1)
+    e_syn = list(engine.synthesize_stream(
+        taste[0, :n_taste].cpu().numpy(), asr, asr_words,
+        spk[0].cpu().numpy(), seed=3))
+    e_pipe = list(engine.complete_stream(
+        lm["llm_token_ids"][0].tolist(), lm["llm_word_ids"][0].tolist(),
+        idx[0].cpu().numpy(), ids[0, :64].tolist(), words[0, :64].tolist(),
+        spk[0].cpu().numpy(), {k_: v for k_, v in scfg._asdict().items()
+                               if k_ != "delay"}, seed=3))
+    for what, out in (("synthesize_stream", e_syn),
+                      ("complete_stream", e_pipe)):
+        check(bool(out) and out[-1][1] and all(
+            np.isfinite(c[0]).all() for c in out),
+            f"engine: {what} gave no finite stream ending in is_last")
+    e_wav, e_sr, e_tok, e_rtf = engine.reconstruct(
+        x["audio_features"][0].cpu().numpy(), asr, asr_words,
+        spk[0].cpu().numpy(), 128, 3)
+    check(e_tok > 0 and e_sr == cfg.hift.sampling_rate and e_wav.size > 0
+          and bool(np.isfinite(e_wav).all()),
+          f"engine: reconstruct gave {e_tok} tokens, {e_wav.size} samples "
+          f"at {e_sr} Hz")
+
+    result = {
+        "stream_first_s": statistics.median(stream_firsts),
+        "stream_first_s_runs": stream_firsts,
+        "ttfa_p50_s": statistics.median(ttfa), "ttfa_runs_s": ttfa,
+        "pipelined_wall_s": statistics.median(walls_e2e),
+        "pipelined_wall_runs_s": walls_e2e,
+        "pipelined_audio_s": statistics.median(audio),
+        "pipelined_rtf": statistics.median(rtfs),
+        "pipelined_rtf_spread": [min(rtfs), max(rtfs)],
+        "nonstreaming_ttfa_s": statistics.median(offline_ttfa),
+        "nonstreaming_ttfa_runs_s": offline_ttfa,
+        "synthesis_stream_wall_s": syn_wall,
+        "synthesis": {**syn_seams, "ran": syn_ran},
+        "pipelined": {**pipe_seams, "ran": pipe_ran, "n_words": n_words,
+                      "first_chunk_tokens": pchunks[0]["n_new"]},
+        "offline_tokens_equal": True, "s3_tokens": n_off,
+        "resume": resume, "window_mel_rel_err": windows,
+        "engine": {"tokenize_agreement": tok_agree,
+                   "synthesize_stream_chunks": len(e_syn),
+                   "complete_stream_chunks": len(e_pipe),
+                   "complete_stream_words": e_pipe[-1][3],
+                   "reconstruct_tokens": e_tok,
+                   "reconstruct_samples": int(e_wav.size),
+                   "reconstruct_rtf": e_rtf},
+        "path_wall_s": time.perf_counter() - t_path,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {"synthesis": syn_counts, "pipelined": pipe_counts}}
+    log({"streaming": result})
+    log(f"streaming: first audio {result['stream_first_s']:.3f} s "
+        f"(synthesis), {result['ttfa_p50_s']:.3f} s (pipelined completion) "
+        f"against {result['nonstreaming_ttfa_s']:.3f} s non-streaming; "
+        f"pipelined RTF {result['pipelined_rtf']:.3f}")
+    if profile:
+        log({"pipelined_device_profile": device_profile(
+            lambda: drain(pipe, 50, *pipe_in, max_steps=LM_STEPS),
+            walls_e2e[0])})
+    return [syn_launches, pipe_launches], [syn_counts, pipe_counts]
 
 
 # ---------------------------------------------------------------------------
@@ -2077,10 +2462,11 @@ def merge_launches(*paths: dict) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also trace one reconstruction and, in each tier, "
-                         "one joint decode and one synthesis with "
-                         "torch.profiler (device busy time, idle share, top "
-                         "kernels; adds a few minutes)")
+                    help="also trace one reconstruction, in each tier "
+                         "one joint decode and one synthesis, and one "
+                         "pipelined stream with torch.profiler (device "
+                         "busy time, idle share, top kernels; adds a few "
+                         "minutes)")
     opts = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2202,11 +2588,16 @@ def main(argv=None) -> int:
             log({"int4_model_init_s": time.perf_counter() - t0,
                  "serving_bytes": sum(t.numel() * t.element_size() for t in
                                       model.state_dict().values())})
-        launches, counts, ids, n = completion_path(
+        launches, counts, ids, n, run = completion_path(
             model, cfg, tier, x, lm, scfg, tables, gen, n_frames, opts.profile)
         paths.append(launches)
         all_counts.append(counts)
         greedy[tier] = (ids, n)
+        if tier == "int8":
+            launches, counts = streaming_path(
+                model, cfg, x, lm, scfg, tables, gen, run, opts.profile)
+            paths.extend(launches)
+            all_counts.extend(counts)
     n = max(greedy["int8"][1], greedy["int4"][1])
     log({"int4_vs_int8_greedy_text_agreement": (
         greedy["int4"][0][:n] == greedy["int8"][0][:n]).float().mean().item(),
@@ -2277,7 +2668,8 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "the five counted runs (reconstruction, int8 and int4 "
+            "per": "the counted runs (reconstruction, int8 and int4 "
+                   "completion, the streaming synthesis and pipelined "
                    "completion, three stage-1 steps, the decode-layout "
                    "tools): per-launch times x launches; per-shape rows in "
                    "'shapes'",

@@ -5,7 +5,7 @@ Ported: the default pair (`weighted_sum` in, `continue_latent_linear_last`
 out), `simple_sum` and `linear_last`.  At inference the continue-latent
 head's latent is z = mu + sigma and its "logits" are scaled one-hots of
 the nearest residual codebook indices.  The other registry entries are
-ROADMAP.md queue A item 8 (the remaining bridges).
+in ROADMAP.md queue A, "What the earlier slices left".
 """
 
 from __future__ import annotations
@@ -17,8 +17,8 @@ import torch.nn.functional as F
 from taste_spokenlm_tpu_torch.models.quantizer import (
     Codebook, codebook_indices_from_code)
 
-_NOT_PORTED = ("bridge {!r} is not ported yet: ROADMAP.md queue A item 8 "
-               "(the remaining bridges)")
+_NOT_PORTED = ("bridge {!r} is not ported yet: ROADMAP.md queue A, "
+               '"What the earlier slices left"')
 
 
 class WeightedSumFusion(nn.Module):

@@ -12,8 +12,12 @@ The teacher-forced forward (stage-1 training) packs [sos | spk | fused |
 task | S3] raggedly, runs one causal pass of the llm conformer and scores
 the head against [IGNORE x (2 + T) | S3 | EOS] with the label-smoothing CE
 and the top-1 accuracy.  Module names follow the reference
-TasteSpeechDecoder state dict.  `generate_stream_resume` and the concat
-fusions are not ported yet.
+TasteSpeechDecoder state dict.  The concat fusions are not ported yet.
+
+The sampling noise of the AR decode is indexed by the absolute decode
+step (`gumbel` [max_steps, B, V+1] sliced at the state's step), so a
+chunked, a resumed and a one-shot decode read the same draw at the same
+step.
 """
 
 from __future__ import annotations
@@ -165,10 +169,12 @@ class TasteSpeechDecoder(nn.Module):
                              min_token_text_ratio: float = 2.0,
                              max_token_text_ratio: float = 20.0,
                              skip_audio: bool = False,
-                             generator: Optional[torch.Generator] = None
+                             generator: Optional[torch.Generator] = None,
+                             gumbel: Optional[torch.Tensor] = None
                              ) -> Dict[str, Any]:
         """Pack + prefill; returns the stream state for
-        `generate_stream_chunk`."""
+        `generate_stream_chunk`, which draws its noise from `generator` or
+        reads it from `gumbel` [max_steps, B, V+1]."""
         b = asr_token_ids.shape[0]
         dev = asr_token_ids.device
         sos, spk, fused, task, fused_lengths = self.prepare_conditional_embeds(
@@ -200,7 +206,8 @@ class TasteSpeechDecoder(nn.Module):
         min_len = (plen * min_token_text_ratio).to(torch.int32)
         max_len = torch.clamp((plen * max_token_text_ratio).to(torch.int32),
                               max=max_steps)
-        return {"step": 0, "generator": generator, "caches": caches,
+        return {"step": 0, "generator": generator, "gumbel": gumbel,
+                "caches": caches,
                 "hidden": lm_out[:, -1], "done": torch.zeros(
                     (b,), dtype=torch.bool, device=dev),
                 "key_valid": key_valid, "min_len": min_len, "max_len": max_len,
@@ -208,26 +215,33 @@ class TasteSpeechDecoder(nn.Module):
 
     @torch.no_grad()
     def generate_stream_chunk(self, state: Dict[str, Any], chunk_steps: int,
-                              sampling_k: int = 25,
-                              gumbel: Optional[torch.Tensor] = None):
+                              sampling_k: int = 25):
         """Decode up to `chunk_steps` tokens; returns (tokens [B, chunk_steps]
         with -1 after EOS, new state).  Stops early once every row is done.
-        `gumbel` [chunk_steps, B, V+1] overrides the sampling noise."""
+        Step s of the decode reads the state's gumbel[s], whichever chunk
+        runs it, or draws from its generator."""
         cfg = self.config
+        gumbel = state["gumbel"]
         b = state["hidden"].shape[0]
         dev = state["hidden"].device
         eos = cfg.speech_token_size
         tokens = torch.full((b, chunk_steps), -1, dtype=torch.long, device=dev)
         step, hidden, done = state["step"], state["hidden"], state["done"]
         kv = state["key_valid"][:, None, None, :]
+        max_steps = state["key_valid"].shape[1] - state["prefix_max"]
         for i in range(chunk_steps):
             if bool(done.all()):
+                break
+            if step >= max_steps:
+                # every row is past its max_len (<= max_steps): the step
+                # would emit -1 and stop them, with no cache slot to write
+                done = torch.ones_like(done)
                 break
             logits = self.llm_decoder(hidden).float()
             forbid = step < state["min_len"]
             ids = sample(logits, top_k=sampling_k, forbid_eos=forbid,
                          eos_id=eos, generator=state["generator"],
-                         gumbel=None if gumbel is None else gumbel[i])
+                         gumbel=None if gumbel is None else gumbel[step])
             is_eos = ids == eos
             over = step >= state["max_len"]
             stop = done | is_eos | over
@@ -240,6 +254,50 @@ class TasteSpeechDecoder(nn.Module):
             hidden = lm_out[:, 0]
             step += 1
         return tokens, dict(state, step=step, hidden=hidden, done=done)
+
+    @torch.no_grad()
+    def generate_stream_resume(self, speaker_embeds, audio_unit_embeds,
+                               audio_unit_lengths, asr_token_ids,
+                               asr_token_lengths, hist_tokens, hist_len,
+                               max_steps: int = 512,
+                               min_token_text_ratio: float = 2.0,
+                               max_token_text_ratio: float = 20.0,
+                               skip_audio: bool = False,
+                               generator: Optional[torch.Generator] = None,
+                               gumbel: Optional[torch.Tensor] = None
+                               ) -> Dict[str, Any]:
+        """Re-prefill with (possibly extended) text / taste conditioning and
+        replay a committed history `hist_tokens` [B, >= max_steps] of
+        `hist_len` tokens into the KV cache: -> a stream state at step
+        `hist_len`, ready for `generate_stream_chunk`.
+
+        The replay is one multi-token cached decode of the fixed
+        hist[:, :max_steps] rows at index prefix_max; rows past hist_len
+        write slots that the causal mask hides and that each later step
+        overwrites first.  The hidden state is the one after the last
+        committed token (the prefill's when hist_len is 0).  With the same
+        text, resume + chunk continues the uninterrupted stream: the noise
+        is indexed by the absolute step (`gumbel` [max_steps, B, V+1]), or
+        `generator` is the live generator of the stream this one
+        continues."""
+        cfg = self.config
+        state = self.generate_stream_init(
+            speaker_embeds, audio_unit_embeds, audio_unit_lengths,
+            asr_token_ids, asr_token_lengths, max_steps=max_steps,
+            min_token_text_ratio=min_token_text_ratio,
+            max_token_text_ratio=max_token_text_ratio, skip_audio=skip_audio,
+            generator=generator, gumbel=gumbel)
+        hist_len = int(hist_len)
+        hist = hist_tokens[:, :max_steps].long()
+        emb = self.speech_embedding(
+            torch.clamp(hist, 0, cfg.speech_token_size - 1))
+        lm_out, caches = self.llm.decode_step(
+            emb, state["caches"], state["prefix_max"],
+            key_valid=state["key_valid"][:, None, None, :],
+            pos_projs=state["pos_projs"])
+        hidden = (lm_out[:, hist_len - 1] if hist_len > 0
+                  else state["hidden"])
+        return dict(state, caches=caches, hidden=hidden, step=hist_len)
 
     @torch.no_grad()
     def generate(self, speaker_embeds, audio_unit_embeds, audio_unit_lengths,
@@ -255,9 +313,8 @@ class TasteSpeechDecoder(nn.Module):
             asr_token_ids, asr_token_lengths, max_steps=max_steps,
             min_token_text_ratio=min_token_text_ratio,
             max_token_text_ratio=max_token_text_ratio, skip_audio=skip_audio,
-            generator=generator)
+            generator=generator, gumbel=gumbel)
         tokens, _ = self.generate_stream_chunk(state, max_steps,
-                                               sampling_k=sampling_k,
-                                               gumbel=gumbel)
+                                               sampling_k=sampling_k)
         return {"speech_token_ids": tokens,
                 "speech_token_lengths": (tokens >= 0).sum(dim=1)}

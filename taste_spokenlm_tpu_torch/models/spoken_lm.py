@@ -8,12 +8,14 @@ KV-cached joint decode in the modes zero / text / audio / instruct
 branchless sampler (models/sampler.py), and `get_audio_embeds_from_taste`.
 The decode is a Python loop over steps; it stops early once every row is
 done, as the JAX while-loop does.  The teacher-forced forward with its
-losses belongs to training (ROADMAP.md queue A item 8).
+losses belongs to training (ROADMAP.md queue A, "The stage-2 step and the
+teacher-forced spoken LM").
 
 Random draws are Gumbel noise: per step a [B, V] text draw and a
 [B, L, K] taste draw, taken from `generator` or from the `text_gumbel`
-[steps, B, V] / `taste_gumbel` [steps, B, L, K] arguments, and only where
-the sampler samples (top_p > 0).
+[max_steps, B, V] / `taste_gumbel` [max_steps, B, L, K] arguments (step s
+of the decode reads row s, whichever chunk runs it), and only where the
+sampler samples (top_p > 0).
 """
 
 from __future__ import annotations
@@ -76,7 +78,8 @@ class TasteSpokenLM(nn.Module):
         if cfg.audio_embed_conv_mode != "fill_forward":
             raise NotImplementedError(
                 f"audio_embed_conv_mode {cfg.audio_embed_conv_mode!r} is not "
-                "ported yet: ROADMAP.md queue A item 8")
+                "ported yet: ROADMAP.md queue A, "
+                '"What the earlier slices left"')
         self.dtype, self.audio_dim, self.taste_l = dtype, audio_dim, taste_l
         h = cfg.llama.hidden_size
         self.language_model = LlamaModel(
@@ -290,7 +293,7 @@ class TasteSpokenLM(nn.Module):
                     (sampler_cfg.taste_top_p, taste_gumbel,
                      tuple(taste_logits.shape)))):
                 if p > 0:
-                    noise[j] = (given[i].to(dev) if given is not None
+                    noise[j] = (given[step].to(dev) if given is not None
                                 else gumbel_noise(shape, generator, dev))
             sampler, out = sampler_step(st["sampler"], text_logits,
                                         taste_logits, sampler_cfg, tables,
@@ -365,8 +368,11 @@ class TasteSpokenLM(nn.Module):
     def get_audio_embeds_from_taste(self, cb: Codebook, asr_token_lengths,
                                     asr_word_ids, taste_preds):
         """Per-word taste indices [B, Tw, L] onto asr tokens by word id ->
-        embeddings [B, Ta, A], zero past each row's length."""
-        gathered = _take_rows(taste_preds, asr_word_ids.long())
+        embeddings [B, Ta, A], zero past each row's length.  Word ids past
+        Tw (a full-budget asr buffer against a short decode) read the last
+        row, where JAX's gather fills; both lie past the length."""
+        ids = torch.clamp(asr_word_ids.long(), max=taste_preds.shape[1] - 1)
+        gathered = _take_rows(taste_preds, ids)
         emb = codebook_output_from_indices(cb, gathered.clamp(min=0))
         mask = length_mask(asr_token_lengths, asr_word_ids.shape[1])
         return emb * mask[:, :, None]

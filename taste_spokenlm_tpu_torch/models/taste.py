@@ -1,6 +1,7 @@
 """TasteForCausalLM (counterpart of the JAX models/taste.py `extract_vq`,
 `inference_reconstruction`, `vocode`, `generate_completion`,
-`synthesize_from_taste` and the stage-1 `forward_speech_autoencoder`).
+`synthesize_from_taste`, the streaming methods and the stage-1
+`forward_speech_autoencoder`).
 
 Holds the audio tower, the speech decoder, the spoken LM and the voice
 generator.  Reconstruction: wav -> taste -> S3 -> mel -> wav.  Completion:
@@ -8,11 +9,24 @@ generator.  Reconstruction: wav -> taste -> S3 -> mel -> wav.  Completion:
 host's tokenizer round trip, `synthesize_from_taste`.  Training: the
 stage-1 teacher-forced forward (tokenizer + S3 decoder, train/train_step.py)
 is ported; the stage-2 teacher-forced spoken-LM forward, and with it
-reconstruction in mode "SpokenLLM", is not (ROADMAP.md queue A item 11).
+reconstruction in mode "SpokenLLM", is not (ROADMAP.md queue A, "The
+stage-2 step and the teacher-forced spoken LM").
+
+Streaming (`stream_*`, `completion_*`): the S3 decode runs in chunks from
+a stream state, each chunk's window of tokens (left context + the chunk)
+is vocoded on its own, and the joint decode runs in chunks too
+(frontend/streaming.py drives them).  The token history lives on the
+device ([B, max_steps + max(chunk, hist_pad)], zero-padded) with its
+length `hist_len` (an int or a 0-d tensor).
 
 Entry points run on the CUDA device unless the constructor is given
 ``device="cpu"``; without CUDA they raise.  Random draws come from a
-`torch.Generator` or are passed in as tensors.
+`torch.Generator` or are passed in as tensors.  The streaming methods
+take them as three dicts of keyword arguments: `jd_draws` for the joint
+decode (`generator`, `text_gumbel`, `taste_gumbel`, each gumbel indexed by
+the absolute step), `s3_draws` for the S3 decode (`generator`, `gumbel`
+[max_steps, B, V+1] indexed by the absolute step) and `voc_draws` for one
+vocoder window (`generator`, `z`, `source_phase`, `source_noise`).
 """
 
 from __future__ import annotations
@@ -133,7 +147,8 @@ class TasteForCausalLM(nn.Module):
         if mode == "SpokenLLM":
             raise NotImplementedError(
                 "mode 'SpokenLLM' needs the teacher-forced spoken-LM forward: "
-                "ROADMAP.md queue A item 11")
+                'ROADMAP.md queue A, "The stage-2 step and the '
+                'teacher-forced spoken LM"')
         if mode != "SpeechAutoEncoder":
             raise ValueError(mode)
         encoded = self.audio_tower(audio_features, asr_token_ids,
@@ -220,3 +235,180 @@ class TasteForCausalLM(nn.Module):
         return {"speech_token_ids": gen["speech_token_ids"],
                 "speech_token_lengths": gen["speech_token_lengths"],
                 "waveform": wav, "waveform_lengths": wav_lengths}
+
+    # ------------------------------------------------------------------
+    # streaming synthesis (chunked decode + windowed vocoding)
+    # ------------------------------------------------------------------
+
+    @torch.no_grad()
+    def stream_synth_init(self, speaker_embeds, taste_indices_per_word,
+                          asr_token_ids, asr_token_lengths, asr_word_ids,
+                          max_speech_steps: int = 512,
+                          s3_draws: Optional[Dict] = None) -> Dict:
+        """Streaming counterpart of synthesize_from_taste: the fused
+        audio-unit prefix and the S3 prefill -> the decode stream state."""
+        audio_unit_embeds = self.spoken_lm.get_audio_embeds_from_taste(
+            self._cb(), asr_token_lengths, asr_word_ids, taste_indices_per_word)
+        return self.speech_decoder.generate_stream_init(
+            speaker_embeds, audio_unit_embeds, asr_token_lengths,
+            asr_token_ids, asr_token_lengths, max_steps=max_speech_steps,
+            **(s3_draws or {}))
+
+    @torch.no_grad()
+    def stream_decode_chunk(self, state, chunk_steps: int,
+                            sampling_k: int = 25):
+        """(tokens [B, chunk_steps] with -1 after EOS, new stream state)."""
+        return self.speech_decoder.generate_stream_chunk(
+            state, chunk_steps, sampling_k=sampling_k)
+
+    @torch.no_grad()
+    def stream_vocode_window(self, window_tokens, window_lengths,
+                             speaker_embeds, mel_len_max: int,
+                             voc_draws: Optional[Dict] = None):
+        """Flow + HiFT over one token window (left context + new chunk):
+        (wav [B, mel_len_max*256], wav_lengths [B])."""
+        return self.voice_generator(
+            torch.clamp(window_tokens, min=0), window_lengths, speaker_embeds,
+            mel_len_max, **(voc_draws or {}))
+
+    @torch.no_grad()
+    def stream_step(self, state, speaker_embeds, token_hist, hist_len,
+                    chunk_steps: int, window: int, mel_window_max: int,
+                    sampling_k: int = 25,
+                    voc_draws: Optional[Dict] = None) -> Dict:
+        """Decode one S3 chunk and vocode its window.  The chunk's tokens
+        (post-EOS ones as 0) go into `token_hist` at `hist_len` (in place);
+        e = hist_len + n_new, where n_new is the most live tokens of a row;
+        the window [ws, ws + window), ws = max(hist_len - (window -
+        chunk_steps), 0), is vocoded with length e - ws.  The start indices
+        are clamped into the history as JAX's dynamic slices clamp them.
+        -> tokens, state, token_hist, hist_len (e), n_new, win_len [B] (the
+        window's valid tokens, e - ws), wav, done, and steps_run (the decode
+        steps this chunk executed, a host int)."""
+        step0 = int(state["step"])
+        tokens, state = self.speech_decoder.generate_stream_chunk(
+            state, chunk_steps, sampling_k=sampling_k)
+        b, width = token_hist.shape
+        dev = token_hist.device
+        n_new = (tokens >= 0).sum(dim=1).max()
+        hl = torch.as_tensor(hist_len, device=dev).long()
+        start = torch.clamp(hl, 0, width - chunk_steps)
+        cols = (start + torch.arange(chunk_steps, device=dev))[None]
+        token_hist.scatter_(1, cols.expand(b, -1),
+                            torch.clamp(tokens, min=0).to(token_hist.dtype))
+        e = hl + n_new
+        ws = torch.clamp(hl - (window - chunk_steps), min=0)
+        ws = torch.clamp(ws, max=width - window)
+        win = torch.gather(token_hist, 1, (ws + torch.arange(
+            window, device=dev))[None].expand(b, -1))
+        win_len = (e - ws).expand(b)
+        wav, _ = self.stream_vocode_window(win, win_len, speaker_embeds,
+                                           mel_window_max, voc_draws)
+        return {"tokens": tokens, "state": state, "token_hist": token_hist,
+                "hist_len": e, "n_new": n_new, "win_len": win_len, "wav": wav,
+                "done": state["done"],
+                "steps_run": int(state["step"]) - step0}
+
+    @torch.no_grad()
+    def stream_start_step(self, speaker_embeds, taste_indices_per_word,
+                          asr_token_ids, asr_token_lengths, asr_word_ids,
+                          max_speech_steps: int, chunk_steps: int,
+                          window: int, mel_window_max: int,
+                          hist_pad: int = 0, sampling_k: int = 25,
+                          s3_draws: Optional[Dict] = None,
+                          voc_draws: Optional[Dict] = None) -> Dict:
+        """stream_synth_init + the first stream_step.  `hist_pad`: the
+        largest later chunk, which the token history must leave room
+        for."""
+        state = self.stream_synth_init(
+            speaker_embeds, taste_indices_per_word, asr_token_ids,
+            asr_token_lengths, asr_word_ids, max_speech_steps, s3_draws)
+        hist = torch.zeros(
+            (speaker_embeds.shape[0],
+             max_speech_steps + max(chunk_steps, hist_pad)),
+            dtype=torch.long, device=speaker_embeds.device)
+        return self.stream_step(state, speaker_embeds, hist, 0, chunk_steps,
+                                window, mel_window_max, sampling_k, voc_draws)
+
+    @torch.no_grad()
+    def stream_extend_step(self, speaker_embeds, taste_indices_per_word,
+                           asr_token_ids, asr_token_lengths, asr_word_ids,
+                           token_hist, hist_len, max_speech_steps: int,
+                           chunk_steps: int, window: int, mel_window_max: int,
+                           sampling_k: int = 25,
+                           s3_draws: Optional[Dict] = None,
+                           voc_draws: Optional[Dict] = None) -> Dict:
+        """Re-prefill the S3 decoder with extended text / taste, replay the
+        committed history into its KV cache, decode the next chunk and
+        vocode its window.  `s3_draws` are those of the stream it
+        continues: its live generator, or its gumbel, which the resumed
+        decode reads from step hist_len on."""
+        audio_unit_embeds = self.spoken_lm.get_audio_embeds_from_taste(
+            self._cb(), asr_token_lengths, asr_word_ids, taste_indices_per_word)
+        state = self.speech_decoder.generate_stream_resume(
+            speaker_embeds, audio_unit_embeds, asr_token_lengths,
+            asr_token_ids, asr_token_lengths, token_hist, hist_len,
+            max_steps=max_speech_steps, **(s3_draws or {}))
+        return self.stream_step(state, speaker_embeds, token_hist, hist_len,
+                                chunk_steps, window, mel_window_max,
+                                sampling_k, voc_draws)
+
+    @torch.no_grad()
+    def completion_stream_start(self, sampler_cfg: SamplerConfig, tables,
+                                llm_indices, llm_token_ids, llm_token_lengths,
+                                llm_word_ids, conditional_mode: str = "audio",
+                                max_steps: int = 256, first_chunk: int = 16,
+                                jd_draws: Optional[Dict] = None) -> Dict:
+        """The joint-decode prefill and its first `first_chunk` steps."""
+        st = self.spoken_lm.generate_stream_init(
+            self._cb(), llm_indices, llm_token_ids, llm_token_lengths,
+            llm_word_ids, conditional_mode, max_steps)
+        return self.completion_stream_chunk(st, sampler_cfg, tables,
+                                            first_chunk, jd_draws)
+
+    @torch.no_grad()
+    def completion_stream_chunk(self, state, sampler_cfg: SamplerConfig,
+                                tables, chunk_steps: int,
+                                jd_draws: Optional[Dict] = None) -> Dict:
+        """Continue the joint decode by up to `chunk_steps` steps."""
+        return self.spoken_lm.generate_stream_chunk(
+            state, self._cb(), sampler_cfg, tables, chunk_steps,
+            **(jd_draws or {}))
+
+    @torch.no_grad()
+    def completion_first_audio(
+        self, sampler_cfg: SamplerConfig, tables, llm_indices, llm_token_ids,
+        llm_token_lengths, llm_word_ids, speaker_embeds, asr_token_ids,
+        asr_word_ids, asr_valid, conditional_mode: str = "audio",
+        max_steps: int = 256, jd_first_chunk: int = 16,
+        max_speech_steps: int = 512, first_chunk_tokens: int = 16,
+        mel_window_first: int = 128, hist_pad: int = 0, sampling_k: int = 25,
+        jd_draws: Optional[Dict] = None, s3_draws: Optional[Dict] = None,
+        voc_draws: Optional[Dict] = None) -> Dict:
+        """completion_stream_start + the first synthesis chunk: the
+        joint-LM prefill, `jd_first_chunk` joint steps, the S3 prefill over
+        the words decoded so far, `first_chunk_tokens` S3 steps and one
+        small vocoder window.
+
+        The word count (complete words only while decoding; every sampled
+        taste word once done), the taste clamp and the asr lengths
+        (`asr_valid` [B, Ta] masks the tokenizer's pad positions) are
+        computed on the device.  The caller checks `n_words >=
+        min_start_words or jd_done` on the host; when false the synthesis
+        outputs came from too little text and are discarded."""
+        st = self.completion_stream_start(
+            sampler_cfg, tables, llm_indices, llm_token_ids,
+            llm_token_lengths, llm_word_ids, conditional_mode, max_steps,
+            jd_first_chunk, jd_draws)
+        words = torch.minimum(st["n_taste"][0],
+                              torch.clamp(st["word_id_cur"][0], min=0))
+        jd_done = st["done"].all() | (st["step"] >= max_steps)
+        n_words = torch.where(jd_done, st["n_taste"][0], words)
+        taste = torch.clamp(st["out_taste"], min=0)
+        asr_lens = ((asr_word_ids < n_words) & asr_valid).sum(dim=1)
+        syn = self.stream_start_step(
+            speaker_embeds, taste, asr_token_ids, asr_lens, asr_word_ids,
+            max_speech_steps, first_chunk_tokens, first_chunk_tokens,
+            mel_window_first, hist_pad, sampling_k, s3_draws, voc_draws)
+        return {"jd_state": st, "syn": syn, "n_words": n_words,
+                "jd_done": jd_done}

@@ -39,6 +39,7 @@ def call_layer(layer, remat: Any, *args, **kwargs):
     if remat is not True:
         raise NotImplementedError(
             f"remat policy {remat!r}: only full recompute (True) is ported; "
-            "the 'dots' policies are ROADMAP.md queue A item 11")
+            "the 'dots' policies are in ROADMAP.md queue A, "
+            '"The training harness"')
     return checkpoint(lambda *a: layer(*a, **kwargs), *args,
                       use_reentrant=False)

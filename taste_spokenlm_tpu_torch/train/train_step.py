@@ -14,8 +14,9 @@ TasteAudioTower.forward takes them) so that a test can hand both sides the
 same draws.  The phases of the stage-1 curriculum: text_only sets
 skip_vq and skip_audio_in_decoder, no_vq sets skip_vq.
 
-The stage-2 step and the flow step are not ported yet (ROADMAP.md queue A
-item 11).
+The stage-2 step and the flow step are not ported yet (ROADMAP.md queue
+A, "The stage-2 step and the teacher-forced spoken LM" and "The flow
+OT-CFM step").
 """
 
 from __future__ import annotations

@@ -462,9 +462,11 @@ def test_quantized_conformer_matches_jax(monkeypatch, layout, t_len):
 
 def test_unported_layouts_name_their_roadmap_item():
     from taste_spokenlm_tpu_torch.models import bridges
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError,
+                       match='queue A, "What the earlier slices left"'):
         bridges.make_extract("multi_linear_last", 8, 4, 4, 2)
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError,
+                       match='queue A, "What the earlier slices left"'):
         bridges.make_fusion("reference_mix", 8, 4)
 
 

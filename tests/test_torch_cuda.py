@@ -109,11 +109,16 @@ def test_flash_attention_ragged_matches_plain(dev, t, d, dtype):
 
 @pytest.mark.parametrize("t,lens", [(904, (904, 700)), (452, (452, 452)),
                                     (130, (100, 130)), (904, (904, 613)),
-                                    (452, (452, 17)), (130, (130, 1))])
+                                    (452, (452, 17)), (130, (130, 1)),
+                                    # the streaming windows' U-Net levels
+                                    (32, (27, 27)), (16, (14, 14)),
+                                    (134, (113, 129)), (67, (57, 65)),
+                                    (816, (811, 811)), (408, (406, 406))])
 def test_fused_dit_matches_plain(dev, t, lens):
     """Within 2e-2 of the plain version on the valid rows, and the same
-    bits when run twice (a fixed order in every sum), at the flow's two T
-    and a short one, with ragged lengths down to one key."""
+    bits when run twice (a fixed order in every sum), at the flow's two T,
+    the streaming windows' (down to 16, below one 64-row tile) and a short
+    one, with ragged lengths down to one key."""
     g = torch.Generator().manual_seed(1)
     c, heads, hd = 256, 8, 64
     inner = heads * hd
@@ -146,7 +151,10 @@ def test_fused_dit_matches_plain(dev, t, lens):
 
 
 @pytest.mark.parametrize("t,c,k,dil", [(7232, 256, 3, 1), (4100, 128, 11, 5),
-                                       (1000, 128, 7, 3)])
+                                       (1000, 128, 7, 3),
+                                       # the streaming windows' stages
+                                       (8577, 128, 11, 5), (6528, 256, 7, 3),
+                                       (52225, 128, 3, 1)])
 def test_conv1d_matches_plain(dev, t, c, k, dil):
     g = torch.Generator().manual_seed(2)
     x = _rand(g, 1, t, c, dtype=torch.bfloat16).to(dev)

@@ -114,5 +114,6 @@ def test_vocode_matches_jax_and_clamps_markers(pair):
 
 def test_spoken_llm_mode_names_its_roadmap_item(pair):
     port, d = pair[3], pair[4]
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    with pytest.raises(NotImplementedError, match='queue A, "The stage-2 '
+                       'step and the teacher-forced spoken LM"'):
         port.inference_reconstruction(*_port_args(d), mode="SpokenLLM")
