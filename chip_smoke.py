@@ -226,31 +226,39 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from taste_spokenlm_tpu_torch import quant
+from taste_spokenlm_tpu_torch import (from_pretrained, quant,
+                                      save_pretrained)
 from taste_spokenlm_tpu_torch.config import TasteConfig
 from taste_spokenlm_tpu_torch.frontend import streaming
+from taste_spokenlm_tpu_torch.frontend.processor import (
+    TasteProcessor, transcribe_with_fallback)
 from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               flash_attention, fused_dit,
                                               fused_mlp, int4_matmul,
                                               int8_matmul, launch_counts,
                                               relpos_attention,
                                               reset_launch_counts)
+from taste_spokenlm_tpu_torch.models import spoken_lm as spoken_lm_module
 from taste_spokenlm_tpu_torch.models.llama import RMSNorm
 from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
                                                      build_sampler_tables)
 from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
+from taste_spokenlm_tpu_torch.models.whisper import WhisperForASR
 from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
 from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
-from taste_spokenlm_tpu_torch.serving.server import TasteEngine
+from taste_spokenlm_tpu_torch.serving.server import (TasteEngine,
+                                                     create_http_server,
+                                                     run_load_test)
 from taste_spokenlm_tpu_torch.scripts import (profile_fusion, profile_lmhead,
                                               serving_fidelity)
 from taste_spokenlm_tpu_torch.train import optim, train_step
@@ -1524,52 +1532,75 @@ def joint_decode(model, scfg, tables, lm, llm_indices, seed=None):
         lm["llm_word_ids"], "audio", LM_STEPS, generator=gen)
 
 
+class DecodeRecorder:
+    """Within it, every joint decode step's text logits (f32, before the
+    sampler's masks) and the sampler's decisions (text id, taste ids) of
+    every row are recorded, in `steps`."""
+
+    def __init__(self, model):
+        self.lm = model.spoken_lm.language_model
+        self.steps = []
+
+    def __enter__(self):
+        head, real_step = self.lm.logits, spoken_lm_module.sampler_step
+        last = {}
+
+        def logits(hidden):
+            out = head(hidden)
+            last["lg"] = out[:, 0].float()
+            return out
+
+        def step(*args, **kw):
+            state, out = real_step(*args, **kw)
+            self.steps.append((last["lg"], torch.cat(
+                [out.text_id[:, None], out.taste_ids], dim=1)))
+            return state, out
+        self.lm.logits = logits
+        spoken_lm_module.sampler_step = step
+        self._real_step = real_step
+        return self
+
+    def __exit__(self, *exc):
+        del self.lm.logits
+        spoken_lm_module.sampler_step = self._real_step
+
+    def row(self, i: int):
+        """(text logits [S, V], decisions [S, 1 + L]) of row i."""
+        return (torch.stack([lg[i] for lg, _ in self.steps]),
+                torch.stack([d[i] for _, d in self.steps]))
+
+
+def parting(run_a, run_b, ok=None):
+    """Two runs of one request, each (text logits [S, V], decisions [S,
+    D]): the first step whose decisions differ (None if none does within
+    the shorter run), the largest logit difference over the steps up to
+    and including it, relative to run b's max |logit| (over the entries
+    `ok` keeps), and where they part, run b's top-2 text-logit margin
+    there beside the largest logit difference there."""
+    (lg_a, dec_a), (lg_b, dec_b) = run_a, run_b
+    n = min(len(lg_a), len(lg_b))
+    differ = (dec_a[:n] != dec_b[:n]).any(-1)
+    first = int(differ.nonzero()[0]) if bool(differ.any()) else None
+    last = n - 1 if first is None else first
+    lg_a, lg_b = lg_a[:last + 1], lg_b[:last + 1]
+    if ok is not None:
+        lg_a, lg_b = lg_a[:, ok], lg_b[:, ok]
+    diff = (lg_a - lg_b).abs().amax(-1)
+    rel = (diff / lg_b.abs().amax(-1)).max().item()
+    at = None
+    if first is not None:
+        top2 = lg_b[-1].topk(2).values
+        at = {"top2_margin": (top2[0] - top2[1]).item(),
+              "logit_diff": diff[-1].item()}
+    return first, rel, at
+
+
 def greedy_run(model, scfg, tables, lm, llm_indices):
-    """A joint decode that also records, per step, the text logits the
-    sampler decides on (f32, banned tokens not yet masked) and the argmax
-    of the taste logits: -> (decode output, [S, B, V], [S, B, L])."""
-    slm = model.spoken_lm
-    text, taste = [], []
-    head = slm.language_model.logits
-
-    def recorded_head(hidden):
-        out = head(hidden)
-        text.append(out[:, 0].float())
-        return out
-    slm.language_model.logits = recorded_head
-    hook = slm.extract_for_bridge_out_llm.register_forward_hook(
-        lambda mod, args, out: taste.append(out[0][:, 0].argmax(-1)))
-    try:
+    """A joint decode recorded: -> (its output, (text logits [S, V],
+    decisions [S, 1 + L]) of its row)."""
+    with DecodeRecorder(model) as rec:
         res = joint_decode(model, scfg, tables, lm, llm_indices)
-    finally:
-        hook.remove()
-        del slm.language_model.logits
-    return res, torch.stack(text), torch.stack(taste)
-
-
-def shared_history_logits(tables, run_k, run_p):
-    """Two greedy runs compared on the steps where their histories are the
-    same: up to and including the first step at which a text or a taste
-    argmax differs.  -> (that step or None, the largest kernel-vs-plain
-    text-logit difference over those steps relative to max |logit|, and at
-    the parting step the plain run's top-2 margin and the largest logit
-    difference)."""
-    (_, lg_k, ts_k), (_, lg_p, ts_p) = run_k, run_p
-    steps = min(len(lg_k), len(lg_p))
-    ok = ~tables["banned"]
-    mask = lambda lg: torch.where(ok, lg, torch.full_like(lg, -1e30))  # noqa: E731
-    parted = ((mask(lg_k[:steps]).argmax(-1) != mask(lg_p[:steps]).argmax(-1))
-              .any(-1) | (ts_k[:steps] != ts_p[:steps]).flatten(1).any(-1))
-    first = int(parted.nonzero()[0]) if bool(parted.any()) else None
-    last = steps - 1 if first is None else first
-    diff = (lg_k[:last + 1] - lg_p[:last + 1]).abs()[..., ok]
-    scale = lg_p[:last + 1].abs()[..., ok].amax(dim=-1)
-    rel = (diff.amax(dim=-1) / scale).max().item()
-    if first is None:
-        return None, rel, None, None
-    top2 = mask(lg_p[first]).topk(2, dim=-1).values[:, :2]
-    return (first, rel, (top2[:, 0] - top2[:, 1]).max().item(),
-            diff[-1].max().item())
+    return res, rec.row(0)
 
 
 def prefill_hidden(model, lm, llm_indices):
@@ -1733,16 +1764,15 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
     n = max(int(tok_k["num_tokens"][0]), int(tok_p["num_tokens"][0]), 1)
     greedy_agree = (tok_k["llm_token_ids"][0, :n]
                     == tok_p["llm_token_ids"][0, :n]).float().mean().item()
-    parted, logit_rel, margin, delta = shared_history_logits(tables, run_k,
-                                                            run_p)
+    parted, logit_rel, at = parting(run_k[1], run_p[1], ~tables["banned"])
     hidden_rel = ((h_k - h_p).abs().max() / h_p.abs().max()).item()
     log({f"{tier}_completion_parity": {
         "repeat_identical": True, "greedy_text_agreement": greedy_agree,
         "greedy_tokens": n, "greedy_text_ids": tok_k["llm_token_ids"][0, :8].tolist(),
         "prefill_hidden_rel_err": hidden_rel, "parted_at_step": parted,
         "shared_history_text_logit_rel_err": logit_rel,
-        "plain_top2_margin_at_parting": margin,
-        "logit_diff_at_parting": delta}})
+        "plain_top2_margin_at_parting": at and at["top2_margin"],
+        "logit_diff_at_parting": at and at["logit_diff"]}})
     check(hidden_rel > 0, f"{tier}: the greedy check is blind: the joint "
                           "decode's hidden state is the same with and "
                           "without kernels")
@@ -1766,7 +1796,7 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
     finally:
         for hook in hooks:
             hook.remove()
-    reach = shared_history_logits(tables, run_z, run_p)[1]
+    reach = parting(run_z[1], run_p[1], ~tables["banned"])[1]
     log({f"{tier}_zeroed_mlps_text_logit_rel_err": reach})
     check(reach > LOGIT_TOL, f"{tier}: the logit check is blind: zeroed "
                              f"MLPs move the text logits only {reach}")
@@ -2132,6 +2162,448 @@ def streaming_path(model, cfg: TasteConfig, x, lm, scfg, tables, gen, run,
 
 
 # ---------------------------------------------------------------------------
+# serving: the front end, the batched joint decode, the load test, HTTP and
+# the checkpoint round trip
+# ---------------------------------------------------------------------------
+
+SERVE_STEPS = 32               # the load test's decode budget (bench.py:1185)
+SERVE_NB = (1, 4, 16)          # batched decodes held against solo runs
+SOLO_ROWS = (0, 1, 2, 3, 15)   # the rows each batch holds against its solo run
+# bench.py:1166-1202: the load test's sampler, 16 requests of 40 tokens
+LOAD_KW = dict(extra_words=8, text_top_p=0.3, taste_top_p=0.0,
+               text_temperature=0.5, repetition_penalty=1.1)
+LOAD_N, LOAD_WINDOW_MS = 16, 200.0
+ASR_TOKENS = 64
+HTTP_S3_STEPS = 64             # /reconstruct's default budget
+
+
+class WordTokenizer:
+    """A deterministic stand-in tokenizer (the process's hash() is salted):
+    one id a word from its characters."""
+
+    def __init__(self, base: int):
+        self.base = base
+
+    def encode(self, word, add_special_tokens=False):
+        return [self.base + sum(map(ord, word)) % 997]
+
+
+def processor_check(cfg: TasteConfig, dev):
+    """TasteProcessor on a seeded 6 s wav at 24 kHz with stubbed hooks
+    (an x-vector from the fbank's statistics, S3 ids from the frame count,
+    a fixed transcript): it resamples to 16 kHz, takes the whisper log-mel
+    and the speaker fbank; -> (its output, wall seconds, the fbank shapes
+    the speaker hook saw)."""
+    rng = np.random.RandomState(4)
+    sr, secs = 24000, 6.0
+    tt = np.arange(int(sr * secs)) / sr
+    wav = (0.3 * np.sin(2 * np.pi * 150.0 * tt * (1 + 0.05 * np.sin(tt)))
+           + 0.02 * rng.randn(tt.size)).astype(np.float32)
+    seen = []
+
+    def embed(feats):
+        seen.append(feats.shape)
+        return np.resize(np.concatenate([feats.std(axis=(0, 1)),
+                                         feats.mean(axis=(0, 1))]), 192)
+    proc = TasteProcessor(
+        asr_tokenizer=WordTokenizer(100), llm_tokenizer=WordTokenizer(2000),
+        speaker_embedder=embed,
+        s3_tokenizer=lambda mel, n: np.arange(int(n) // 2) % 4096,
+        transcriber=lambda audio: "a seeded sine for the serving path",
+        frontend=cfg.frontend, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = proc(wav, sr, ref_audio_list=[wav[: 2 * sr], wav[2 * sr: 5 * sr]])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n16 = int(np.ceil(wav.size * 16000 / sr))
+    check(out["audio_features"].shape == (1, cfg.frontend.n_mels, 3000)
+          and bool(np.isfinite(out["audio_features"]).all()),
+          f"processor: mel {out['audio_features'].shape}")
+    check(int(out["audio_feature_lengths"][0]) == n16 // 160,
+          f"processor: {out['audio_feature_lengths']} mel frames of {n16} "
+          "samples at 16 kHz")
+    check(seen == [(1, 1 + (2 * sr - 400) // 160, 80),
+                   (1, 1 + (3 * sr - 400) // 160, 80)],
+          f"processor: the speaker hook saw fbanks {seen}")
+    spk = out["speaker_embeds"]
+    check(spk.shape == (1, 192) and bool(np.isfinite(spk).all())
+          and abs(float(np.linalg.norm(spk)) - 1.0) < 1e-5,
+          f"processor: speaker embedding {spk.shape}, norm "
+          f"{np.linalg.norm(spk)}")
+    check(out["speech_token_ids"].shape == (1, n16 // 160 // 2)
+          and out["llm_token_ids"].shape == out["asr_token_ids"].shape
+          == (1, 7), "processor: token shapes")
+    return out, wall, seen
+
+
+def asr_check(model, mel):
+    """WhisperForASR over the tower's encoder and decoder, greedy through
+    transcribe_with_fallback (one rung, ASR_TOKENS), with the kernels
+    (counted) and with their plain versions.  -> (tokens, counts of the
+    kernel run, its wall, the parting step, the largest logit difference
+    on the shared history relative to max |logit|, steps)."""
+    asr = WhisperForASR.from_tower(model.audio_tower)
+    table = asr.decoder.embed_tokens.weight.float()
+
+    def set_kernels(flag):
+        for m in asr.modules():
+            if hasattr(m, "use_kernels"):
+                m.use_kernels = flag
+
+    def run(kernels: bool):
+        set_kernels(kernels)
+        hidden = []
+        hook = asr.decoder.register_forward_hook(
+            lambda mod, args, out: hidden.append(out[0][:, -1].float()))
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            toks, lp, _ = transcribe_with_fallback(
+                lambda m, n, temp, g: asr(m, max_tokens=n, temperature=temp,
+                                          generator=g),
+                mel, max_tokens=ASR_TOKENS, temperatures=(0.0,))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+        finally:
+            hook.remove()
+            set_kernels(True)
+        steps = len(hidden) - 1            # the prefill, then one a step
+        toks = torch.from_numpy(toks).to(mel.device)
+        return (toks, lp, torch.stack(hidden[:steps]) @ table.T, wall,
+                counts)
+
+    tok_k, lp_k, lg_k, wall, counts = run(True)
+    tok_p, _, lg_p, _, counts_p = run(False)
+    check(not any(counts_p.values()),
+          f"asr: the plain run launched kernels {counts_p}: the comparison "
+          "would hold the kernels against themselves")
+    s = min(len(lg_k), len(lg_p))
+    first, rel, _ = parting((lg_k[:s, 0], tok_k[0, :s, None]),
+                            (lg_p[:s, 0], tok_p[0, :s, None]))
+    check(rel > 0, "asr: kernel and plain logits are identical; the plain "
+                   "run did not reach the plain versions")
+    check(bool(np.isfinite(lp_k).all()) and tok_k.shape == (1, ASR_TOKENS),
+          f"asr: tokens {tuple(tok_k.shape)}, logprob {lp_k}")
+    return tok_k, counts, wall, first, rel, len(lg_k)
+
+
+def load_requests(cfg: TasteConfig, lm, idx):
+    """bench.py:1166-1180: LOAD_N prompts of 40 random llm ids (a seeded
+    RandomState(3)) with the prompt's word ids and taste rows, seeds
+    17 i + 1."""
+    rng = np.random.RandomState(3)
+    vocab = cfg.spoken_lm.llama.vocab_size
+    words = lm["llm_word_ids"][0].tolist()
+    rows = idx[0].cpu().numpy()
+    return [dict(llm_ids=(rng.randint(100, 120000, T_TOK) % vocab).tolist(),
+                 llm_word_ids=words, llm_indices=rows, seed=17 * i + 1)
+            for i in range(LOAD_N)]
+
+
+def batch_launches(cfg: TasteConfig, rans) -> dict:
+    """{kernel: {shape: launches}} of batched joint decodes from their
+    records: per call and Llama layer one gated MLP over the prefill's
+    nb x prefix rows (within FUSED_MLP_MAX_ROWS; above it the unfused
+    math) and one over nb rows a step; the tied head once a step over nb
+    rows."""
+    llama = cfg.spoken_lm.llama
+    h, i, n_layers = (llama.hidden_size, llama.intermediate_size,
+                      llama.num_hidden_layers)
+    out = {"gated_mlp_int8": {}, "matmul_int4": {}}
+
+    def add(kernel, key, n):
+        if n:
+            out[kernel][key] = out[kernel].get(key, 0) + n
+    for ran in rans:
+        add("gated_mlp_int8", (ran["nb"], h, i), n_layers * ran["steps"])
+        if ran["prefill_rows"] <= FUSED_MLP_MAX_ROWS:
+            add("gated_mlp_int8", (ran["prefill_rows"], h, i), n_layers)
+        add("matmul_int4", (ran["nb"], h, llama.vocab_size), ran["steps"])
+    return out
+
+
+def recon_launches(cfg: TasteConfig, model, n_frames: int, rows: int,
+                   s3_len: int, max_steps: int, mel_len_max: int) -> dict:
+    """{kernel: {shape: launches}} of one reconstruction: the tower's flash
+    attention, the S3 prefill over `rows` rows and one row a step through
+    every layer's ffn_int8, the fused DiT and the kernel convs over
+    `mel_len_max` frames."""
+    s3 = cfg.speech_decoder.llm
+    mel_len = int(model.voice_generator.flow.mel_lengths(
+        torch.tensor(s3_len)).clamp(max=mel_len_max))
+    return {"flash_attention": flash_shapes(cfg, n_frames),
+            "fused_dit_block": dit_shapes(cfg, mel_len, mel_len_max),
+            "conv1d_same": conv_shapes(cfg, mel_len_max),
+            "ffn_int8": {1: s3.num_blocks * min(s3_len + 1, max_steps),
+                         rows: s3.num_blocks}}
+
+
+def http_check(engine: TasteEngine, cfg: TasteConfig, model, x):
+    """The HTTP server on a free localhost port: /health, /tokenize (equal
+    to engine.tokenize), /reconstruct (PCM of its token count) and a 404,
+    counted.  -> ({kernel: {shape: launches}}, counts, results)."""
+    import base64
+    import urllib.error
+    import urllib.request
+    server = create_http_server(engine, port=0, host="127.0.0.1")
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+
+    def post(path, payload):
+        req = urllib.request.Request(
+            url + path, data=json.dumps(payload).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return json.load(r)
+    mel = x["audio_features"][0].cpu().numpy()
+    asr = x["asr_token_ids"][0].tolist()
+    words = x["asr_word_ids"][0].tolist()
+    spk = x["speaker_embeds"][0].cpu().numpy()
+    try:
+        reset_launch_counts()
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.load(r)
+        t0 = time.perf_counter()
+        tok = post("/tokenize", {"audio_features": mel.tolist(),
+                                 "asr_token_ids": asr, "asr_word_ids": words})
+        tokenize_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        rec = post("/reconstruct", {
+            "audio_features": mel.tolist(), "asr_token_ids": asr,
+            "asr_word_ids": words, "speaker_embedding": spk.tolist(),
+            "max_speech_steps": HTTP_S3_STEPS, "seed": 5})
+        reconstruct_s = time.perf_counter() - t0
+        try:
+            urllib.request.urlopen(url + "/nope", timeout=60)
+            missing = 200
+        except urllib.error.HTTPError as e:
+            missing = e.code
+        counts = launch_counts()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(health == {"status": "ok"}, f"http: /health {health}")
+    check(missing == 404, f"http: an unknown route gave {missing}")
+    want = engine.tokenize(mel, asr, words)
+    check(np.array_equal(np.asarray(tok["indices"]), want),
+          "http: /tokenize differs from engine.tokenize")
+    pcm = np.frombuffer(base64.b64decode(rec["pcm16_b64"]), "<i2")
+    n_tok = rec["num_speech_tokens"]
+    check(n_tok > 0 and pcm.size > 0 and rec["sample_rate"]
+          == cfg.hift.sampling_rate and int(np.abs(pcm).max()) > 0,
+          f"http: /reconstruct gave {n_tok} tokens, {pcm.size} samples")
+    mel_len_max = max(32, int(np.ceil(HTTP_S3_STEPS / 50 * 22050 / 256)) + 8)
+    launches = merge_launches(
+        {"flash_attention": flash_shapes(cfg, mel.shape[-1])},
+        recon_launches(cfg, model, mel.shape[-1], B * (3 + T_TOK), n_tok,
+                       HTTP_S3_STEPS, mel_len_max))
+    check_counts(counts, {k: sum(v.values()) for k, v in launches.items()},
+                 "serving http")
+    return launches, counts, {
+        "tokenize_s": tokenize_s, "reconstruct_s": reconstruct_s,
+        "reconstruct_tokens": n_tok, "reconstruct_samples": int(pcm.size),
+        "reconstruct_rtf": rec["rtf"]}
+
+
+def checkpoint_check(model):
+    """save_pretrained of the int8 serving model, from_pretrained of the
+    dir (strict, at the dtypes it was saved in), equal state dicts; the dir is removed.  -> seconds and
+    sizes."""
+    import shutil
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "serving_checkpoint")
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        save_pretrained(model, path)
+        save_s = time.perf_counter() - t0
+        n_bytes = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        t0 = time.perf_counter()
+        loaded, _ = from_pretrained(path, device=model.device)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        sa, sb = model.state_dict(), loaded.state_dict()
+        check(sa.keys() == sb.keys(), "checkpoint: the loaded model's "
+                                      "state dict has other keys")
+        for k in sa:
+            check(sa[k].dtype == sb[k].dtype and torch.equal(sa[k], sb[k]),
+                  f"checkpoint: {k} differs after the round trip")
+        n_tensors = len(sa)
+        del loaded, sb
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"save_s": save_s, "load_s": load_s, "bytes": n_bytes,
+            "tensors": n_tensors}
+
+
+def serving_path(model, cfg: TasteConfig, x, lm, scfg, tables, idx,
+                 card: str, profile: bool):
+    """The serving front end on the int8 model: TasteProcessor, the whisper
+    ASR, TasteEngine's batched joint decode at nb = 1, 4, 16 (greedy and
+    sampled, rows held against their solo runs), the B = 4 decode
+    throughput, the micro-batcher's load test at bench.py's geometry, the
+    HTTP server and the checkpoint round trip.  -> ([{kernel: {shape:
+    launches}}] and [launch counts], one for each counted phase: the ASR,
+    the batched decodes with the load tests, the HTTP requests)."""
+    dev = idx.device
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t_path = time.perf_counter()
+
+    proc, proc_s, fbanks = processor_check(cfg, dev)
+    mel = torch.from_numpy(proc["audio_features"]).to(dev)
+    asr_tok, asr_counts, asr_s, asr_parted, asr_rel, asr_steps = asr_check(
+        model, mel)
+    asr_launches = {"flash_attention": flash_shapes(cfg, mel.shape[-1])}
+    check_counts(asr_counts, {k: sum(v.values())
+                              for k, v in asr_launches.items()}, "asr")
+    check(asr_rel <= LOGIT_TOL,
+          f"asr: kernel-vs-plain logits {asr_rel} apart (relative to max "
+          f"|logit|) on the shared history, > {LOGIT_TOL}")
+
+    engine = TasteEngine(model, cfg, token_buckets=(T_TOK,))
+    engine._tables = tables
+    reqs = load_requests(cfg, lm, idx)
+    ok = ~tables["banned"]
+    rans = {}
+
+    def batch(nb, kw, steps=SERVE_STEPS, requests=None):
+        with DecodeRecorder(model) as rec:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = engine.complete_batch(requests or reqs[:nb], kw, steps)
+            wall = time.perf_counter() - t0
+        rans[res[0]["ran"]["call"]] = res[0]["ran"]
+        return res, rec, wall
+
+    reset_launch_counts()
+    greedy_kw = dict(LOAD_KW, text_top_p=0.0)
+    solo = {i: {kind: batch(1, kw, requests=[reqs[i]])
+                for kind, kw in (("greedy", greedy_kw), ("sampled", LOAD_KW))}
+            for i in SOLO_ROWS}
+    batched, per_nb = {}, {}
+    for nb in SERVE_NB:
+        for kind, kw in (("greedy", greedy_kw), ("sampled", LOAD_KW)):
+            res, rec, wall = batch(nb, kw)
+            rows = {}
+            for i in (r for r in SOLO_ROWS if r < nb):
+                s_res, s_rec, _ = solo[i][kind]
+                same = all(np.array_equal(res[i][k], s_res[0][k]) for k in (
+                    "llm_token_ids", "taste_indices", "num_tokens"))
+                first, rel, at = parting(rec.row(i), s_rec.row(0), ok)
+                rows[i] = {"same_as_solo": same, "parted_at_step": first,
+                           "shared_history_logit_rel_err": rel,
+                           "at_parting": at}
+                # the batch's row reads its solo run's logits on their
+                # shared history; where it parts from it, that is at a
+                # near-tie those logits decide within the tolerance
+                check(rel <= LOGIT_TOL,
+                      f"serving: nb={nb} {kind} row {i}: text logits {rel} "
+                      f"from its solo run's on the shared history, > "
+                      f"{LOGIT_TOL}")
+                check(same or first is not None,
+                      f"serving: nb={nb} {kind} row {i} differs from its "
+                      "solo run with the same decisions at every step")
+            check(all(int(r["num_tokens"]) > 0 for r in res),
+                  f"serving: nb={nb} {kind}: a row emitted no token")
+            batched[(nb, kind)] = rows
+            if kind == "sampled":
+                steps = res[0]["ran"]["steps"]
+                per_nb[nb] = {"wall_s": wall, "steps": steps,
+                              "ms_per_step": 1e3 * wall / steps,
+                              "tokens": sum(int(r["num_tokens"]) for r in res)}
+
+    # bench.py:1132-1160: B = 4 rows of the completion's prompt (ids
+    # shifted by the run), the completion's sampler and budget; the best of
+    # three after a warm-up
+    comp_kw = {k: v for k, v in scfg._asdict().items()
+               if k not in ("delay", "delay_level", "stop_id", "has_prefix")}
+    walls4 = []
+    for run in range(4):
+        ids = ((lm["llm_token_ids"][0] + run) % cfg.spoken_lm.llama.vocab_size
+               ).tolist()
+        res, _, wall = batch(4, comp_kw, LM_STEPS, [
+            dict(reqs[0], llm_ids=ids, seed=300 + 4 * run + j)
+            for j in range(4)])
+        if run:
+            walls4.append(wall)
+    b4_tokens = sum(int(r["num_tokens"]) for r in res)
+
+    # the load test: a warm-up, then the counted run
+    load = {}
+    for what in ("warm_up", "counted"):
+        load[what] = run_load_test(engine, reqs, LOAD_KW,
+                                   max_steps=SERVE_STEPS, max_batch=LOAD_N,
+                                   window_ms=LOAD_WINDOW_MS)
+        for r in load[what]["results"]:
+            rans[r["ran"]["call"]] = r["ran"]
+    counted = load["counted"]
+    check(all(int(r["num_tokens"]) > 0 for r in counted["results"]),
+          "serving: a load-test request emitted no token")
+    dec_counts = launch_counts()
+    dec_launches = batch_launches(cfg, rans.values())
+    check_counts(dec_counts, {k: sum(v.values())
+                              for k, v in dec_launches.items()},
+                 "serving batched decodes")
+    load_calls = sorted({r["ran"]["call"]: r["ran"]["nb"]
+                         for r in counted["results"]}.items())
+
+    http_launches, http_counts, http = http_check(engine, cfg, model, x)
+    ckpt = checkpoint_check(model)
+
+    result = {
+        "card": card,
+        "serving_p50_ms": counted["p50_ms"],
+        "serving_p99_ms": counted["p99_ms"],
+        "serving_max_ms": counted["max_ms"],
+        "serving_tokens_per_sec": counted["tokens_per_sec"],
+        "serving_wall_s": counted["wall_s"],
+        "serving_total_tokens": counted["total_tokens"],
+        "load_calls_nb": [nb for _, nb in load_calls],
+        "warm_up_p50_ms": load["warm_up"]["p50_ms"],
+        "decode_tokens_per_sec_b4": b4_tokens / min(walls4),
+        "b4_walls_s": walls4, "b4_tokens": b4_tokens,
+        "batched": {str(nb): v for nb, v in per_nb.items()},
+        "rows_vs_solo": {f"{nb}_{kind}": rows
+                         for (nb, kind), rows in batched.items()},
+        "processor_s": proc_s, "processor_fbanks": fbanks,
+        "asr_wall_s": asr_s, "asr_steps": asr_steps,
+        "asr_parted_at_step": asr_parted,
+        "asr_shared_history_logit_rel_err": asr_rel,
+        "asr_tokens": asr_tok[0, :8].tolist(),
+        "http": http, "checkpoint": ckpt,
+        "decode_calls": len(rans),
+        "path_wall_s": time.perf_counter() - t_path,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches": {"asr": asr_counts, "batched": dec_counts,
+                     "http": http_counts}}
+    log({"serving": result})
+    log(f"serving ({card}): p50 {result['serving_p50_ms']:.1f} ms, p99 "
+        f"{result['serving_p99_ms']:.1f} ms, "
+        f"{result['serving_tokens_per_sec']:.1f} tok/s ({LOAD_N} requests, "
+        f"{SERVE_STEPS} steps); B=4 decode "
+        f"{result['decode_tokens_per_sec_b4']:.1f} tok/s; ms a step at "
+        "nb = 1 / 4 / 16: " + " / ".join(
+            f"{per_nb[nb]['ms_per_step']:.2f}" for nb in SERVE_NB)
+        + f"; ASR {asr_s:.3f} s; path {result['path_wall_s']:.1f} s, peak "
+        f"{result['peak_mem_gb']:.2f} GB")
+    if profile:
+        log({"batched_decode_device_profile": device_profile(
+            lambda: engine.complete_batch(reqs, LOAD_KW, SERVE_STEPS),
+            per_nb[16]["wall_s"])})
+    return ([asr_launches, dec_launches, http_launches],
+            [asr_counts, dec_counts, http_counts])
+
+
+# ---------------------------------------------------------------------------
 # the stage-1 training step
 # ---------------------------------------------------------------------------
 
@@ -2478,7 +2950,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    card = smi.stdout.strip().splitlines()[0]
+    log(card)
     log({"torch": torch.__version__, "cuda": torch.version.cuda,
          "device": torch.cuda.get_device_name(0)})
 
@@ -2498,7 +2971,6 @@ def main(argv=None) -> int:
     n_frames = x["audio_features"].shape[-1]
     check(tuple(x["audio_features"].shape) == (B, 128, 3000),
           f"mel shape {tuple(x['audio_features'].shape)}")
-    s3 = cfg.speech_decoder.llm
 
     # ---- reconstruction: warm-up (cuDNN / cuBLAS plans), then counted ----
     reconstruct(model, x, gen)
@@ -2524,13 +2996,9 @@ def main(argv=None) -> int:
     audio_s = wav_len / cfg.hift.sampling_rate
     check(B * (3 + T_TOK) <= FUSED_MLP_MAX_ROWS,
           "the S3 prefill is past the fused FFN's row limit")
-    recon_launches = {
-        "flash_attention": flash_shapes(cfg, n_frames),
-        "fused_dit_block": dit_shapes(cfg, mel_len),
-        "conv1d_same": conv_shapes(cfg),
-        "ffn_int8": {1: s3.num_blocks * min(dec_len + 1, MAX_SPEECH),
-                     B * (3 + T_TOK): s3.num_blocks}}
-    check_counts(counts, {k: sum(v.values()) for k, v in recon_launches.items()},
+    recon = recon_launches(cfg, model, n_frames, B * (3 + T_TOK), dec_len,
+                           MAX_SPEECH, MEL_LEN_MAX)
+    check_counts(counts, {k: sum(v.values()) for k, v in recon.items()},
                  "reconstruction")
     all_counts = [counts]
     log({"reconstruction": {
@@ -2573,7 +3041,7 @@ def main(argv=None) -> int:
         extra_words=LM_STEPS, text_top_p=0.3, taste_top_p=0.0,
         text_temperature=0.5, repetition_penalty=1.1, has_prefix=True)
     lm = lm_prefix(cfg, x, dev)
-    paths, greedy = [recon_launches], {}
+    paths, greedy = [recon], {}
     for tier in ("int8", "int4"):
         if tier == "int4":
             # free the int8 model; the int4 one takes the same float
@@ -2596,6 +3064,10 @@ def main(argv=None) -> int:
         if tier == "int8":
             launches, counts = streaming_path(
                 model, cfg, x, lm, scfg, tables, gen, run, opts.profile)
+            paths.extend(launches)
+            all_counts.extend(counts)
+            launches, counts = serving_path(
+                model, cfg, x, lm, scfg, tables, run[0], card, opts.profile)
             paths.extend(launches)
             all_counts.extend(counts)
     n = max(greedy["int8"][1], greedy["int4"][1])
@@ -2670,9 +3142,10 @@ def main(argv=None) -> int:
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
             "per": "the counted runs (reconstruction, int8 and int4 "
                    "completion, the streaming synthesis and pipelined "
-                   "completion, three stage-1 steps, the decode-layout "
-                   "tools): per-launch times x launches; per-shape rows in "
-                   "'shapes'",
+                   "completion, the serving path's ASR, batched decodes, "
+                   "load tests and HTTP requests, three stage-1 steps, the "
+                   "decode-layout tools): per-launch times x launches; "
+                   "per-shape rows in 'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})
     log({"kernels": kernels})

@@ -9,5 +9,7 @@ Entry points run on the CUDA device unless the caller passes
 """
 
 from taste_spokenlm_tpu_torch.config import TasteConfig  # noqa: F401
+from taste_spokenlm_tpu_torch.pretrained import (from_pretrained,  # noqa: F401
+                                                 save_pretrained)
 
-__all__ = ["TasteConfig"]
+__all__ = ["TasteConfig", "from_pretrained", "save_pretrained"]

@@ -15,12 +15,16 @@ Random draws are Gumbel noise: per step a [B, V] text draw and a
 [B, L, K] taste draw, taken from `generator` or from the `text_gumbel`
 [max_steps, B, V] / `taste_gumbel` [max_steps, B, L, K] arguments (step s
 of the decode reads row s, whichever chunk runs it), and only where the
-sampler samples (top_p > 0).
+sampler samples (top_p > 0).  `generator` may be one generator or a
+sequence of B: row i's draws then come from generator i alone, one text
+and one taste draw a step, so a row's trajectory does not depend on the
+rows decoded beside it (the JAX decode's fold_in(row key, step) contract,
+which the serving batcher's per-request seeds rely on).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -263,7 +267,8 @@ class TasteSpokenLM(nn.Module):
     def generate_stream_chunk(self, state: Dict[str, Any], cb: Codebook,
                               sampler_cfg: SamplerConfig, tables,
                               chunk_steps: int,
-                              generator: Optional[torch.Generator] = None,
+                              generator: Union[None, torch.Generator,
+                                               Sequence[torch.Generator]] = None,
                               text_gumbel: Optional[torch.Tensor] = None,
                               taste_gumbel: Optional[torch.Tensor] = None
                               ) -> Dict[str, Any]:
@@ -346,7 +351,8 @@ class TasteSpokenLM(nn.Module):
                  llm_word_ids=None, conditional_mode: str = "audio",
                  max_steps: int = 256, instruct_prefix_ids=None,
                  instruct_suffix_ids=None, batch_size: int = 1,
-                 generator: Optional[torch.Generator] = None,
+                 generator: Union[None, torch.Generator,
+                                  Sequence[torch.Generator]] = None,
                  text_gumbel: Optional[torch.Tensor] = None,
                  taste_gumbel: Optional[torch.Tensor] = None
                  ) -> Dict[str, torch.Tensor]:

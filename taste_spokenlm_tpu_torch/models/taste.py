@@ -31,7 +31,7 @@ vocoder window (`generator`, `z`, `source_phase`, `source_noise`).
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -194,13 +194,15 @@ class TasteForCausalLM(nn.Module):
                             llm_word_ids, conditional_mode: str = "audio",
                             max_steps: int = 256, instruct_prefix_ids=None,
                             instruct_suffix_ids=None,
-                            generator: Optional[torch.Generator] = None,
+                            generator: Union[None, torch.Generator,
+                                             Sequence[torch.Generator]] = None,
                             text_gumbel: Optional[torch.Tensor] = None,
                             taste_gumbel: Optional[torch.Tensor] = None
                             ) -> Dict[str, torch.Tensor]:
         """The joint text + taste decode (the device part of the reference's
         inference_completion); `tables` maps word_start / banned /
-        sentence_end to bool tensors [V] (models/sampler.py)."""
+        sentence_end to bool tensors [V] (models/sampler.py); `generator`
+        one generator or one a row (TasteSpokenLM.generate)."""
         return self.spoken_lm.generate(
             self._cb(), sampler_cfg, tables, llm_indices, llm_token_ids,
             llm_token_lengths, llm_word_ids, conditional_mode, max_steps,

@@ -1,5 +1,6 @@
-"""Whisper encoder and split-K/V decoder (counterpart of the JAX
-models/whisper.py `WhisperAttention`, `WhisperEncoder`, `WhisperDecoder`).
+"""Whisper encoder, split-K/V decoder and ASR decode (counterpart of the
+JAX models/whisper.py `WhisperAttention`, `WhisperEncoder`,
+`WhisperDecoder` and `WhisperForASR`).
 
 Module names follow HF whisper (q_proj/k_proj/v_proj/out_proj, fc1/fc2,
 *_layer_norm, embed_positions), so an HF or TASTE state dict loads with
@@ -7,12 +8,11 @@ strict=True.  Activations are [B, T, C].  With `remat` set in the config,
 every encoder and decoder layer is checkpointed when autograd records
 (ops/remat.py).  The flash-attention kernel has no backward (nor has the
 Pallas kernel it replaces): a trainable encoder must not reach it.
-`WhisperForASR` is not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Union
 
 import numpy as np
 import torch
@@ -20,11 +20,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.config import WhisperConfig
+from taste_spokenlm_tpu_torch.device import resolve_device
 from taste_spokenlm_tpu_torch.kernels.flash_attention import (
     can_use_flash, flash_attention, flash_attention_plain)
 from taste_spokenlm_tpu_torch.ops.attention import multi_head_attention
 from taste_spokenlm_tpu_torch.ops.masking import causal_mask, combine_masks, length_mask
 from taste_spokenlm_tpu_torch.ops.remat import call_layer
+from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
 
 
 class WhisperAttention(nn.Module):
@@ -207,3 +209,112 @@ class WhisperDecoder(nn.Module):
         return [{"k": w.new_zeros((batch, max_len, h, d)),
                  "v": w.new_zeros((batch, max_len, h, d))}
                 for _ in range(cfg.decoder_layers)]
+
+
+class WhisperForASR(nn.Module):
+    """Whisper transcription with the HF pipeline's decode semantics: mel ->
+    encoder -> KV-cached decode from the task prompt until EOS, with
+    `suppress_ids` / `begin_suppress_ids` masking, timestamp suppression
+    and optional temperature sampling (the building block of
+    frontend.processor.transcribe_with_fallback).
+
+    `encoder` / `decoder` may be given to share another model's modules,
+    as the TASTE audio tower's (`from_tower`), and stay where they are;
+    else new ones are built on `device` (None: CUDA, which must be
+    present)."""
+
+    def __init__(self, config: WhisperConfig,
+                 encoder: Optional[WhisperEncoder] = None,
+                 decoder: Optional[WhisperDecoder] = None,
+                 device: Optional[Union[str, torch.device]] = None):
+        super().__init__()
+        cfg = self.config = config
+        if encoder is None or decoder is None:
+            with torch.device(resolve_device(device)):
+                encoder = encoder if encoder is not None else \
+                    WhisperEncoder(cfg)
+                decoder = decoder if decoder is not None else \
+                    WhisperDecoder(cfg)
+        self.encoder, self.decoder = encoder, decoder
+        sup = np.zeros((cfg.vocab_size,), np.float32)
+        sup[list(cfg.suppress_ids)] = -np.inf
+        if cfg.timestamp_begin_id >= 0:
+            sup[cfg.timestamp_begin_id:] = -np.inf
+        begin = np.zeros((cfg.vocab_size,), np.float32)
+        begin[list(cfg.begin_suppress_ids)] = -np.inf
+        dev = self.decoder.embed_tokens.weight.device
+        self.register_buffer("suppress_mask", torch.from_numpy(sup).to(dev),
+                             persistent=False)
+        self.register_buffer("begin_mask", torch.from_numpy(begin).to(dev),
+                             persistent=False)
+
+    @classmethod
+    def from_tower(cls, audio_tower) -> "WhisperForASR":
+        """The ASR over a TasteAudioTower's own encoder and decoder."""
+        return cls(audio_tower.config.whisper, audio_tower.encoder,
+                   audio_tower.decoder)
+
+    @torch.no_grad()
+    def forward(self, mel: torch.Tensor, max_tokens: int = 224,
+                temperature: float = 0.0,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None):
+        """mel [B, n_mels, frames] -> (token ids [B, max_tokens] EOS-padded,
+        average logprob [B] of the emitted tokens, EOS included).
+
+        At temperature > 0 each step draws a categorical as argmax(logits /
+        temperature + gumbel): the noise is `gumbel[step]` ([max_tokens, B,
+        V]) or drawn from `generator` on the generator's own device.  The
+        decode stops once every row has emitted EOS, or at max_tokens."""
+        cfg = self.config
+        b, dev = mel.shape[0], mel.device
+        enc = self.encoder(mel)["last_hidden"]
+        prompt = torch.tensor(cfg.decoder_prompt, dtype=torch.long,
+                              device=dev)[None].expand(b, -1)
+        p = prompt.shape[1]
+        if p + max_tokens > cfg.max_target_positions:
+            raise ValueError(
+                f"max_tokens {max_tokens} past the decoder's "
+                f"{cfg.max_target_positions} positions less the "
+                f"{p}-token prompt")
+        caches = self.decoder.init_cache(b, p + max_tokens)
+        hidden, caches = self.decoder(prompt, enc, caches=caches,
+                                      cache_index=0)
+        last = hidden[:, -1]
+        table = self.decoder.embed_tokens.weight.float()
+        tokens = torch.full((b, max_tokens), cfg.eos_token_id,
+                            dtype=torch.long, device=dev)
+        sum_lp = torch.zeros((b,), device=dev)
+        n_emitted = torch.zeros((b,), dtype=torch.long, device=dev)
+        done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        for step in range(max_tokens):
+            if bool(done.all()):
+                break
+            # the tied embedding is the head
+            logits = last.float() @ table.T + self.suppress_mask[None]
+            if step == 0:
+                logits = logits + self.begin_mask[None]
+            if temperature > 0.0:
+                if gumbel is not None:
+                    noise = gumbel[step].to(dev)
+                else:
+                    noise = gumbel_noise(
+                        logits.shape, generator,
+                        generator.device if generator is not None else dev
+                    ).to(dev)
+                ids = torch.argmax(logits / max(temperature, 1e-6) + noise,
+                                   dim=-1)
+            else:
+                ids = torch.argmax(logits, dim=-1)
+            lp = torch.log_softmax(logits, dim=-1).gather(1, ids[:, None])[:, 0]
+            emit = torch.where(done, torch.full_like(ids, cfg.eos_token_id),
+                               ids)
+            tokens[:, step] = emit
+            sum_lp = sum_lp + torch.where(done, torch.zeros_like(lp), lp)
+            n_emitted = n_emitted + (~done).long()
+            done = done | (ids == cfg.eos_token_id)
+            hidden, caches = self.decoder(emit[:, None], enc,
+                                          position_offset=p + step,
+                                          caches=caches, cache_index=p + step)
+            last = hidden[:, 0]
+        return tokens, sum_lp / torch.clamp(n_emitted, min=1)

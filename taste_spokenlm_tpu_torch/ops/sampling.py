@@ -12,7 +12,7 @@ where two logits meet the boundary.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -83,11 +83,24 @@ def mask_top_k(logits: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(f >= kth, logits, logits.new_tensor(NEG_INF))
 
 
-def gumbel_noise(shape, generator: Optional[torch.Generator] = None,
+def gumbel_noise(shape, generator: Union[None, torch.Generator,
+                                          Sequence[torch.Generator]] = None,
                  device=None) -> torch.Tensor:
-    """Standard Gumbel noise -log(-log(U)), U in the open interval (0, 1)."""
+    """Standard Gumbel noise -log(-log(U)), U in the open interval (0, 1).
+
+    `generator` may be a sequence of shape[0] generators: row i of the
+    noise then comes from generator i alone (its uniforms are what
+    torch.rand(shape[1:], generator=generator[i]) would draw), so a row's
+    draws do not depend on the other rows."""
+    if isinstance(generator, (list, tuple)):
+        if len(generator) != shape[0]:
+            raise ValueError(f"{len(generator)} generators for {shape[0]} rows")
+        u = torch.empty(shape, device=device)
+        for row, gen in zip(u, generator):
+            row.uniform_(generator=gen)
+    else:
+        u = torch.rand(shape, generator=generator, device=device)
     tiny = float(np.finfo(np.float32).tiny)
-    u = torch.rand(shape, generator=generator, device=device)
     u = torch.clamp(u, min=tiny, max=1.0 - 2 ** -24)
     return -torch.log(-torch.log(u))
 

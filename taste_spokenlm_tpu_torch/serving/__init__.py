@@ -1,3 +1,3 @@
-"""Serving engine of the port (counterpart of taste_spokenlm_tpu/serving):
-TasteEngine's token bucketing, tokenize, reconstruct and the streaming
-entry points."""
+"""Serving layer of the port (counterpart of taste_spokenlm_tpu/serving):
+TasteEngine, the micro-batcher, the load test and the gRPC and HTTP
+servers."""

@@ -234,10 +234,14 @@ def _rel(out, ref):
 
 
 # the path's shapes (the S3-stack and Llama decode steps, the Llama
-# prefill) and row counts on either side of the 16-row tiles
+# prefill), row counts on either side of the 16-row tiles, and the serving
+# engine's batched decode: a step of 2, 4, 8 or 16 rows and the prefill of
+# nb x 42 rows (bench.py's 40-token prompt) up to the fused limit
 GATED_SHAPES = [(1, 1024, 2048), (1, 2048, 8192), (42, 2048, 8192),
                 (9, 2048, 8192), (17, 2048, 8192), (40, 2048, 8192),
-                (256, 2048, 8192)]
+                (256, 2048, 8192), (2, 2048, 8192), (4, 2048, 8192),
+                (8, 2048, 8192), (16, 2048, 8192), (84, 2048, 8192),
+                (168, 2048, 8192)]
 
 
 @pytest.mark.parametrize("m,h,i", GATED_SHAPES)
@@ -333,10 +337,14 @@ def test_ffn_int8_replays_in_a_graph(dev, m):
     _graph_replays(fused_mlp.ffn_int8, x, args)
 
 
+# the tied head of the serving engine's batched decode at 2-16 rows (16:
+# past SPLIT_MAX_ROWS, unsplit)
 @pytest.mark.parametrize("m,d,n", [(1, 2048, 128256), (40, 2048, 4097),
                                    (256, 1024, 4097), (3, 512, 1000),
                                    (1, 1024, 1024), (131, 1024, 3072),
-                                   (42, 2048, 3072), (200, 8192, 2048)])
+                                   (42, 2048, 3072), (200, 8192, 2048),
+                                   (2, 2048, 128256), (4, 2048, 128256),
+                                   (8, 2048, 128256), (16, 2048, 128256)])
 def test_matmul_int4_matches_plain(dev, m, d, n):
     g = torch.Generator().manual_seed(6)
     wp, scale = int4_matmul.quantize_int4(

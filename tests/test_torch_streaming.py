@@ -15,7 +15,6 @@ another summation order), and the seams continuous by the bound of
 tests/test_streaming.py.
 """
 
-import functools
 
 import jax
 import jax.numpy as jnp
@@ -34,51 +33,16 @@ from taste_spokenlm_tpu_torch.kernels import fused_mlp
 from taste_spokenlm_tpu_torch.models.sampler import SamplerConfig
 from taste_spokenlm_tpu_torch.serving.server import TasteEngine
 
-from torch_parity_common import (VocabScan, lm_inputs, port_model,
-                                 quantize_variables_jax, serving_config, t,
-                                 tiny_pair, voice_noise)
+from torch_parity_common import (VocabScan, jd_draws_jax, lm_inputs,
+                                 port_model, quantize_variables_jax,
+                                 s3_gumbel, serving_config, t, tiny_pair,
+                                 voice_noise)
 
 torch.set_num_threads(2)
 MAX_SPEECH, MEL_LEN_MAX = 16, 40
 GEOM = dict(chunk_tokens=5, left_ctx_tokens=3, crossfade_tokens=1)
 PIPE = dict(GEOM, first_chunk_tokens=2, max_speech_steps=12)
 JD_STEPS = 10
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3))
-def _s3_gumbel(key, steps, b, v1):
-    """The gumbel noise of each step of the JAX S3 decode on `key`."""
-    def body(k, _):
-        k, sub = jax.random.split(k)
-        return k, jax.random.gumbel(sub, (b, v1), jnp.float32)
-    return jax.lax.scan(body, key, None, length=steps)[1]
-
-
-def s3_gumbel(cfg, key, steps, b=1):
-    return t(_s3_gumbel(key, steps, b, cfg.speech_decoder.speech_token_size + 1))
-
-
-@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
-def _jd_gumbel_jax(key, steps, v, l, k):
-    """The text [steps, V] and taste [steps, L, K] gumbel noise of each
-    step of JAX's joint decode on `key` (one row): the step key from the
-    split chain, folded with the row, split into text and taste keys, as
-    jax.random.categorical draws them."""
-    def body(c, _):
-        c, sub = jax.random.split(c)
-        k_text, k_taste = jax.random.split(jax.random.fold_in(sub, 0))
-        return c, (jax.random.gumbel(k_text, (v,), jnp.float32),
-                   jax.random.gumbel(k_taste, (l, k), jnp.float32))
-    return jax.lax.scan(body, key, None, length=steps)[1]
-
-
-def jd_draws_jax(cfg, rng_jd, steps):
-    """The port's joint-decode `draws` for JAX's decode key `rng_jd`."""
-    q = cfg.audio_tower.quantizer
-    text, taste = _jd_gumbel_jax(rng_jd, steps, cfg.spoken_lm.llama.vocab_size,
-                                 q.num_quantizers, q.codebook_size)
-    return {"text_gumbel": t(text)[:, None],
-            "taste_gumbel": t(taste)[:, None]}
 
 
 def jax_draws(cfg, rng_syn, max_steps, b=1):

@@ -123,6 +123,42 @@ def hift_noise(rng, batch: int, n_frames: int, cfg):
     return np.asarray(phase), np.asarray(noise)
 
 
+@functools.partial(jax.jit, static_argnums=(1, 2, 3))
+def _s3_gumbel(key, steps, b, v1):
+    """The gumbel noise of each step of the JAX S3 decode on `key`."""
+    def body(k, _):
+        k, sub = jax.random.split(k)
+        return k, jax.random.gumbel(sub, (b, v1), jnp.float32)
+    return jax.lax.scan(body, key, None, length=steps)[1]
+
+
+def s3_gumbel(cfg, key, steps, b=1):
+    return t(_s3_gumbel(key, steps, b, cfg.speech_decoder.speech_token_size + 1))
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4))
+def _jd_gumbel_jax(key, steps, v, l, k):
+    """The text [steps, V] and taste [steps, L, K] gumbel noise of each
+    step of JAX's joint decode on `key` (one row): the step key from the
+    split chain, folded with the row, split into text and taste keys, as
+    jax.random.categorical draws them."""
+    def body(c, _):
+        c, sub = jax.random.split(c)
+        k_text, k_taste = jax.random.split(jax.random.fold_in(sub, 0))
+        return c, (jax.random.gumbel(k_text, (v,), jnp.float32),
+                   jax.random.gumbel(k_taste, (l, k), jnp.float32))
+    return jax.lax.scan(body, key, None, length=steps)[1]
+
+
+def jd_draws_jax(cfg, rng_jd, steps):
+    """The port's joint-decode `draws` for JAX's decode key `rng_jd`."""
+    q = cfg.audio_tower.quantizer
+    text, taste = _jd_gumbel_jax(rng_jd, steps, cfg.spoken_lm.llama.vocab_size,
+                                 q.num_quantizers, q.codebook_size)
+    return {"text_gumbel": t(text)[:, None],
+            "taste_gumbel": t(taste)[:, None]}
+
+
 def t(x, dtype=None):
     """numpy / jax array -> CPU torch tensor."""
     a = torch.from_numpy(np.array(x))
