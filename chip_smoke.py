@@ -1,7 +1,9 @@
-"""Drive the PyTorch/CUDA port on one GPU: reconstruction, completion in the
-int8 and the int4 serving tiers, streaming (the chunked synthesis and the
-pipelined completion), the stage-1 training step, and the decode-layout
-tools (profile_lmhead, profile_fusion).
+"""Drive the PyTorch/CUDA port on one GPU: reconstruction (in the modes
+SpeechAutoEncoder and SpokenLLM), completion in the int8 and the int4
+serving tiers, streaming (the chunked synthesis and the pipelined
+completion), the stage-1 and stage-2 training steps and the stage-2 eval,
+the flow's OT-CFM step, and the decode-layout tools (profile_lmhead,
+profile_fusion).
 
     python3 chip_smoke.py
 
@@ -48,6 +50,16 @@ quantizer (quant.py).  In order it:
    the same start noise z, on what the estimator added to it (mel - z),
    printing beside it the same error of the plain bf16 flow against an f32
    copy (the bf16 noise floor);
+4l. reconstruction in mode "SpokenLLM" ("spokenllm_reconstruction"), on
+   the int8 model, the same wav with step 5's 40-token llm prefix: the
+   spoken LM's teacher-forced taste (extract_vq's llm indices through the
+   Llama's 42 prefix rows, the fused MLP and the int4 head) read back per
+   asr token, then the S3 decode, flow and HiFT.  Checks: exact launches
+   of every kernel, an S3 decode >= 64 long, a finite waveform of 256
+   samples a mel frame, the teacher-forced taste indices with kernels
+   against the plain versions (>= 0.99 of the labelled positions), and
+   `scoring` on the same inputs finite and within 1e-3 relative of its
+   plain run;
 5. completion, as bench.py:990-1087: extract_vq on the same wav (a 40-token
    llm prefix with the asr word ids), 64 joint text + taste decode steps
    with the bench's sampler (text top-p 0.3, temperature 0.5, repetition
@@ -133,6 +145,32 @@ quantizer (quant.py).  In order it:
    stack's layer-0 linear_pos / linear_q / linear_k gradients within 2e-2
    of max|plain|.  It prints the step wall (the min of the three),
    frames/s and peak memory;
+7b. the stage-2 step ("stage2_train") at bench.py:343-420's rung: the bf16
+   model (LoRA unmerged, bf16 too; per-layer remat), lora_only_mask, Adam
+   lr 1e-4 clipped at 5, use_ref_kl (the frozen base, adapters off, in the
+   same step), chunked CE + KL; B = 8 x 512 llm tokens (word ids
+   arange(T) // 2, taste at word starts, RandomState(100 + seed)).  One
+   warm-up step and three timed ones.  Checks: finite loss, text_kl and
+   grad norm; every launch counter 0 over each step; every frozen tensor
+   bit-identical and every lora_B moved; at B = 2 x 514 rows,
+   chunked_ce_kl's CE, KL and gradient within 1e-4 relative of the
+   unchunked formula in f32 (both peaks printed); the chunked loss with
+   the bf16 tensor-core head (the path's) within 1e-4 of the same loss on
+   the table's f32 copy, its bf16 gradient within one bf16 step of the
+   largest ("stage2_head_cost"; with --profile it also times both heads
+   and the copy made on every head call).  It prints step_s (the min of three),
+   tokens/s and peak memory.  Then "stage2_eval":
+   forward_spoken_llm with the speech measurement and eval_metrics_stage2
+   at B = 2 (96 asr tokens, 500 S3 targets: the S3 stack at T = 599, one
+   rel-pos forward per layer exactly), the speech logits with kernels
+   within 2e-2 of max |plain|;
+7c. the flow step ("flow_train"): the full-width flow in f32 with the
+   serving config's fused-DiT flag on, B = 8 rows of 512 S3 tokens and
+   882 mel frames (flow_mel, on the card, of a seeded 22.05 kHz wav);
+   one warm-up and three timed steps.  Checks: finite loss and grad norm,
+   every launch counter 0 (the DiT blocks unfused under autograd, no
+   HiFT), every parameter moved, the loss bit-identical twice from the
+   same draws.  It prints step_s, mel frames/s and peak memory;
 8. the decode-layout tools (taste_spokenlm_tpu_torch/scripts), each loop
    a CUDA graph of its decode steps and two eager loops:
    profile_lmhead at V = 128,256, D = 2048, M = 1, 64 steps (the
@@ -206,11 +244,13 @@ quantizer (quant.py).  In order it:
 
 adds torch.profiler traces of one reconstruction and of its flow, in each
 tier one joint decode and one synthesis, one pipelined stream and one
-training step: the
+step of stage 1, stage 2 and the flow: the
 device's busy time, its idle share of the wall time, the kernels with the
 most device time, and whether the trace holds every launch that the
 kernels' counters saw (for information only: a trace that misses a launch
-does not fail the run).
+does not fail the run).  It also times the stage-2 loss with the
+tensor-core head against the f32 head, with the table's f32 copy made
+once and on every head call ("stage2_head_cost").
 
 Any failed check ends the run with a non-zero exit code and no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -246,12 +286,14 @@ from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               relpos_attention,
                                               reset_launch_counts)
 from taste_spokenlm_tpu_torch.models import spoken_lm as spoken_lm_module
+from taste_spokenlm_tpu_torch.models.flow import MaskedDiffWithXvec
 from taste_spokenlm_tpu_torch.models.llama import RMSNorm
 from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
                                                      build_sampler_tables)
 from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
 from taste_spokenlm_tpu_torch.models.whisper import WhisperForASR
-from taste_spokenlm_tpu_torch.ops.audio import whisper_log_mel
+from taste_spokenlm_tpu_torch.ops import losses
+from taste_spokenlm_tpu_torch.ops.audio import flow_mel, whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
@@ -1119,7 +1161,9 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
     -> the forward's and the backward's rows; each backward row's launch
     split is appended to `profiled`, to be traced last."""
     fwd_shapes, bwd_shapes = [], []
-    (b, t, h, dk, _), n_fwd = max(launches["relpos_causal_attention"].items())
+    main_key = max(launches["relpos_causal_attention"])
+    (b, t, h, dk, _), n_fwd = main_key, launches["relpos_causal_attention"][
+        main_key]
     n_bwd = sum(launches["relpos_causal_attention_bwd"].values())
     lens_list = [t, 3 * t // 4, 7 * t // 16, t // 6, t - 1, 5 * t // 8,
                  5 * t // 16, 3 * t // 16][:b]
@@ -1248,6 +1292,62 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
                              *xs, full, o, lse, do), RELPOS_BWD_LAUNCHES, 3))
         del xs, o, lse, o_ref, lse_ref, grads, refs, again, do, o_full, \
             lse_full
+        torch.cuda.empty_cache()
+    # the forward's other shapes (the stage-2 eval's teacher-forced S3
+    # stack, under no_grad): o and the LSE against the plain version at
+    # ragged lengths, bit-identical twice, p shifted by one row past 5x
+    # the tolerance, timed at the path's full lengths
+    for key, n in sorted(launches["relpos_causal_attention"].items()):
+        if key == main_key:
+            continue
+        b2, t2, h2, dk2, dt = key
+        dtype = getattr(torch, dt)
+        f32 = dtype == torch.float32
+        tol = 1e-4 if f32 else 2e-2
+        xs = [(torch.randn((b2, t2, h2, dk2), generator=gen, device=dev) * g
+               ).to(dtype) for g in (1.5, 1.5, 1.5, 1.0)]
+        xs.append((torch.randn((2 * t2 - 1, h2, dk2), generator=gen,
+                               device=dev) * 1.5).to(dtype))
+        lens2 = torch.tensor([t2, 3 * t2 // 4, t2 // 3, t2 - 1][:b2],
+                             dtype=torch.int32, device=dev)
+        full2 = torch.full_like(lens2, t2)
+        o, lse = relpos_attention.relpos_causal_attention_fwd(*xs, lens2)
+        o_ref, lse_ref = plain_fwd(*xs, lens2)
+        again = relpos_attention.relpos_causal_attention_fwd(*xs, lens2)
+        torch.cuda.synchronize()
+        check(torch.equal(again[0], o) and torch.equal(again[1], lse),
+              f"relpos forward at {list(key)} is not bit-identical twice")
+        o_abs = (o.float() - o_ref.float()).abs().max().item()
+        o_err = o_abs if f32 else rel(o, o_ref)
+        lse_err = (lse - lse_ref).abs().max().item()
+        check(o_err <= tol and lse_err <= 1e-4,
+              f"relpos forward at {list(key)}: err {o_err} (LSE {lse_err})")
+        shifted = torch.cat([xs[4][1:], xs[4][:1]])
+        moved = rel(plain_fwd(*xs[:4], shifted, lens2)[0], o_ref)
+        check(moved > 5 * tol, f"relpos forward check too blunt at "
+                               f"{list(key)}: p shifted moves it only {moved}")
+        width = 4 if f32 else 2
+        n_el, p_el = b2 * t2 * h2 * dk2, (2 * t2 - 1) * h2 * dk2
+        pairs2 = b2 * h2 * t2 * (t2 + 1) // 2
+        bnd, by = bound_ms(width * (5 * n_el + p_el) + 4 * b2
+                           + 4 * b2 * h2 * t2, 6 * dk2 * pairs2,
+                           F32_FLOPS if f32 else BF16_FLOPS)
+        fwd_shapes.append({
+            "shape": [b2, t2, h2, dk2], "lengths": lens2.tolist(),
+            "dtype": dt, "timed_at_lengths": t2, "causal_pairs": pairs2,
+            "launches": n, "max_abs_err": o_abs, "rel_err": o_err,
+            "lse_err": lse_err, "repeat_identical": True,
+            "broken_input": {"p shifted by one row": moved},
+            "ms": time_ms(lambda: relpos_attention.relpos_causal_attention_fwd(
+                *xs, full2)),
+            "plain_ms": time_ms(lambda: plain_fwd(*xs, full2), reps=5),
+            "library_ms": None,
+            **({} if f32 else {
+                "library_chain_ms": time_ms(
+                    lambda: relpos_library_chain(*xs), reps=5),
+                "library_call": "as the training shape's row"}),
+            "bound_ms": bnd, "bound_by": by})
+        del xs, o, lse, o_ref, lse_ref, again
         torch.cuda.empty_cache()
     tol = ("bf16: rel err <= 2e-2 of max|plain|; f32: max abs err <= 1e-4; "
            "LSE <= 1e-4")
@@ -1678,13 +1778,32 @@ def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
     return {"gated_mlp_int4": gated, "ffn_int4": per_s3, "matmul_int4": mm}
 
 
+def tf_launches(cfg: TasteConfig, tier: str, rows: int) -> dict:
+    """{kernel: {shape: launches}} of one teacher-forced spoken-LM forward
+    over `rows` rows in a tier's serving layout: per Llama layer the fused
+    MLP over the rows (in int4 also the qkv and o products on
+    matmul_int4), and the int4 tied head once over the rows."""
+    llama = cfg.spoken_lm.llama
+    h, n_layers = llama.hidden_size, llama.num_hidden_layers
+    out = {f"gated_mlp_{tier}": {(rows, h, llama.intermediate_size): n_layers},
+           "matmul_int4": {(rows, h, llama.vocab_size): 1}}
+    if tier == "int4":
+        heads = llama.num_attention_heads * llama.head_dim
+        qkv = heads + 2 * llama.num_key_value_heads * llama.head_dim
+        out["matmul_int4"].update({(rows, h, qkv): n_layers,
+                                   (rows, heads, h): n_layers})
+    return out
+
+
 def fidelity_launches(cfg: TasteConfig, fidelity: dict) -> dict:
     """{kernel: launches} of the serving fidelity path, from each row's run:
     a quantized row launches its tier's completion kernels (its own joint
     decode steps and S3 length), the fused DiT over its synthesis and over
-    the flow on the f32 row's tokens, and the kernel convs once; the f32
-    and bf16 rows and the float twins launch none of the kernels."""
+    the flow on the f32 row's tokens, the kernel convs once, and its
+    teacher-forced forward over the 42-row prefix; the f32 and bf16 rows
+    and the float twins launch none of the kernels."""
     total: dict = {}
+    rows = B * (1 + T_TOK + cfg.spoken_lm.delay)
     for name, row in fidelity["rows"].items():
         tier = {"int8": "int8", "int4": "int4",
                 serving_fidelity.REACH: "int8"}.get(name)
@@ -1694,7 +1813,8 @@ def fidelity_launches(cfg: TasteConfig, fidelity: dict) -> dict:
             quantized_launches(cfg, tier, row["jd_steps"], row["s3_tokens"]),
             {"fused_dit_block": dit_shapes(cfg, row["syn_mel_frames"]),
              "conv1d_same": conv_shapes(cfg)},
-            {"fused_dit_block": dit_shapes(cfg, row["mel_frames"])})
+            {"fused_dit_block": dit_shapes(cfg, row["mel_frames"])},
+            tf_launches(cfg, tier, rows))
         for kernel, shapes in runs.items():
             total[kernel] = total.get(kernel, 0) + sum(shapes.values())
     return total
@@ -2803,6 +2923,511 @@ def train_path(dev, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# reconstruction in mode "SpokenLLM" (the int8 model)
+# ---------------------------------------------------------------------------
+
+
+def spokenllm_path(model, cfg: TasteConfig, x, lm, gen, n_frames: int,
+                   card: str):
+    """inference_reconstruction(mode="SpokenLLM") on the int8 model: the
+    reconstruction's wav (the tower through extract_vq) and the completion
+    path's 40-token llm prefix; the spoken LM's teacher-forced taste, read
+    back per asr token, drives the S3 decode, the flow and HiFT.  A warm-up
+    and a counted run.  Checks: exact launches (the reconstruction's and
+    the teacher-forced forward's: the fused MLP over the 42 prefix rows in
+    each layer, the int4 head once), an S3 decode >= 64 long, a finite
+    waveform of 256 samples a mel frame; the teacher-forced taste indices
+    with kernels against the plain versions (>= 0.99 of the labelled
+    positions) on the same llm indices; `scoring` on the same inputs finite
+    and within 1e-3 relative of its plain run.  -> ({kernel: {shape:
+    launches}}, the counts)."""
+    llm = (lm["llm_token_ids"], lm["llm_token_lengths"], lm["llm_word_ids"])
+    asr = (x["asr_token_ids"], x["asr_token_lengths"], x["asr_word_ids"])
+
+    def run():
+        return model.inference_reconstruction(
+            x["speaker_embeds"], *asr, x["audio_features"], mode="SpokenLLM",
+            max_speech_steps=MAX_SPEECH, mel_len_max=MEL_LEN_MAX,
+            llm_token_ids=llm[0], llm_token_lengths=llm[1],
+            llm_word_ids=llm[2], generator=gen)
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    dec_len = int(out["speech_token_lengths"].min())
+    check(dec_len >= 64, f"SpokenLLM: degenerate S3 decode length {dec_len}")
+    mel_len = int(model.voice_generator.flow.mel_lengths(
+        out["speech_token_lengths"]).clamp(max=MEL_LEN_MAX)[0])
+    wav = out["waveform"]
+    check(bool(torch.isfinite(wav).all()), "SpokenLLM: non-finite waveform")
+    wav_len = int(out["waveform_lengths"][0])
+    check(wav_len == 256 * mel_len,
+          f"SpokenLLM: wav length {wav_len} != 256 x {mel_len}")
+    rows = B * (1 + T_TOK + cfg.spoken_lm.delay)
+    launches = merge_launches(
+        recon_launches(cfg, model, n_frames, B * (3 + T_TOK), dec_len,
+                       MAX_SPEECH, MEL_LEN_MAX),
+        tf_launches(cfg, "int8", rows))
+    check_counts(counts, {k: sum(v.values()) for k, v in launches.items()},
+                 "spokenllm_reconstruction")
+
+    with torch.no_grad():
+        _, llm_idx = model.extract_vq(*asr, *llm, x["audio_features"])
+        cb = model._cb()
+
+        def taste():
+            o = model.spoken_lm(cb, llm_idx, *llm)
+            return o["taste_logits"].argmax(-1), o["taste_labels"]
+
+        def score():
+            return float(model.scoring(*asr, *llm, x["audio_features"]))
+        taste_k, labels = taste()
+        score_k = score()
+        model.set_use_kernels(False)
+        taste_p, _ = taste()
+        score_p = score()
+        model.set_use_kernels(True)
+    valid = labels != -1
+    agree = (taste_k == taste_p)[valid].float().mean().item()
+    check(agree >= 0.99, f"SpokenLLM: teacher-forced taste agreement {agree} "
+                         "< 0.99")
+    score_rel = abs(score_k - score_p) / abs(score_p)
+    check(np.isfinite(score_k) and score_rel <= 1e-3,
+          f"scoring: kernels {score_k} against plain {score_p} (rel "
+          f"{score_rel} > 1e-3)")
+    audio_s = wav_len / cfg.hift.sampling_rate
+    log({"spokenllm_reconstruction": {
+        "card": card, "wall_s": wall, "audio_s": audio_s,
+        "rtf": wall / audio_s, "s3_decode_len": dec_len, "mel_frames": mel_len,
+        "tf_rows": rows, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "tf_taste_agreement_kernels_vs_plain": agree,
+        "tf_taste_positions": int(valid.sum()),
+        "scoring": [score_k, score_p], "scoring_rel_err": score_rel,
+        "launches": counts}})
+    return launches, counts
+
+
+# ---------------------------------------------------------------------------
+# the stage-2 step and its eval
+# ---------------------------------------------------------------------------
+
+S2_B, S2_T, S2_EVAL_B = 8, 512, 2
+S2_EVAL_ASR, S2_EVAL_SPEECH = 96, 500     # the eval's S3 stack: T = 599
+
+
+def stage2_batch(cfg: TasteConfig, dev, b: int, seed: int) -> dict:
+    """bench.py:356-369: b rows of 512 llm tokens, word ids arange(T) // 2,
+    taste indices at word starts only; indices, then token ids, from
+    RandomState(100 + seed)."""
+    q = cfg.audio_tower.quantizer
+    r = np.random.RandomState(100 + seed)
+    words = np.arange(S2_T) // 2
+    idx = np.full((b, S2_T, q.num_quantizers), -1, np.int64)
+    starts = np.flatnonzero(np.diff(words, prepend=-1) != 0)
+    idx[:, starts] = r.randint(0, q.codebook_size,
+                               (b, len(starts), q.num_quantizers))
+    ids = r.randint(100, 120000, (b, S2_T)) % cfg.spoken_lm.llama.vocab_size
+    n = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    return {"llm_indices": n(idx), "llm_token_ids": n(ids),
+            "llm_token_lengths": n([S2_T] * b),
+            "llm_word_ids": n(words[None].repeat(b, 0))}
+
+
+def chunked_loss_check(model, dev, gen) -> dict:
+    """chunked_ce_kl against the unchunked formula in f32 at B = 2 x 514
+    rows (the stage-2 labels: the last two rows ignored), on the model's
+    tied table in f32 and a teacher near the student: CE, KL and the
+    gradient of 0.1 CE + 0.9 KL with respect to the hidden state within
+    1e-4 relative; each side's peak memory above its inputs."""
+    lm = model.spoken_lm.language_model
+    w = lm.embed_tokens.weight.detach().float()
+    v, hdim = w.shape
+    rows = 1 + S2_T + model.config.spoken_lm.delay
+    hidden = torch.randn((S2_EVAL_B, rows, hdim), generator=gen, device=dev) * 3
+    ref = hidden + torch.randn(hidden.shape, generator=gen, device=dev)
+    labels = torch.randint(0, v, (S2_EVAL_B, rows), generator=gen, device=dev)
+    labels[:, S2_T:] = -1
+    head = lambda h: h @ w.T  # noqa: E731
+    valid = labels != -1
+
+    def unchunked(h):
+        logp = torch.log_softmax(head(h), -1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+        ce = torch.where(valid, nll, 0.0).sum() / valid.sum()
+        with torch.no_grad():
+            tp = torch.softmax(head(ref), -1)
+            logt = torch.log(torch.clamp(tp, min=1e-20))
+        kl = torch.where(valid, (tp * (logt - logp)).sum(-1), 0.0).sum() \
+            / valid.sum()
+        return ce, kl
+
+    res = {}
+    for name, fn in (("unchunked", unchunked),
+                     ("chunked", lambda h: losses.chunked_ce_kl(
+                         head, h, labels, ref_hidden=ref))):
+        h = hidden.clone().requires_grad_()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ce, kl = fn(h)
+        (0.1 * ce + 0.9 * kl).backward()
+        torch.cuda.synchronize()
+        res[name] = (ce.item(), kl.item(), h.grad,
+                     (torch.cuda.max_memory_allocated() - base) / 1e9)
+    (ce_u, kl_u, g_u, peak_u), (ce_c, kl_c, g_c, peak_c) = (
+        res["unchunked"], res["chunked"])
+    out = {"rows": [S2_EVAL_B, rows], "ce": [ce_c, ce_u], "kl": [kl_c, kl_u],
+           "ce_rel_err": abs(ce_c - ce_u) / abs(ce_u),
+           "kl_rel_err": abs(kl_c - kl_u) / abs(kl_u),
+           "grad_rel_err": ((g_c - g_u).abs().max()
+                            / g_u.abs().max()).item(),
+           "peak_gb_chunked": peak_c, "peak_gb_unchunked": peak_u}
+    for k in ("ce_rel_err", "kl_rel_err", "grad_rel_err"):
+        check(out[k] <= 1e-4, f"chunked_ce_kl against unchunked: {k} "
+                              f"{out[k]} > 1e-4")
+    check(kl_u > 1e-3, f"chunked_ce_kl check: the teacher is the student "
+                       f"(KL {kl_u})")
+    return out
+
+
+def head_cost(model, dev, gen, profile: bool) -> dict:
+    """The path's head in the chunked loss at the training shape (B = 8 x
+    514 rows, bf16 hidden, a teacher hidden state near it): the bf16
+    table on the tensor cores with f32 output (`LlamaModel.logits`, the
+    path's head) against an f32 product over the table's f32 copy, the
+    loss and its backward once each.  The tensor-core loss's CE and KL
+    within 1e-4 relative of the f32 head's, its bf16 gradient within one
+    bf16 step (2^-8) of the largest.  With `profile`, also the time of
+    the loss and its backward each way (and with the copy made on every
+    head call, 36 a loss), of the copy alone, and of one 512-row
+    chunk's head as the f32 product and as the bf16 product."""
+    lm = model.spoken_lm.language_model
+    rows = 1 + S2_T + model.config.spoken_lm.delay
+    hdim = lm.config.hidden_size
+    hidden = (torch.randn((S2_B, rows, hdim), generator=gen, device=dev)
+              ).to(torch.bfloat16)
+    ref = (hidden.float() + torch.randn(hidden.shape, generator=gen,
+                                        device=dev)).to(torch.bfloat16)
+    labels = torch.randint(0, lm.config.vocab_size, (S2_B, rows),
+                           generator=gen, device=dev)
+    labels[:, S2_T:] = -1
+    w = lm.embed_tokens.weight.detach()
+    w32 = w.float()
+    heads = {"tensor_core": lm.logits,
+             "f32_hoisted": lambda h: h.float() @ w32.T}
+    if profile:
+        heads["f32_per_call"] = lambda h: h.float() @ w.float().T
+
+    def run(head):
+        h = hidden.clone().requires_grad_()
+        ce, kl = losses.chunked_ce_kl(head, h, labels, ref_hidden=ref)
+        (0.1 * ce + 0.9 * kl).backward()
+        return ce.item(), kl.item(), h.grad
+
+    out, res = {}, {}
+    for name, head in heads.items():
+        walls = []
+        for _ in range(3 if profile else 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res[name] = run(head)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        if profile:
+            out[f"{name}_ms"] = min(walls)
+    (ce_t, kl_t, g_t), (ce_f, kl_f, g_f) = res["tensor_core"], res["f32_hoisted"]
+    if profile:
+        out.update({
+            "head_calls_per_loss": 4 * (-(-rows // 64)),
+            "upcast_ms": time_ms(lambda: w.float(), reps=10),
+            "chunk_f32_product_ms": time_ms(
+                lambda: hidden[:, :64].reshape(-1, hdim).float() @ w32.T,
+                reps=10),
+            "chunk_bf16_product_f32_out_ms": time_ms(
+                lambda: torch.mm(hidden[:, :64].reshape(-1, hdim), w.T,
+                                 out_dtype=torch.float32), reps=10)})
+    out["tensor_core_vs_f32"] = {
+        "ce_rel_err": abs(ce_t - ce_f) / abs(ce_f),
+        "kl_rel_err": abs(kl_t - kl_f) / abs(kl_f),
+        "grad_rel_err": ((g_t.float() - g_f.float()).abs().max()
+                         / g_f.float().abs().max()).item()}
+    # the gradient is the hidden state's, bf16: where the f32 values on
+    # either side straddle a rounding boundary they part by one bf16 step,
+    # up to 2^-8 of the largest gradient
+    for k, e in out["tensor_core_vs_f32"].items():
+        tol = 2.0 ** -8 if k == "grad_rel_err" else 1e-4
+        check(e <= tol, f"the tensor-core head against the f32 head: {k} "
+                        f"{e} > {tol}")
+    return out
+
+
+def stage2_path(dev, card: str, profile: bool):
+    """The stage-2 step at bench.py's rung (bench.py:343-420), then its
+    eval.  TasteConfig.full() in bf16 (LoRA adapters unmerged and bf16
+    too) with per-layer remat, the same seed-0 weights as the other
+    models; lora_only_mask, Adam lr 1e-4 clipped at 5, use_ref_kl (the
+    frozen base, adapters off, in the same step); B = 8 x 512 tokens.  One
+    warm-up step and three timed ones, each ending in a loss read.
+    Checks: finite loss, text_kl and grad norm; every launch counter 0 over
+    each step (the Llama's attention and LoRA are plain PyTorch, as in JAX);
+    every frozen tensor bit-identical and every lora_B moved after the
+    steps; chunked_loss_check.  Then "stage2_eval": forward_spoken_llm
+    with the speech measurement (96 asr tokens at 2 a word, 500 S3
+    targets: the S3 stack teacher-forced at T = 599, under no_grad) and
+    eval_metrics_stage2 at B = 2: exactly one rel-pos forward per S3
+    layer and no other launch, the speech logits with kernels within 2e-2
+    of max |plain|.  -> ({kernel: {shape: launches}}, [the counts of the
+    steps, of the eval])."""
+    float_cfg, _ = configs()
+    cfg = apply_remat(float_cfg, True)
+    t0 = time.perf_counter()
+    with torch.device(dev):
+        model = TasteForCausalLM(cfg, dtype=torch.bfloat16, device=dev)
+    sd = random_state_dict(model, torch.Generator(device=dev).manual_seed(0))
+    # the Llama's RMSNorm scales near 1, as a trained Llama's: at the
+    # serving models' 0.01 its activations and logits are too small for
+    # the adapters to move the text KL or to give q / k a gradient
+    norm_gen = torch.Generator(device=dev).manual_seed(1)
+    for k, v in sd.items():
+        if k.startswith("spoken_lm.language_model.") and k.endswith(
+                "norm.weight"):
+            sd[k] = (1.0 + 0.02 * torch.randn(v.shape, generator=norm_gen,
+                                              device=dev)).to(v.dtype)
+    model.load_state_dict(sd, strict=True)
+    del sd
+    mask = optim.lora_only_mask(model)
+    opt = optim.make_optimizer(model, 1e-4, mask=mask, grad_clip=5.0)
+    step = train_step.make_stage2_step(model, opt, use_ref_kl=True,
+                                       trainable_mask=mask)
+    params = dict(model.named_parameters())
+    # the frozen copy on the host, so that the step's peak is its own
+    frozen = {n: p.detach().cpu() for n, p in params.items() if not mask[n]}
+    lora_b = {n: p.detach().clone() for n, p in params.items()
+              if n.endswith("lora_B")}
+    check(lora_b and not any(n in frozen for n in lora_b)
+          and "spoken_lm.language_model.embed_tokens.weight" in frozen,
+          "lora_only_mask: the adapters are frozen or the table trains")
+    torch.cuda.synchronize()
+    log({"stage2_model_init_s": time.perf_counter() - t0,
+         "trainable_params": sum(p.numel() for n, p in params.items()
+                                 if mask[n])})
+    m = step(stage2_batch(cfg, dev, S2_B, 0))
+    float(m["loss"])
+    batches = [stage2_batch(cfg, dev, S2_B, i + 1) for i in range(3)]
+    torch.cuda.reset_peak_memory_stats()
+    walls, runs, all_counts = [], [], []
+    for bt in batches:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(bt)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check_counts(counts, {}, "stage-2 step")
+        row = {k: float(v) for k, v in m.items()}
+        check(set(row) == {"loss", "text_loss", "taste_loss", "text_kl",
+                           "grad_norm"}
+              and all(np.isfinite(v) for v in row.values()),
+              f"stage-2 step: metrics {row}")
+        runs.append(row)
+        all_counts.append(counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    params = dict(model.named_parameters())
+    moved_frozen = [n for n, v in frozen.items()
+                    if not torch.equal(params[n].detach().cpu(), v)]
+    check(not moved_frozen, f"stage-2 step: frozen tensors moved: "
+                            f"{moved_frozen[:5]}")
+    still = [n for n, v in lora_b.items() if torch.equal(params[n], v)]
+    check(not still, f"stage-2 step: lora_B did not move: {still[:5]}")
+    del frozen, lora_b
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = min(walls)
+    counts = {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+    log({"stage2_train": {
+        "card": card, "batch": f"{S2_B}x{S2_T}tok", "step_walls_s": walls,
+        "step_s": wall, "tokens_per_s": S2_B * S2_T / wall,
+        "peak_mem_gb": peak_gb, "metrics": runs,
+        "frozen_tensors_unchanged": True, "lora_b_moved": True,
+        "launches_per_step": all_counts[0]}})
+    if profile:
+        log({"stage2_train_device_profile": device_profile(
+            lambda: step(batches[1]), wall)})
+    del batches
+    gen = torch.Generator(device=dev).manual_seed(3)
+    log({"stage2_chunked_loss": {"card": card,
+                                 **chunked_loss_check(model, dev, gen)}})
+    log({"stage2_head_cost": {"card": card,
+                              **head_cost(model, dev, gen, profile)}})
+    opt.zero_grad()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- stage2_eval ----
+    r = np.random.RandomState(7)
+    n = lambda a: torch.from_numpy(np.asarray(a)).to(dev)  # noqa: E731
+    sd = cfg.speech_decoder
+    llm = stage2_batch(cfg, dev, S2_EVAL_B, 10)
+    ev = {"speaker_embeds": n(r.randn(S2_EVAL_B, sd.spk_embed_dim)
+                              .astype(np.float32)),
+          "asr_token_ids": n(r.randint(100, 20000, (S2_EVAL_B, S2_EVAL_ASR))
+                             % cfg.audio_tower.whisper.vocab_size),
+          "asr_token_lengths": n([S2_EVAL_ASR] * S2_EVAL_B),
+          "asr_word_ids": n((np.arange(S2_EVAL_ASR) // 2)[None]
+                            .repeat(S2_EVAL_B, 0)),
+          "speech_token_ids": n(r.randint(0, sd.speech_token_size,
+                                          (S2_EVAL_B, S2_EVAL_SPEECH))),
+          "speech_token_lengths": n([S2_EVAL_SPEECH] * S2_EVAL_B)}
+
+    def evaluate():
+        with torch.no_grad():
+            return model.forward_spoken_llm(
+                *(llm[k] for k in train_step.STAGE2_KEYS),
+                ev["speaker_embeds"], ev["asr_token_ids"],
+                ev["asr_token_lengths"], ev["asr_word_ids"],
+                ev["speech_token_ids"], ev["speech_token_lengths"])
+    evaluate()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = evaluate()
+    metrics = {k: float(v) for k, v in train_step.eval_metrics_stage2(
+        out, cfg.audio_tower.quantizer.num_quantizers).items()}
+    eval_wall = time.perf_counter() - t0
+    eval_counts = launch_counts()
+    s3 = sd.llm
+    t_s3 = 3 + S2_EVAL_ASR + S2_EVAL_SPEECH
+    dk = s3.output_size // s3.attention_heads
+    check(relpos_attention.can_use_relpos_flash(t_s3, dk)
+          and not relpos_attention.can_use_relpos_flash(S2_EVAL_ASR, dk),
+          "the eval's shapes are not the rel-pos kernel's")
+    eval_launches = {"relpos_causal_attention": {
+        (S2_EVAL_B, t_s3, s3.attention_heads, dk, "bfloat16"): s3.num_blocks}}
+    check_counts(eval_counts, {"relpos_causal_attention": s3.num_blocks},
+                 "stage2_eval")
+    model.set_use_kernels(False)
+    out_p = evaluate()
+    model.set_use_kernels(True)
+    speech_rel = rel_err(out["speech_logits"], out_p["speech_logits"])
+    check(speech_rel <= 2e-2, f"stage2_eval: speech logits kernels vs plain "
+                              f"{speech_rel} > 2e-2")
+    vals = {k: float(out[k]) for k in ("loss", "text_loss", "taste_loss",
+                                       "speech_token_accuracy")}
+    check(all(np.isfinite(v) for v in (*vals.values(), *metrics.values())),
+          f"stage2_eval: non-finite {vals} {metrics}")
+    log({"stage2_eval": {
+        "card": card, "batch": f"{S2_EVAL_B}x{S2_T}tok, {S2_EVAL_ASR} asr, "
+                               f"{S2_EVAL_SPEECH} S3",
+        "wall_s": eval_wall, "peak_mem_gb": torch.cuda.max_memory_allocated()
+        / 1e9, **vals, **metrics, "speech_logits_rel_err_vs_plain": speech_rel,
+        "launches": eval_counts}})
+    del model, opt, step, out, out_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    return eval_launches, [counts, eval_counts]
+
+
+# ---------------------------------------------------------------------------
+# the flow OT-CFM step
+# ---------------------------------------------------------------------------
+
+FLOW_B, FLOW_TOK, FLOW_MEL = 8, 512, 882     # 512 S3 tokens at 50 Hz
+
+
+def flow_batch(cfg: TasteConfig, dev, gen) -> dict:
+    """B rows of 512 S3 tokens and their target mels: flow_mel, on the
+    card, of a seeded 22.05 kHz wav of 882 x 256 samples (a chirp and
+    noise)."""
+    f = cfg.flow
+    tt = torch.arange(FLOW_MEL * 256, device=dev) / 22050.0
+    wav = (0.3 * torch.sin(2 * np.pi * 180.0 * tt * (1 + 0.1 * torch.sin(tt)))
+           + 0.05 * torch.randn((FLOW_B, tt.numel()), generator=gen,
+                                device=dev))
+    feat = flow_mel(wav, n_mels=f.output_size)
+    check(tuple(feat.shape) == (FLOW_B, FLOW_MEL, f.output_size),
+          f"flow_mel shape {tuple(feat.shape)}")
+    return {"speech_token_ids": torch.randint(0, f.vocab_size,
+                                              (FLOW_B, FLOW_TOK),
+                                              generator=gen, device=dev),
+            "speech_token_lengths": torch.full((FLOW_B,), FLOW_TOK,
+                                               device=dev),
+            "feat": feat, "feat_lengths": torch.full((FLOW_B,), FLOW_MEL,
+                                                     device=dev),
+            "embedding": torch.randn((FLOW_B, f.spk_embed_dim),
+                                     generator=gen, device=dev)}
+
+
+def flow_train_path(dev, card: str, profile: bool):
+    """The flow step at full width in f32 (JAX's default), with the serving
+    config's fused DiT flag on (the blocks must run unfused under autograd):
+    B = 8 rows of 512 S3 tokens, 882 mel frames each; Adam lr 1e-4 clipped
+    at 5; one warm-up step and three timed ones.  Checks: finite loss and
+    grad norm, every launch counter 0 (fused_dit_block and conv1d_same
+    among them), every parameter moved, and the loss bit-identical twice
+    from the same draws.  -> the counts over the three steps."""
+    float_cfg, _ = configs()
+    check(float_cfg.flow.fused_dit_serving, "the flow config is not fused")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.device(dev):
+        flow = MaskedDiffWithXvec(float_cfg.flow).to(dev)
+    flow.load_state_dict(random_state_dict(flow, gen), strict=True)
+    opt = optim.make_optimizer(flow, 1e-4, grad_clip=5.0)
+    step = train_step.make_flow_step(flow, opt)
+    before = {n: p.detach().clone() for n, p in flow.named_parameters()}
+    batches = [flow_batch(float_cfg, dev, gen) for _ in range(4)]
+    float(step(batches[0])["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    walls, runs, all_counts = [], [], []
+    for bt in batches[1:]:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        m = step(bt)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        counts = launch_counts()
+        check_counts(counts, {}, "flow step")
+        row = {k: float(v) for k, v in m.items()}
+        check(all(np.isfinite(v) for v in row.values()),
+              f"flow step: non-finite metrics {row}")
+        runs.append(row)
+        all_counts.append(counts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    still = [n for n, p in flow.named_parameters()
+             if torch.equal(p.detach(), before[n])]
+    check(not still, f"flow step: parameters did not move: {still[:5]}")
+    draws = {"t": torch.rand((FLOW_B,), generator=gen, device=dev),
+             "z": torch.randn(batches[1]["feat"].shape, generator=gen,
+                              device=dev),
+             "keep": torch.rand((FLOW_B,), generator=gen, device=dev) > 0.2}
+    twice = [flow(*(batches[1][k] for k in train_step.FLOW_KEYS),
+                  **draws)["loss"].detach() for _ in range(2)]
+    check(torch.equal(twice[0], twice[1]),
+          f"flow loss not bit-identical from the same draws: "
+          f"{[float(x) for x in twice]}")
+    wall = min(walls)
+    log({"flow_train": {
+        "card": card, "batch": f"{FLOW_B}x{FLOW_TOK} tokens, {FLOW_MEL} mel "
+                               "frames", "step_walls_s": walls,
+        "step_s": wall, "mel_frames_per_s": FLOW_B * FLOW_MEL / wall,
+        "peak_mem_gb": peak_gb, "metrics": runs,
+        "loss_twice": [float(x) for x in twice],
+        "launches_per_step": all_counts[0]}})
+    if profile:
+        log({"flow_train_device_profile": device_profile(
+            lambda: step(batches[2]), wall)})
+    del flow, opt, step, before, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+
+
+# ---------------------------------------------------------------------------
 # the decode-layout tools
 # ---------------------------------------------------------------------------
 
@@ -3031,6 +3656,12 @@ def main(argv=None) -> int:
     check(mel_rel <= 2e-2, f"flow mel rel err {mel_rel} > 2e-2 on mel - z")
     log({"parity": {"taste_index_agreement": agree, "flow_mel_rel_err": mel_rel,
                     "flow_mel_bf16_vs_f32_rel_err": mel_floor}})
+    lm = lm_prefix(cfg, x, dev)
+
+    # ---- reconstruction in mode "SpokenLLM" ----
+    launches, counts = spokenllm_path(model, cfg, x, lm, gen, n_frames, card)
+    spokenllm = [launches]
+    all_counts.append(counts)
 
     # ---- completion in the int8 tier, then in the int4 tier ----
     llama = cfg.spoken_lm.llama
@@ -3040,8 +3671,7 @@ def main(argv=None) -> int:
         delay=cfg.spoken_lm.delay, delay_level=cfg.spoken_lm.delay_level,
         extra_words=LM_STEPS, text_top_p=0.3, taste_top_p=0.0,
         text_temperature=0.5, repetition_penalty=1.1, has_prefix=True)
-    lm = lm_prefix(cfg, x, dev)
-    paths, greedy = [recon], {}
+    paths, greedy = [recon, *spokenllm], {}
     for tier in ("int8", "int4"):
         if tier == "int4":
             # free the int8 model; the int4 one takes the same float
@@ -3113,6 +3743,12 @@ def main(argv=None) -> int:
     paths.append(launches)
     all_counts.append(counts)
 
+    # ---- the stage-2 step and its eval; the flow step ----
+    launches, counts = stage2_path(dev, card, opts.profile)
+    paths.append(launches)
+    all_counts.extend(counts)
+    all_counts.append(flow_train_path(dev, card, opts.profile))
+
     # ---- the decode-layout tools ----
     launches, counts = decode_layouts_path(dev)
     paths.append(launches)
@@ -3140,10 +3776,12 @@ def main(argv=None) -> int:
             "bound_by": max(shapes, key=lambda s: s["bound_ms"] * s["launches"]
                             )["bound_by"],
             "library_ms": lib, "tolerance": tolerance, "verdict": "pass",
-            "per": "the counted runs (reconstruction, int8 and int4 "
-                   "completion, the streaming synthesis and pipelined "
-                   "completion, the serving path's ASR, batched decodes, "
-                   "load tests and HTTP requests, three stage-1 steps, the "
+            "per": "the counted runs (reconstruction, the SpokenLLM "
+                   "reconstruction, int8 and int4 completion, the "
+                   "streaming synthesis and pipelined completion, the "
+                   "serving path's ASR, batched decodes, load tests and "
+                   "HTTP requests, three stage-1 steps, three stage-2 "
+                   "steps and the stage-2 eval, three flow steps, the "
                    "decode-layout tools): per-launch times x launches; "
                    "per-shape rows in 'shapes'",
             "shapes": shapes})

@@ -4,8 +4,11 @@ its output (counterpart of the JAX models/bridges.py).
 Ported: the default pair (`weighted_sum` in, `continue_latent_linear_last`
 out), `simple_sum` and `linear_last`.  At inference the continue-latent
 head's latent is z = mu + sigma and its "logits" are scaled one-hots of
-the nearest residual codebook indices.  The other registry entries are
-in ROADMAP.md queue A, "What the earlier slices left".
+the nearest residual codebook indices; in train mode its forward value is
+mu + sigma * eps, with the gradient of mu + sigma (JAX's reparameterised
+straight-through), eps passed in or drawn from the caller's generator.
+The other registry entries are in ROADMAP.md queue A, "What the earlier
+slices left".
 """
 
 from __future__ import annotations
@@ -59,7 +62,8 @@ class LinearLastExtract(nn.Module):
         self.k, self.l = k, l
         self.linear = nn.Linear(hidden, k * l)
 
-    def forward(self, last_hidden, cb: Codebook = None):
+    def forward(self, last_hidden, cb: Codebook = None, train: bool = False,
+                eps=None, generator=None):
         b, t, _ = last_hidden.shape
         flat = F.linear(last_hidden.float(), self.linear.weight.float(),
                         self.linear.bias.float())
@@ -76,12 +80,23 @@ class ContinueLatentLinearLastExtract(nn.Module):
         self.fc_mu = nn.Linear(hidden, d)
         self.b_logvar = nn.Parameter(torch.zeros(d))
 
-    def forward(self, last_hidden, cb: Codebook):
+    def forward(self, last_hidden, cb: Codebook, train: bool = False,
+                eps=None, generator=None):
+        """`train` with `eps` [B, T, d] (or a `generator` to draw it from):
+        z's value is mu + sigma * eps and its gradient that of mu + sigma;
+        with neither, z = mu + sigma, as JAX's forward without a key.  The
+        indices come from the detached z."""
         h = last_hidden.float()
         mu = F.linear(h, self.fc_mu.weight.float(), self.fc_mu.bias.float())
         logvar = self.b_logvar.float().expand_as(mu)
-        z = mu + torch.exp(0.5 * logvar)
-        indices = codebook_indices_from_code(cb, z)
+        sigma = torch.exp(0.5 * logvar)
+        z = mu + sigma
+        if train and (eps is not None or generator is not None):
+            if eps is None:
+                eps = torch.randn(mu.shape, generator=generator,
+                                  device=mu.device)
+            z = z + (mu + sigma * eps.to(mu.device) - z).detach()
+        indices = codebook_indices_from_code(cb, z.detach())
         logits = F.one_hot(indices, self.k).float() * 1000.0
         return logits, {"z": z, "mu": mu, "logvar": logvar}
 

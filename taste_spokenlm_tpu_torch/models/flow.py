@@ -1,5 +1,5 @@
 """Flow-matching acoustic model: S3 speech tokens -> mel spectrogram
-(counterpart of the JAX models/flow.py inference path).
+(counterpart of the JAX models/flow.py).
 
 `MaskedDiffWithXvec.inference`: token embedding -> full-attention conformer
 -> projection -> nearest length regulation + conv stack -> 10-step Euler
@@ -11,9 +11,16 @@ channels-first inside.  Module names follow the CosyVoice flow state dict
 (input_embedding, spk_embed_affine_layer, encoder.*, encoder_proj,
 length_regulator.model.*, decoder.estimator.*).  With
 `FlowConfig.fused_dit_serving` each U-Net transformer block takes the
-`fused_dit_block` kernel under the JAX gate.  The CFM start noise `z` is
-drawn from a `torch.Generator` or passed in.  The training loss is not
-ported yet.
+`fused_dit_block` kernel under the JAX gate, but never where autograd
+records for its weights or input: the kernel has no backward (in either
+package), so training takes the unfused blocks.  The CFM start noise `z`
+is drawn from a `torch.Generator` or passed in.
+
+Training (`MaskedDiffWithXvec.forward`, `ConditionalCFM.compute_loss`):
+the OT-CFM loss, a masked MSE between the estimator's velocity at a random
+time t on the straight path from noise z to the target mel and the path's
+velocity, with the conditions dropped per row at `training_cfg_rate`.  Its
+draws (t, z, keep) are passed in or taken from a generator.
 """
 
 from __future__ import annotations
@@ -136,9 +143,11 @@ class BasicTransformerBlock(nn.Module):
     on [B, T, C].
 
     With `fused`, a call with key validity whose shape passes
-    `can_use_fused_dit` takes the fused_dit_block kernel (the JAX gate).
-    The kernel's [in, out] weight layout is prepared once when the state
-    dict is loaded."""
+    `can_use_fused_dit` takes the fused_dit_block kernel (the JAX gate),
+    unless autograd records for the input or any weight.  The kernel's
+    [in, out] weight layout is a cache of the live weights: it is made
+    again whenever one of them has been written since (a state-dict load,
+    an optimizer step, a move to another device)."""
 
     def __init__(self, dim: int, heads: int, head_dim: int, fused: bool = False):
         super().__init__()
@@ -148,26 +157,37 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff = _FeedForward(dim)
         self.use_kernels = True
+        self._kernel_key = None
         if fused:
             for name, w in self._kernel_weights().items():
                 self.register_buffer(name, w, persistent=False)
-            self.register_load_state_dict_post_hook(
-                lambda module, _: module.refresh_kernel_weights())
+
+    def _kernel_linears(self) -> Dict[str, nn.Linear]:
+        return {"wq": self.attn1.to_q, "wk": self.attn1.to_k,
+                "wv": self.attn1.to_v, "wo": self.attn1.to_out[0],
+                "w1": self.ff.net[0].proj, "w2": self.ff.net[2]}
+
+    def _weights_key(self) -> tuple:
+        # an in-place write bumps a weight's version counter, a move
+        # changes its storage
+        return tuple((m.weight.data_ptr(), m.weight._version)
+                     for m in self._kernel_linears().values())
 
     def _kernel_weights(self) -> Dict[str, torch.Tensor]:
-        lin = {"wq": self.attn1.to_q, "wk": self.attn1.to_k,
-               "wv": self.attn1.to_v, "wo": self.attn1.to_out[0],
-               "w1": self.ff.net[0].proj, "w2": self.ff.net[2]}
+        self._kernel_key = self._weights_key()
         return {f"kernel_{n}": m.weight.detach().t().contiguous()
-                for n, m in lin.items()}
+                for n, m in self._kernel_linears().items()}
 
     def refresh_kernel_weights(self) -> None:
-        for name, w in self._kernel_weights().items():
-            setattr(self, name, w)
+        """Remake the kernel layout if a weight was written since."""
+        if self._weights_key() != self._kernel_key:
+            for name, w in self._kernel_weights().items():
+                setattr(self, name, w)
 
     def fused_params(self) -> Dict:
         """The block's weights in the JAX param-tree layout that
         fused_dit_block takes (kernels [in, out])."""
+        self.refresh_kernel_weights()
         return {
             "norm1": {"scale": self.norm1.weight, "bias": self.norm1.bias},
             "attn1": {"to_q": {"kernel": self.kernel_wq},
@@ -181,7 +201,9 @@ class BasicTransformerBlock(nn.Module):
         }
 
     def forward(self, x, key_valid=None):
-        if (self.fused and key_valid is not None
+        grad = torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
+        if (self.fused and key_valid is not None and not grad
                 and can_use_fused_dit(x.shape[1], self.dim,
                                       self.heads * self.head_dim)):
             block = fused_dit_block if self.use_kernels else fused_dit_block_plain
@@ -368,6 +390,41 @@ class ConditionalCFM(nn.Module):
             x = x + dt * v
         return x
 
+    def compute_loss(self, x1, mask, mu, spks, cond,
+                     t: Optional[torch.Tensor] = None,
+                     z: Optional[torch.Tensor] = None,
+                     keep: Optional[torch.Tensor] = None,
+                     generator: Optional[torch.Generator] = None):
+        """The OT-CFM training loss.  x1 (the target mel) / mu / cond
+        [B, T, M]; mask bool [B, T]; spks [B, M].  Draws: `t` [B] uniform
+        in [0, 1) (before the cosine scheduler), `z` [B, T, M] standard
+        normal, `keep` bool [B] (the rows whose conditions stay, used when
+        `training_cfg_rate` > 0); each from `generator` when not given."""
+        cfg = self.config
+        b, dev = x1.shape[0], x1.device
+        if t is None:
+            t = torch.rand((b,), generator=generator, device=dev)
+        if z is None:
+            z = torch.randn(x1.shape, generator=generator, device=dev)
+        t = t.to(dev, torch.float32)[:, None, None]
+        if cfg.t_scheduler == "cosine":
+            t = 1.0 - torch.cos(t * 0.5 * math.pi)
+        z = z.to(dev, torch.float32)
+        y = (1.0 - (1.0 - cfg.sigma_min) * t) * z + t * x1
+        u = x1 - (1.0 - cfg.sigma_min) * z
+        if cfg.training_cfg_rate > 0:
+            if keep is None:
+                keep = (torch.rand((b,), generator=generator, device=dev)
+                        > cfg.training_cfg_rate)
+            k = keep.to(dev, torch.float32)
+            mu, spks, cond = mu * k[:, None, None], spks * k[:, None], \
+                cond * k[:, None, None]
+        cdt = self.estimator.dtype
+        pred = self.estimator(y.to(cdt), mask, mu.to(cdt), t[:, 0, 0],
+                              spks.to(cdt), cond.to(cdt)).float()
+        maskf = mask.float()[:, :, None]
+        return ((pred - u) ** 2 * maskf).sum() / (maskf.sum() * x1.shape[-1])
+
 
 class MaskedDiffWithXvec(nn.Module):
     """Token -> mel flow model.  The conformer encoder and the CFM estimator
@@ -390,6 +447,37 @@ class MaskedDiffWithXvec(nn.Module):
         return (token_len.float() / self.config.input_frame_rate
                 * 22050.0 / 256.0).to(torch.int64)
 
+    def _speaker(self, embedding):
+        emb32 = embedding.float()
+        spk = emb32 / torch.clamp(torch.linalg.norm(emb32, dim=-1, keepdim=True),
+                                  min=1e-8)
+        return self.spk_embed_affine_layer(spk)
+
+    def _encode(self, token, token_len, mel_len_max: int, mel_lengths):
+        """Tokens -> the conditioning mu [B, mel_len_max, M]."""
+        mask = length_mask(token_len, token.shape[1])
+        emb = self.input_embedding(torch.clamp(token, min=0)) * mask[:, :, None]
+        h = self.encoder(emb, token_len, causal=False)
+        h = self.encoder_proj(h.float())
+        return self.length_regulator(h, mel_len_max, mel_lengths, token_len)
+
+    def forward(self, token, token_len, feat, feat_len, embedding,
+                generator: Optional[torch.Generator] = None,
+                t: Optional[torch.Tensor] = None,
+                z: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """The training loss: token [B, T] and the target mel feat
+        [B, Tm, M] (ops/audio.flow_mel) with its lengths -> {"loss"}.  The
+        CFM's draws as ConditionalCFM.compute_loss takes them."""
+        spk = self._speaker(embedding)
+        h = self._encode(token, token_len, feat.shape[1], feat_len)
+        mask = length_mask(feat_len, feat.shape[1])
+        loss = self.decoder.compute_loss(feat.float(), mask, h, spk,
+                                         torch.zeros_like(feat, dtype=torch.float32),
+                                         t=t, z=z, keep=keep,
+                                         generator=generator)
+        return {"loss": loss}
+
     @torch.no_grad()
     def inference(self, token, token_len, embedding, mel_len_max: int,
                   n_timesteps: Optional[int] = None,
@@ -397,16 +485,9 @@ class MaskedDiffWithXvec(nn.Module):
                   generator: Optional[torch.Generator] = None):
         """token [B, T] -> (mel [B, mel_len_max, M] masked beyond its length,
         mel lengths [B])."""
-        emb32 = embedding.float()
-        spk = emb32 / torch.clamp(torch.linalg.norm(emb32, dim=-1, keepdim=True),
-                                  min=1e-8)
-        spk = self.spk_embed_affine_layer(spk)
+        spk = self._speaker(embedding)
         mel_lengths = torch.clamp(self.mel_lengths(token_len), max=mel_len_max)
-        mask = length_mask(token_len, token.shape[1])
-        emb = self.input_embedding(torch.clamp(token, min=0)) * mask[:, :, None]
-        h = self.encoder(emb, token_len, causal=False)
-        h = self.encoder_proj(h.float())
-        h = self.length_regulator(h, mel_len_max, mel_lengths, token_len)
+        h = self._encode(token, token_len, mel_len_max, mel_lengths)
         conds = torch.zeros((token.shape[0], mel_len_max, self.config.output_size),
                             device=token.device)
         mel_mask = length_mask(mel_lengths, mel_len_max)

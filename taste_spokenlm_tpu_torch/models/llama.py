@@ -30,6 +30,7 @@ from taste_spokenlm_tpu_torch.ops.quantized import (F32Buffers, QEmbed,
                                                     fused_gated_mlp_apply,
                                                     int4_apply,
                                                     int4_param_shapes, qmode)
+from taste_spokenlm_tpu_torch.ops.remat import call_layer
 
 NEG_F32 = torch.finfo(torch.float32).min / 2
 
@@ -69,7 +70,12 @@ class LoraDense(F32Buffers):
                                        .uniform_(-bound, bound))
             self.lora_B = nn.Parameter(torch.zeros(features, self.lora.r))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, disable_lora: bool = False
+                ) -> torch.Tensor:
+        """`disable_lora`: the base projection alone (the frozen-base
+        forward of the stage-2 KL), on the same weight tensors.  LoRA
+        dropout is never applied: JAX's `deterministic` defaults to True
+        and no caller changes it."""
         if self.mode == "int4":
             y = int4_apply(x, self.base_q4, self.base_scale, x.dtype,
                            self.use_kernels)
@@ -78,10 +84,40 @@ class LoraDense(F32Buffers):
             y = (x @ self.base_q.to(dt)) * self.base_scale.to(dt)
         else:
             y = F.linear(x.to(self.weight.dtype), self.weight, self.bias)
-        if self.lora is not None:
+        if self.lora is not None and not disable_lora:
             h = (x.float() @ self.lora_A.float().T) @ self.lora_B.float().T
             y = y + (self.lora.alpha / self.lora.r) * h.to(y.dtype)
         return y
+
+
+class _Bf16Head(torch.autograd.Function):
+    """hidden [..., H] x bf16 table [V, H] -> f32 logits [..., V] on the
+    tensor cores: bf16 operands, f32 sums and output (cuBLAS through
+    `torch.mm(out_dtype=)`), the numerics of JAX's head (bf16 operands,
+    preferred_element_type f32) without an f32 copy of the table.  The
+    backward is the f32 head's: f32 products against the table in f32,
+    each gradient rounded to its input's dtype."""
+
+    @staticmethod
+    def forward(ctx, hidden, w):
+        x = hidden.to(w.dtype)
+        ctx.save_for_backward(x, w)
+        ctx.hidden_dtype = hidden.dtype
+        out = torch.mm(x.reshape(-1, x.shape[-1]), w.t(),
+                       out_dtype=torch.float32)
+        return out.reshape(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.reshape(-1, w.shape[0])
+        grad_x = grad_w = None
+        if ctx.needs_input_grad[0]:
+            grad_x = (g @ w.float()).reshape(x.shape).to(x.dtype).to(
+                ctx.hidden_dtype)
+        if ctx.needs_input_grad[1]:
+            grad_w = (g.t() @ x.reshape(-1, x.shape[-1]).float()).to(w.dtype)
+        return grad_x, grad_w
 
 
 def llama3_inv_freq(cfg: LlamaConfig) -> np.ndarray:
@@ -161,7 +197,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = LoraDense(cfg.num_attention_heads * hd, h, lora,
                                 quantized=qz)
 
-    def forward(self, x, cos, sin, mask=None, cache=None, cache_index: int = 0):
+    def forward(self, x, cos, sin, mask=None, cache=None, cache_index: int = 0,
+                disable_lora: bool = False):
         cfg = self.cfg
         b, t, _ = x.shape
         hd, nh, nkv = cfg.head_dim, cfg.num_attention_heads, cfg.num_key_value_heads
@@ -169,7 +206,8 @@ class LlamaAttention(nn.Module):
             qkv = self.qkv_proj(x)
             q, k, v = qkv.split([nh * hd, nkv * hd, nkv * hd], dim=-1)
         else:
-            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+            q, k, v = (p(x, disable_lora)
+                       for p in (self.q_proj, self.k_proj, self.v_proj))
         q = apply_rope(q.reshape(b, t, nh, hd), cos, sin)
         k = apply_rope(k.reshape(b, t, nkv, hd), cos, sin)
         v = v.reshape(b, t, nkv, hd)
@@ -178,7 +216,7 @@ class LlamaAttention(nn.Module):
             cache["v"][:, cache_index:cache_index + t] = v
             k, v = cache["k"], cache["v"]
         out = gqa_attention(q, k, v, mask)
-        return self.o_proj(out.reshape(b, t, nh * hd))
+        return self.o_proj(out.reshape(b, t, nh * hd), disable_lora)
 
 
 class LlamaMLP(nn.Module):
@@ -198,7 +236,8 @@ class LlamaMLP(nn.Module):
             self.up_proj = LoraDense(h, i, lora, quantized=qz)
         self.down_proj = LoraDense(i, h, lora, quantized=qz)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, disable_lora: bool = False
+                ) -> torch.Tensor:
         if self.fused_mlp:
             mode = self.down_proj.mode
             w = "base_q4" if mode == "int4" else "base_q"
@@ -210,8 +249,9 @@ class LlamaMLP(nn.Module):
         if self.gateup:
             gate, up = self.gateup_proj(x).chunk(2, dim=-1)
         else:
-            gate, up = self.gate_proj(x), self.up_proj(x)
-        return self.down_proj(F.silu(gate) * up)
+            gate = self.gate_proj(x, disable_lora)
+            up = self.up_proj(x, disable_lora)
+        return self.down_proj(F.silu(gate) * up, disable_lora)
 
 
 class LlamaLayer(nn.Module):
@@ -222,10 +262,11 @@ class LlamaLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
         self.mlp = LlamaMLP(cfg, lora)
 
-    def forward(self, x, cos, sin, mask=None, cache=None, cache_index: int = 0):
+    def forward(self, x, cos, sin, mask=None, cache=None, cache_index: int = 0,
+                disable_lora: bool = False):
         x = x + self.self_attn(self.input_layernorm(x), cos, sin, mask, cache,
-                               cache_index)
-        return x + self.mlp(self.post_attention_layernorm(x))
+                               cache_index, disable_lora)
+        return x + self.mlp(self.post_attention_layernorm(x), disable_lora)
 
 
 class LlamaModel(nn.Module):
@@ -259,11 +300,13 @@ class LlamaModel(nn.Module):
     def forward(self, input_ids=None, inputs_embeds=None,
                 attention_lengths=None, position_offset=0, caches=None,
                 cache_index: int = 0, output_hidden_states: bool = False,
-                key_valid=None) -> Dict:
+                key_valid=None, disable_lora: bool = False) -> Dict:
         """Full sequence (caches None: causal, optionally length-masked) or
         cached (rows written at `cache_index`, attending to cache slots up
         to their own and to `key_valid` [B, Tk]).  `position_offset` is a
-        scalar or per-row [B] rope offset."""
+        scalar or per-row [B] rope offset.  `disable_lora` runs the base
+        weights alone.  Each layer is checkpointed when the config's
+        `remat` is on and autograd records (ops/remat.py)."""
         if inputs_embeds is None:
             inputs_embeds = self.embed_tokens(input_ids)
         x = inputs_embeds.to(self.dtype)
@@ -286,8 +329,9 @@ class LlamaModel(nn.Module):
                 mask = mask & key_valid[:, None, None, :]
         hidden = [x] if output_hidden_states else None
         for i, layer in enumerate(self.layers):
-            x = layer(x, cos, sin, mask, None if caches is None else caches[i],
-                      cache_index)
+            x = call_layer(layer, self.config.remat, x, cos, sin, mask,
+                           None if caches is None else caches[i], cache_index,
+                           disable_lora=disable_lora)
             if output_hidden_states:
                 hidden.append(x)
         x = self.norm(x)
@@ -300,14 +344,19 @@ class LlamaModel(nn.Module):
         return out
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """The head, f32: float32 weights in f32, bf16 weights as bf16
-        products with f32 sums; the int8 / int4 tied head through QEmbed."""
+        """The head, f32 logits: bf16 operands with f32 sums.  A bf16
+        table on a CUDA device runs as one bf16 cuBLAS product with f32
+        output (`_Bf16Head`, no f32 copy of the table); any other as an
+        f32 product over the table in f32; the int8 / int4 tied head
+        through QEmbed."""
         if not self.config.tie_word_embeddings:
             w = self.lm_head.weight
         elif self.config.quantized_embed_serving:
             return self.embed_tokens.logits(hidden)
         else:
             w = self.embed_tokens.weight
+        if w.dtype == torch.bfloat16 and w.is_cuda:
+            return _Bf16Head.apply(hidden, w)
         return hidden.to(w.dtype).float() @ w.float().T
 
     def init_cache(self, batch: int, max_len: int) -> List[Dict[str, torch.Tensor]]:

@@ -1,15 +1,15 @@
-"""TasteSpokenLM, the joint text + taste autoregressive LM, inference half
-(counterpart of the JAX models/spoken_lm.py).
+"""TasteSpokenLM, the joint text + taste autoregressive LM (counterpart of
+the JAX models/spoken_lm.py).
 
 Ported: the word / token / no-delay conditional prefix
 (`prepare_conditional_embeds`, audio embeds by `fill_forward`), the
-KV-cached joint decode in the modes zero / text / audio / instruct
+teacher-forced forward with its losses (`forward`: text CE, optionally
+with the KL to the frozen base, and the taste loss), the KV-cached joint
+decode in the modes zero / text / audio / instruct
 (`generate_stream_init`, `generate_stream_chunk`, `generate`) with the
 branchless sampler (models/sampler.py), and `get_audio_embeds_from_taste`.
 The decode is a Python loop over steps; it stops early once every row is
-done, as the JAX while-loop does.  The teacher-forced forward with its
-losses belongs to training (ROADMAP.md queue A, "The stage-2 step and the
-teacher-forced spoken LM").
+done, as the JAX while-loop does.
 
 Random draws are Gumbel noise: per step a [B, V] text draw and a
 [B, L, K] taste draw, taken from `generator` or from the `text_gumbel`
@@ -28,14 +28,16 @@ from typing import Any, Dict, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.config import SpokenLMConfig
 from taste_spokenlm_tpu_torch.models.bridges import make_extract, make_fusion
 from taste_spokenlm_tpu_torch.models.llama import LlamaModel
 from taste_spokenlm_tpu_torch.models.quantizer import (
-    Codebook, codebook_output_from_indices)
+    Codebook, codebook_code_from_indices, codebook_output_from_indices)
 from taste_spokenlm_tpu_torch.models.sampler import (IGNORE_ID, SamplerConfig,
                                                      init_state, sampler_step)
+from taste_spokenlm_tpu_torch.ops.losses import chunked_ce_kl, kl_to_reference
 from taste_spokenlm_tpu_torch.ops.masking import length_mask
 from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
 from taste_spokenlm_tpu_torch.ops.segment import ragged_concat, word_start_mask
@@ -96,6 +98,10 @@ class TasteSpokenLM(nn.Module):
         self.pad_audio_unit_embed = nn.Parameter(torch.zeros(audio_dim))
         self.fuse_for_bridge_in_llm.to(dtype)
         self.extract_for_bridge_out_llm.to(dtype)
+        self.taste_d = taste_d
+        # the latent heads take the regression + KL taste loss, the others
+        # the per-level CE
+        self.do_continue = "continue_latent" in cfg.out_llm_module
 
     def encode_audio(self, llm_indices: torch.Tensor, cb: Codebook):
         """Per-position taste indices -> audio embeds (fill_forward: the last
@@ -174,6 +180,118 @@ class TasteSpokenLM(nn.Module):
         fused = self._fuse(text_stream, audio_stream)
         return (torch.cat([sos.float(), fused], dim=1), llm_token_lengths + d + 1,
                 labels, audio_stream)
+
+    # ------------------------------------------------------------------
+    # the teacher-forced forward (training, eval and scoring)
+    # ------------------------------------------------------------------
+
+    def forward(self, cb: Codebook, llm_indices, llm_token_ids,
+                llm_token_lengths, llm_word_ids, train: bool = False,
+                eps: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None,
+                ref_logits: Optional[torch.Tensor] = None,
+                compute_ref_kl: bool = False, return_text_logits: bool = True,
+                ce_chunk_size: int = 64) -> Dict[str, torch.Tensor]:
+        """The teacher-forced forward over [sos | fused text + taste] ->
+        text_labels, taste_logits, taste_labels, output_lengths,
+        text_loss, taste_loss, loss (and text_logits, text_kl).
+
+        `train` reparameterises the continue-latent bridge with `eps`
+        [B, 1+T+D, d] or draws from `generator`.  `compute_ref_kl` (with no
+        `ref_logits`) runs the frozen base, adapters off and under no_grad,
+        over [sos | tokens] as the KL's teacher.  `return_text_logits=False`
+        is the training path: CE (+ KL) in time chunks of
+        `ce_chunk_size` (ops/losses.chunked_ce_kl), so the [B, T, V] logits
+        never exist; otherwise the full logits are returned."""
+        cfg = self.config
+        lm = self.language_model
+        b, t = llm_token_ids.shape
+        inputs_embeds, output_lengths, taste_labels, _ = \
+            self.prepare_conditional_embeds(cb, llm_indices, llm_token_ids,
+                                            llm_token_lengths, llm_word_ids)
+        ref_hidden = None
+        if compute_ref_kl and ref_logits is None:
+            ref_ids = torch.cat([torch.full((b, 1), cfg.sos_id,
+                                            dtype=llm_token_ids.dtype,
+                                            device=llm_token_ids.device),
+                                 llm_token_ids], dim=1)
+            with torch.no_grad():
+                hid = lm(input_ids=ref_ids,
+                         attention_lengths=llm_token_lengths + 1,
+                         disable_lora=True)["last_hidden"]
+                if return_text_logits:
+                    ref_logits = lm.logits(hid)
+                else:
+                    ref_hidden = hid
+        out = lm(inputs_embeds=inputs_embeds, attention_lengths=output_lengths)
+        taste_logits, info = self.extract_for_bridge_out_llm(
+            out["last_hidden"], cb, train=train, eps=eps, generator=generator)
+
+        # next-token text targets, IGNORE_ID from each row's length on
+        total = inputs_embeds.shape[1]
+        pos = torch.arange(total, device=llm_token_ids.device)[None, :]
+        padded = F.pad(llm_token_ids.long(), (0, total - t))
+        text_labels = torch.where(pos < llm_token_lengths[:, None], padded,
+                                  torch.full_like(padded, IGNORE_ID))
+        result = {"text_labels": text_labels, "taste_logits": taste_logits,
+                  "taste_labels": taste_labels,
+                  "output_lengths": output_lengths}
+
+        w = [float(x) for x in cfg.loss_weights.split("-")]
+        valid = text_labels != IGNORE_ID
+        if not return_text_logits:
+            # every label sits inside the teacher's [sos | tokens] span, so
+            # padding its hidden state to `total` touches masked rows only
+            if ref_hidden is not None:
+                ref_hidden = F.pad(ref_hidden,
+                                   (0, 0, 0, total - ref_hidden.shape[1]))
+            text_ce, kl = chunked_ce_kl(lm.logits, out["last_hidden"],
+                                        text_labels, ref_hidden=ref_hidden,
+                                        ref_logits=ref_logits,
+                                        chunk_size=ce_chunk_size)
+        else:
+            text_logits = lm.logits(out["last_hidden"])
+            result["text_logits"] = text_logits
+            logp = torch.log_softmax(text_logits.float(), dim=-1)
+            nll = -torch.gather(logp, -1,
+                                text_labels.clamp(min=0)[..., None])[..., 0]
+            text_ce = (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+                       / torch.clamp(valid.sum(), min=1))
+            kl = None
+            if ref_logits is not None:
+                tr = ref_logits.shape[1]
+                kl = kl_to_reference(text_logits[:, :tr], ref_logits,
+                                     valid[:, :tr])
+        if kl is not None:
+            text_loss = (cfg.text_kl_weight * kl
+                         + (1.0 - cfg.text_kl_weight) * text_ce)
+            result["text_kl"] = kl
+        else:
+            text_loss = text_ce
+
+        taste_valid = (taste_labels != IGNORE_ID).all(dim=-1)
+        if self.do_continue:
+            z, mu, logvar = info["z"], info["mu"], info["logvar"]
+            target = codebook_code_from_indices(cb, taste_labels.clamp(min=0))
+            maskf = taste_valid[..., None].float()
+            denom = torch.clamp(maskf.sum() * self.taste_d, min=1.0)
+            l_reg = ((z - target) ** 2 * maskf).sum() / denom
+            l_kl = 0.5 * ((torch.exp(logvar) + (mu - target) ** 2 - 1 - logvar)
+                          .mean(dim=-1) * taste_valid).sum() / torch.clamp(
+                              taste_valid.sum().float(), min=1.0)
+            taste_loss = 0.5 * l_reg + 0.5 * l_kl
+        else:
+            logp_t = torch.log_softmax(taste_logits.float(), dim=-1)
+            nll_t = -torch.gather(logp_t, -1,
+                                  taste_labels.clamp(min=0)[..., None])[..., 0]
+            level_valid = taste_labels != IGNORE_ID
+            taste_loss = (torch.where(level_valid, nll_t,
+                                      torch.zeros_like(nll_t)).sum()
+                          / torch.clamp(level_valid.sum(), min=1))
+        result["text_loss"] = text_loss
+        result["taste_loss"] = taste_loss
+        result["loss"] = w[0] * text_loss + w[1] * taste_loss
+        return result
 
     # ------------------------------------------------------------------
     # joint decode

@@ -1,16 +1,17 @@
 """TasteForCausalLM (counterpart of the JAX models/taste.py `extract_vq`,
-`inference_reconstruction`, `vocode`, `generate_completion`,
-`synthesize_from_taste`, the streaming methods and the stage-1
-`forward_speech_autoencoder`).
+`scoring`, `inference_reconstruction`, `vocode`, `generate_completion`,
+`synthesize_from_taste`, the streaming methods and the training forwards
+`forward_speech_autoencoder` and `forward_spoken_llm`).
 
 Holds the audio tower, the speech decoder, the spoken LM and the voice
-generator.  Reconstruction: wav -> taste -> S3 -> mel -> wav.  Completion:
+generator.  Reconstruction: wav -> taste -> S3 -> mel -> wav, the taste
+from the tower ("SpeechAutoEncoder") or from the spoken LM's
+teacher-forced forward over the llm tokens ("SpokenLLM").  Completion:
 `generate_completion` (the joint text + taste decode) and then, after the
-host's tokenizer round trip, `synthesize_from_taste`.  Training: the
-stage-1 teacher-forced forward (tokenizer + S3 decoder, train/train_step.py)
-is ported; the stage-2 teacher-forced spoken-LM forward, and with it
-reconstruction in mode "SpokenLLM", is not (ROADMAP.md queue A, "The
-stage-2 step and the teacher-forced spoken LM").
+host's tokenizer round trip, `synthesize_from_taste`.  Training
+(train/train_step.py): stage 1 (tokenizer + S3 decoder) and stage 2 (the
+teacher-forced spoken LM, optionally with the frozen speech decoder run on
+its predicted taste as an eval measurement).
 
 Streaming (`stream_*`, `completion_*`): the S3 decode runs in chunks from
 a stream state, each chunk's window of tokens (left context + the chunk)
@@ -44,7 +45,10 @@ from taste_spokenlm_tpu_torch.models.quantizer import Codebook
 from taste_spokenlm_tpu_torch.models.sampler import SamplerConfig
 from taste_spokenlm_tpu_torch.models.speech_decoder import TasteSpeechDecoder
 from taste_spokenlm_tpu_torch.models.spoken_lm import TasteSpokenLM
-from taste_spokenlm_tpu_torch.ops.segment import remap_gather, word_start_remap
+from taste_spokenlm_tpu_torch.ops.losses import IGNORE_ID
+from taste_spokenlm_tpu_torch.ops.segment import (compact_valid_rows,
+                                                  remap_gather,
+                                                  word_start_remap)
 
 
 class TasteForCausalLM(nn.Module):
@@ -115,6 +119,65 @@ class TasteForCausalLM(nn.Module):
         out["loss"] = loss
         return out
 
+    def forward_spoken_llm(
+        self, llm_indices, llm_token_ids, llm_token_lengths, llm_word_ids,
+        speaker_embeds=None, asr_token_ids=None, asr_token_lengths=None,
+        asr_word_ids=None, speech_token_ids=None, speech_token_lengths=None,
+        train: bool = False, eps: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, ref_logits=None,
+        compute_ref_kl: bool = False, return_text_logits: bool = True,
+        ce_chunk_size: int = 64) -> Dict[str, torch.Tensor]:
+        """Stage 2: the spoken LM's teacher-forced forward and losses
+        (TasteSpokenLM.forward).  Given the speech targets and the asr
+        inputs, the speech decoder also runs on the predicted taste (the
+        eval measurement): speech_logits, speech_labels,
+        speech_token_accuracy."""
+        cb = self._cb()
+        out = self.spoken_lm(cb, llm_indices, llm_token_ids, llm_token_lengths,
+                             llm_word_ids, train=train, eps=eps,
+                             generator=generator, ref_logits=ref_logits,
+                             compute_ref_kl=compute_ref_kl,
+                             return_text_logits=return_text_logits,
+                             ce_chunk_size=ce_chunk_size)
+        if speech_token_ids is not None and asr_token_ids is not None:
+            audio_unit_embeds = self._taste_to_audio_embeds(
+                cb, out["taste_logits"], out["taste_labels"],
+                asr_token_lengths, asr_word_ids)
+            decoded = self.speech_decoder(
+                speaker_embeds, audio_unit_embeds, asr_token_lengths,
+                asr_token_ids, asr_token_lengths, speech_token_ids,
+                speech_token_lengths)
+            out["speech_logits"] = decoded["logits"]
+            out["speech_labels"] = decoded["labels"]
+            out["speech_token_accuracy"] = decoded["speech_token_accuracy"]
+        return out
+
+    def _taste_to_audio_embeds(self, cb: Codebook, taste_logits, taste_labels,
+                               asr_token_lengths, asr_word_ids):
+        """The predicted taste at the labelled (delayed) positions, one row
+        a word, -> per-asr-token audio embeds."""
+        preds = torch.where(taste_labels != IGNORE_ID,
+                            taste_logits.argmax(dim=-1),
+                            torch.full_like(taste_labels, IGNORE_ID))
+        valid = (taste_labels != IGNORE_ID).all(dim=-1)
+        dense = compact_valid_rows(preds, valid, asr_word_ids.shape[1],
+                                   pad_value=0)
+        return self.spoken_lm.get_audio_embeds_from_taste(
+            cb, asr_token_lengths, asr_word_ids, dense)
+
+    @torch.no_grad()
+    def scoring(self, asr_token_ids, asr_token_lengths, asr_word_ids,
+                llm_token_ids, llm_token_lengths, llm_word_ids,
+                audio_features) -> torch.Tensor:
+        """The spoken LM's loss on the utterance's own taste (extract_vq):
+        the ranking score."""
+        _, llm_indices = self.extract_vq(
+            asr_token_ids, asr_token_lengths, asr_word_ids, llm_token_ids,
+            llm_token_lengths, llm_word_ids, audio_features)
+        out = self.spoken_lm(self._cb(), llm_indices, llm_token_ids,
+                             llm_token_lengths, llm_word_ids)
+        return out["loss"]
+
     @torch.no_grad()
     def extract_vq(self, asr_token_ids, asr_token_lengths, asr_word_ids,
                    llm_token_ids, llm_token_lengths, llm_word_ids,
@@ -133,29 +196,48 @@ class TasteForCausalLM(nn.Module):
         self, speaker_embeds, asr_token_ids, asr_token_lengths, asr_word_ids,
         audio_features, mode: str = "SpeechAutoEncoder",
         max_speech_steps: int = 512, mel_len_max: int = 1024,
+        llm_token_ids=None, llm_token_lengths=None, llm_word_ids=None,
         sampling_k: int = 25, generator: Optional[torch.Generator] = None,
         gumbel: Optional[torch.Tensor] = None,
         z: Optional[torch.Tensor] = None,
         source_phase: Optional[torch.Tensor] = None,
         source_noise: Optional[torch.Tensor] = None,
     ) -> Dict[str, torch.Tensor]:
-        """audio -> taste -> S3 tokens -> waveform.
+        """audio -> taste -> S3 tokens -> waveform.  Mode
+        "SpeechAutoEncoder" takes the tower's taste embeds; "SpokenLLM"
+        the spoken LM's teacher-forced prediction of the utterance's taste
+        (extract_vq over the llm tokens `llm_token_ids`,
+        `llm_token_lengths`, `llm_word_ids`), read back per asr token.
 
         `gumbel` [max_speech_steps, B, V+1] is the S3 sampling noise; `z`,
         `source_phase` and `source_noise` the voice generator's draws.  Each
         comes from `generator` when not given."""
-        if mode == "SpokenLLM":
-            raise NotImplementedError(
-                "mode 'SpokenLLM' needs the teacher-forced spoken-LM forward: "
-                'ROADMAP.md queue A, "The stage-2 step and the '
-                'teacher-forced spoken LM"')
-        if mode != "SpeechAutoEncoder":
+        if mode == "SpeechAutoEncoder":
+            encoded = self.audio_tower(audio_features, asr_token_ids,
+                                       asr_token_lengths, asr_word_ids)
+            indices = encoded["quantized_indices"]
+            audio_unit_embeds = encoded["audio_unit_embeds"]
+            audio_unit_lengths = encoded["audio_unit_lengths"]
+        elif mode == "SpokenLLM":
+            if llm_token_ids is None or llm_token_lengths is None \
+                    or llm_word_ids is None:
+                raise ValueError("mode 'SpokenLLM' needs llm_token_ids, "
+                                 "llm_token_lengths and llm_word_ids")
+            cb = self._cb()
+            indices, llm_indices = self.extract_vq(
+                asr_token_ids, asr_token_lengths, asr_word_ids, llm_token_ids,
+                llm_token_lengths, llm_word_ids, audio_features)
+            lm_out = self.spoken_lm(cb, llm_indices, llm_token_ids,
+                                    llm_token_lengths, llm_word_ids)
+            audio_unit_embeds = self._taste_to_audio_embeds(
+                cb, lm_out["taste_logits"], lm_out["taste_labels"],
+                asr_token_lengths, asr_word_ids)
+            audio_unit_lengths = asr_token_lengths
+        else:
             raise ValueError(mode)
-        encoded = self.audio_tower(audio_features, asr_token_ids,
-                                   asr_token_lengths, asr_word_ids)
         gen = self.speech_decoder.generate(
-            speaker_embeds, encoded["audio_unit_embeds"],
-            encoded["audio_unit_lengths"], asr_token_ids, asr_token_lengths,
+            speaker_embeds, audio_unit_embeds, audio_unit_lengths,
+            asr_token_ids, asr_token_lengths,
             max_steps=max_speech_steps, sampling_k=sampling_k,
             generator=generator, gumbel=gumbel)
         tokens = torch.clamp(gen["speech_token_ids"], min=0)
@@ -163,7 +245,7 @@ class TasteForCausalLM(nn.Module):
             tokens, gen["speech_token_lengths"], speaker_embeds, mel_len_max,
             generator=generator, z=z, source_phase=source_phase,
             source_noise=source_noise)
-        return {"quantized_indices": encoded["quantized_indices"],
+        return {"quantized_indices": indices,
                 "speech_token_ids": gen["speech_token_ids"],
                 "speech_token_lengths": gen["speech_token_lengths"],
                 "waveform": wav, "waveform_lengths": wav_lengths}

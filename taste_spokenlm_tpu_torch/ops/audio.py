@@ -10,6 +10,9 @@ resampler, as plain PyTorch over batched tensors.
   epsilon floor (torchaudio.compliance.kaldi.fbank, dither 0).
 * Resampling: the polyphase hann-windowed sinc of torchaudio's default
   `Resample` (lowpass_filter_width 6, rolloff 0.99), one strided conv1d.
+* Flow mel (the flow step's targets): 22.05 kHz, (n_fft - hop) / 2
+  reflect padding, hann(1024) periodic, hop 256, sqrt(|.|^2 + 1e-9),
+  slaney filterbank 0-8 kHz, log(clamp 1e-5), time-major.
 
 The filterbanks and the resampling kernel are host-side numpy constants,
 as in JAX.
@@ -155,6 +158,25 @@ def whisper_log_mel(audio: torch.Tensor, n_mels: int = 128, sr: int = 16000,
     gmax = log_spec.amax(dim=(-2, -1), keepdim=True)
     log_spec = torch.maximum(log_spec, gmax - 8.0)
     return (log_spec + 4.0) / 4.0
+
+
+def flow_mel(audio: torch.Tensor, sr: int = 22050, n_fft: int = 1024,
+             hop: int = 256, n_mels: int = 80, fmin: float = 0.0,
+             fmax: float = 8000.0) -> torch.Tensor:
+    """audio [B, T] (or [T]) in [-1, 1] at 22.05 kHz -> log-mel
+    [B, T // hop, n_mels], the CosyVoice / Matcha mel the flow is trained
+    to produce."""
+    if audio.dim() == 1:
+        audio = audio[None]
+    pad = (n_fft - hop) // 2
+    xp = F.pad(audio.float()[:, None], (pad, pad), mode="reflect")[:, 0]
+    frames = frame_signal(xp, n_fft, hop) * hann_window(n_fft, audio.device)
+    spec = torch.fft.rfft(frames, n=n_fft, dim=-1)
+    mag = torch.sqrt(spec.real ** 2 + spec.imag ** 2 + 1e-9)
+    fb = torch.from_numpy(mel_filterbank_slaney(sr, n_fft, n_mels, fmin,
+                                                fmax)).to(audio.device)
+    mel = torch.einsum("mf,btf->btm", fb, mag)
+    return torch.log(torch.clamp(mel, min=1e-5))
 
 
 def mel_frame_length(sample_length, hop: int = 160):

@@ -14,11 +14,17 @@ Counterpart of the JAX repo's scripts/full_arch_parity.py `run_serving`
 Each row runs, at B = 1, a greedy joint decode of 64 steps from a 40-token
 prefix (text top_p 0, repetition penalty 1.1), the synthesis of 128 asr
 tokens from the f32 row's taste rows (512 S3 steps at most, sampling_k 1,
-904 mel frames), and the flow alone on the f32 row's S3 tokens from one
-fixed CFM noise tensor.  Metrics per row against the f32 row: the greedy
-text and taste trajectories' agreement and first divergence, the S3
-trajectory's, and the flow mel's relative error.  The teacher-forced
-(`tf_*`) metrics of the JAX script wait for the port's forward_spoken_llm.
+904 mel frames), the flow alone on the f32 row's S3 tokens from one fixed
+CFM noise tensor, and the teacher-forced spoken LM (`forward_spoken_llm`)
+over the prefix.  Metrics per row against the f32 row: the greedy text
+and taste trajectories' agreement and first divergence, the S3
+trajectory's, the flow mel's relative error, and the teacher-forced
+ones: the text argmax's agreement over every labelled position
+(tf_text_agreement_raw) and over the positions where the f32 row's top-2
+margin exceeds twice the row's largest logit difference
+(tf_text_agreement_decided, 1.0 where there is none; their share
+tf_decided_fraction), and the taste argmax's agreement over the labelled
+taste positions (tf_taste_agreement).
 
 Beside them, per row, the f32 row's top-2 logit margin and the row's
 largest logit difference, as medians over the shared steps and at the
@@ -39,10 +45,10 @@ held against the int8 twin: the check must catch it.
 Weights: every float leaf of two or more dimensions 0.02 x N(0, 1), every
 smaller one 1e-3 x N(0, 1), integers 0, the codebook's `initted` 1 (as
 `_fill_variables_f32`), from a torch generator seeded 0 (`--seed` draws
-others).  The JAX script's floors, without tf_taste: jd_text >= 0.98
-(bf16_merged, int8) / 0.90 (int4), s3 >= 0.98 (bf16_merged) / 0.95
-(int8), no s3 floor for int4 (the JAX package recorded 0.668 on a TPU
-v5e), mel_rel_err <= 0.05 / 0.05 / 0.10.  The report lists every floor a
+others).  The JAX script's floors: jd_text >= 0.98 (bf16_merged, int8) /
+0.90 (int4), s3 >= 0.98 (bf16_merged) / 0.95 (int8), no s3 floor for
+int4 (the JAX package recorded 0.668 on a TPU v5e), tf_taste >= 0.98 /
+0.98 / 0.95, mel_rel_err <= 0.05 / 0.05 / 0.10.  The report lists every floor a
 row misses; they are not the check, since on these near-flat logits a
 trajectory holds or parts with the draw, the twins' with it.  Run as a
 script at full width it exits 1 when a row leaves its twin or the reach
@@ -80,17 +86,20 @@ ROWS = ("f32", "bf16_merged", "int8", "int4")
 FLOORS = {
     "bf16_merged": {"jd_text_trajectory_agreement": (0.98, "min"),
                     "s3_trajectory_agreement": (0.98, "min"),
+                    "tf_taste_agreement": (0.98, "min"),
                     "mel_rel_err": (0.05, "max")},
     "int8": {"jd_text_trajectory_agreement": (0.98, "min"),
              "s3_trajectory_agreement": (0.95, "min"),
+             "tf_taste_agreement": (0.98, "min"),
              "mel_rel_err": (0.05, "max")},
     "int4": {"jd_text_trajectory_agreement": (0.90, "min"),
+             "tf_taste_agreement": (0.95, "min"),
              "mel_rel_err": (0.10, "max")}}
 METRICS = ("jd_tokens", "jd_text_trajectory_agreement", "jd_first_divergence",
-           "jd_words", "jd_taste_trajectory_agreement", "s3_tokens",
+           "jd_words", "jd_taste_trajectory_agreement",
+           "tf_text_agreement_raw", "tf_text_agreement_decided",
+           "tf_decided_fraction", "tf_taste_agreement", "s3_tokens",
            "s3_trajectory_agreement", "s3_first_divergence", "mel_rel_err")
-TF_NOTE = ("the tf_* metrics need forward_spoken_llm (ROADMAP A5): not "
-           "measured")
 # each serving row against its float twin (against_twin): the tolerances
 # chip_smoke.py holds the kernels to against their plain versions (text
 # logits 1.2e-2 of max |logit| on a shared history, the flow's mel - z
@@ -102,8 +111,8 @@ TWIN_TOL = {"text_logit_rel_err": 1.2e-2, "s3_logit_rel_err": 1.2e-2,
 # the float twins' agreement with the f32 row: what the layouts' weights
 # alone do to the trajectories, with no serving kernel or bf16 product
 WITNESS = ("jd_text_trajectory_agreement", "jd_first_divergence",
-           "jd_taste_trajectory_agreement", "s3_trajectory_agreement",
-           "s3_first_divergence")
+           "jd_taste_trajectory_agreement", "tf_taste_agreement",
+           "s3_trajectory_agreement", "s3_first_divergence")
 REACH, REACH_TIER = "int8_w2_scales_x2", "int8"
 # the JAX package's own recording of the int4 row on a TPU v5e
 # (docs/FULL_ARCH_PARITY.md, serving section)
@@ -147,10 +156,11 @@ def dense_taste(jd: Dict, max_words: int, levels: int) -> np.ndarray:
 
 def serving_agreement(ref: Dict, row: Dict) -> Dict:
     """The agreement metrics of one row against the f32 row (the JAX
-    script's `_serving_agreement` without its teacher-forced metrics).
-    Rows hold numpy arrays: "jd" (llm_token_ids, num_tokens,
-    num_taste_words, taste_indices), "syn" (speech_token_ids,
-    speech_token_lengths) and "mel" [B, T, M]."""
+    script's `_serving_agreement`).  Rows hold numpy arrays: "jd"
+    (llm_token_ids, num_tokens, num_taste_words, taste_indices), "syn"
+    (speech_token_ids, speech_token_lengths), "mel" [B, T, M] and, for the
+    tf_* metrics, "tf" (text_logits, text_labels, taste_logits,
+    taste_labels of the teacher-forced forward)."""
     out = {}
     n = min(int(ref["jd"]["num_tokens"][0]), int(row["jd"]["num_tokens"][0]))
     a = np.asarray(ref["jd"]["llm_token_ids"])[0, :n]
@@ -168,6 +178,8 @@ def serving_agreement(ref: Dict, row: Dict) -> Dict:
         out["jd_taste_trajectory_agreement"] = float((ta == tb).mean())
     else:                     # a greedy trajectory inside one word
         out["jd_taste_trajectory_agreement"] = None
+    if "tf" in ref and "tf" in row:
+        out.update(tf_agreement(ref["tf"], row["tf"]))
     sa = np.asarray(ref["syn"]["speech_token_ids"])[0]
     sb = np.asarray(row["syn"]["speech_token_ids"])[0]
     ns = min(int(ref["syn"]["speech_token_lengths"][0]),
@@ -182,6 +194,29 @@ def serving_agreement(ref: Dict, row: Dict) -> Dict:
                                / max(np.linalg.norm(rm), 1e-9))
     return {k: (round(v, 4) if isinstance(v, float) else v)
             for k, v in out.items()}
+
+
+def tf_agreement(ref: Dict, row: Dict) -> Dict:
+    """The teacher-forced metrics: per-position argmax agreement (no
+    compounding) of the text logits over the labelled positions, raw and
+    over the decided ones (the f32 row's top-2 margin above twice the
+    row's largest logit difference: random weights flatten the logits),
+    and of the taste logits over the labelled taste positions."""
+    rtl, otl = ref["text_logits"], row["text_logits"]
+    vmask = ref["text_labels"] != -1
+    agree = (rtl.argmax(-1) == otl.argmax(-1)) & vmask
+    drift = np.abs(rtl - otl).max(-1)
+    top = np.sort(rtl, axis=-1)
+    decided = (top[..., -1] - top[..., -2] > 2 * drift) & vmask
+    tmask = ref["taste_labels"] != -1
+    tagree = (ref["taste_logits"].argmax(-1)
+              == row["taste_logits"].argmax(-1)) & tmask
+    return {"tf_text_agreement_raw": float(agree.sum() / vmask.sum()),
+            "tf_text_agreement_decided": (float(agree[decided].mean())
+                                          if decided.any() else 1.0),
+            "tf_decided_fraction": float(decided.sum()
+                                         / max(vmask.sum(), 1)),
+            "tf_taste_agreement": float(tagree.sum() / max(tmask.sum(), 1))}
 
 
 def misses(tier: str, rep: Dict) -> list:
@@ -338,9 +373,9 @@ def against_twin(twin: Dict, row: Dict, z: np.ndarray,
 def run_row(model, x: _Inputs, taste_ref: Optional[np.ndarray] = None,
             mel_tokens=None) -> Dict:
     """One row: the greedy joint decode, the synthesis from `taste_ref` (the
-    row's own taste rows where None) and the flow on `mel_tokens` ((ids,
-    lengths); the row's own S3 tokens where None); with the decode steps'
-    text and S3 logits."""
+    row's own taste rows where None), the flow on `mel_tokens` ((ids,
+    lengths); the row's own S3 tokens where None) and the teacher-forced
+    forward over the prefix; with the decode steps' text and S3 logits."""
     dev = x.llm_ids.device
     t0 = time.perf_counter()
     logits = _Logits(model)
@@ -348,6 +383,12 @@ def run_row(model, x: _Inputs, taste_ref: Optional[np.ndarray] = None,
         out = _run_row(model, x, taste_ref, mel_tokens)
     finally:
         out_logits = logits.close()
+    # the teacher-forced forward over the prefix, outside the decode's
+    # logit record
+    tf = model.forward_spoken_llm(x.llm_indices, x.llm_ids, x.lens, x.words)
+    out["tf"] = {k: tf[k].float().cpu().numpy() for k in
+                 ("text_logits", "taste_logits", "text_labels",
+                  "taste_labels")}
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     return {**out, "logits": out_logits, "wall_s": time.perf_counter() - t0}
@@ -375,6 +416,7 @@ def _run_row(model, x: _Inputs, taste_ref, mel_tokens) -> Dict:
     if mel_tokens is None:
         mel_tokens = (np.maximum(syn["speech_token_ids"], 0),
                       syn["speech_token_lengths"])
+
     mel, mel_len = model.voice_generator.flow.inference(
         *(torch.from_numpy(a).to(dev) for a in mel_tokens), x.spk,
         x.mel_len_max, z=x.z)
@@ -428,7 +470,7 @@ def main(argv=None) -> dict:
     x = _Inputs(cfg, args.tiny, dev)
     report = {"config": "tiny" if args.tiny else "full", "device": dev.type,
               "decode_steps": x.steps, "max_speech_steps": x.max_speech,
-              "mel_len_max": x.mel_len_max, "rows": {}, "tf_metrics": TF_NOTE}
+              "mel_len_max": x.mel_len_max, "rows": {}}
 
     def log(name, rep):
         report["rows"][name] = rep

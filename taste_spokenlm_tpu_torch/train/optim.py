@@ -3,9 +3,10 @@ JAX train/optim.py).
 
 The schedules are functions of the step count, as optax's: the first update
 uses schedule(0).  `trainable_mask` freezes by regex over the port's
-parameter names (the reference state-dict names), and `STAGE1_PHASES` holds
-the stage-1 curriculum presets that select the same parameters as the JAX
-package's flax-path patterns (scripts/train.py).  `make_optimizer` gives
+parameter names (the reference state-dict names); `STAGE1_PHASES` holds
+the stage-1 curriculum presets and `lora_only_mask` the stage-2 default,
+each selecting the same parameters as the JAX package's flax-path
+patterns (scripts/train.py, train/optim.py).  `make_optimizer` gives
 optax's chain of `clip_by_global_norm` and Adam / AdamW over the trainable
 parameters: gradients are left alone when their global norm is below the
 limit and scaled by limit / norm otherwise (torch's clip_grad_norm_ uses
@@ -127,6 +128,18 @@ def trainable_mask(model: nn.Module, unfreeze_patterns: Sequence[str]
     """{parameter name: trainable}: the names that match a pattern train."""
     return {name: any(re.search(p, name) for p in unfreeze_patterns)
             for name, _ in model.named_parameters()}
+
+
+# the stage-2 default: the LoRA adapters, both bridges and the pad embeds
+# train; the base Llama (its tied embedding / head too) stays frozen
+LORA_ONLY = (r"lora_A$", r"lora_B$", r"fuse_for_bridge_in_llm",
+             r"extract_for_bridge_out_llm", r"pad_text_unit_embed",
+             r"pad_audio_unit_embed")
+
+
+def lora_only_mask(model: nn.Module) -> Dict[str, bool]:
+    """The stage-2 mask (JAX's lora_only_mask)."""
+    return trainable_mask(model, LORA_ONLY)
 
 
 def apply_mask(model: nn.Module, mask: Dict[str, bool]) -> None:

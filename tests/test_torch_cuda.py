@@ -778,3 +778,26 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
         int8_matmul.matmul_int8(x[:, :32], w, scale)
     with pytest.raises(TypeError):         # uint8 weights
         int8_matmul.matmul_int8(x, w.to(torch.uint8), scale)
+
+
+def test_bf16_head_matches_the_f32_head(dev):
+    """The Llama's bf16 head on the tensor cores (bf16 products, f32 sums
+    and output) against the same head as an f32 product over the table's
+    f32 copy: logits within 1e-5 of max |logit|, and the same backward
+    (the gradients of the hidden state and of the table bit for bit)."""
+    from taste_spokenlm_tpu_torch.models.llama import _Bf16Head
+    g = torch.Generator().manual_seed(9)
+    w = _rand(g, 1000, 256, scale=0.05, dtype=torch.bfloat16).to(dev)
+    x = _rand(g, 2, 70, 256, dtype=torch.bfloat16).to(dev)
+    up = _rand(g, 2, 70, 1000).to(dev)
+    grads = []
+    for head in (_Bf16Head.apply,
+                 lambda h, t: h.to(t.dtype).float() @ t.float().T):
+        h, t = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = head(h, t)
+        (out * up).sum().backward()
+        grads.append((out.detach(), h.grad, t.grad))
+    (o1, h1, w1), (o2, h2, w2) = grads
+    assert o1.dtype == torch.float32
+    assert ((o1 - o2).abs().max() / o2.abs().max()).item() <= 1e-5
+    assert torch.equal(h1, h2) and torch.equal(w1, w2)

@@ -113,7 +113,12 @@ def test_vocode_matches_jax_and_clamps_markers(pair):
 
 
 def test_spoken_llm_mode_names_its_roadmap_item(pair):
+    """Mode "SpokenLLM" is ported (tests/test_torch_stage2.py holds it
+    against JAX); without the llm tokens it needs it names them, and an
+    unknown mode is refused."""
     port, d = pair[3], pair[4]
-    with pytest.raises(NotImplementedError, match='queue A, "The stage-2 '
-                       'step and the teacher-forced spoken LM"'):
+    with pytest.raises(ValueError, match="llm_token_ids, llm_token_lengths "
+                       "and llm_word_ids"):
         port.inference_reconstruction(*_port_args(d), mode="SpokenLLM")
+    with pytest.raises(ValueError):
+        port.inference_reconstruction(*_port_args(d), mode="Speech")

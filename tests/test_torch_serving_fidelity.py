@@ -3,8 +3,8 @@ serving_fidelity.py) against the JAX script it ports
 (scripts/full_arch_parity.py `run_serving` / `_serving_agreement` /
 `_fill_variables_f32`).
 
-The agreement metrics are held equal to the JAX function's on crafted rows
-(its teacher-forced inputs go to the JAX side only); the tiny run goes
+The agreement metrics, the teacher-forced ones too, are held equal to the
+JAX function's (a numpy statement) on crafted rows; the tiny run goes
 through all four rows and reports every metric; the weight rule puts each
 leaf of the port's model in the scale class that `_fill_variables_f32`
 gives the same leaf of the JAX model; and the module imports nothing of
@@ -72,7 +72,7 @@ def _row(text, n_tok, taste, n_words, speech, n_speech, mel):
 
 
 def _tf(r):
-    """Teacher-forced inputs, which only the JAX function reads."""
+    """Teacher-forced outputs of a row: random logits, every label valid."""
     return {"text_logits": r.randn(1, 5, V).astype(np.float32),
             "text_labels": np.zeros((1, 5), np.int64),
             "taste_logits": r.randn(1, 5, L, K).astype(np.float32),
@@ -103,15 +103,59 @@ def _cases():
 def test_agreement_matches_jax(case):
     ref, row = _cases()[case]
     r = np.random.RandomState(1)
+    ref, row = {**ref, "tf": _tf(r)}, {**row, "tf": _tf(r)}
     got = serving_fidelity.serving_agreement(ref, row)
-    want = _jax_script()._serving_agreement(
-        {**ref, "tf": _tf(r)}, {**row, "tf": _tf(r)}, 8, L)
-    assert set(got) == {k for k in want if not k.startswith("tf_")}
-    assert got == {k: want[k] for k in got}
+    want = _jax_script()._serving_agreement(ref, row, 8, L)
+    assert set(got) == set(want) == set(serving_fidelity.METRICS)
+    assert got == want
     if case == "divergence at step k":
         assert (got["jd_first_divergence"], got["s3_first_divergence"]) == (3, 6)
     if case == "no taste words":
         assert got["jd_taste_trajectory_agreement"] is None
+
+
+def _tf_pair(case):
+    """(f32, row) teacher-forced outputs: the row's text logits move by
+    0.05 at positions 0-3 and by 3.0 at 4-7 (decided where the f32 top-2
+    margin exceeds 0.1, flipped argmaxes among the moved ones), a few
+    labels ignored, the taste argmax changed at some labelled positions."""
+    r = np.random.RandomState(3)
+    n = 8
+    text = r.randn(1, n, V).astype(np.float32) * 2
+    labels = r.randint(0, V, (1, n))
+    labels[0, [2, 6]] = -1
+    taste = r.randn(1, n, L, K).astype(np.float32)
+    taste_labels = r.randint(0, K, (1, n, L))
+    taste_labels[0, 5] = -1
+    moved = text.copy()
+    moved[0, :4] += 0.05 * r.randn(4, V).astype(np.float32)
+    moved[0, 4:] += 3.0 * r.randn(4, V).astype(np.float32)
+    taste2 = taste.copy()
+    taste2[0, [1, 3, 5]] = r.randn(3, L, K)
+    if case == "nothing decided":
+        moved = text + 50.0 * r.randn(*text.shape).astype(np.float32)
+    ref = {"text_logits": text, "text_labels": labels, "taste_logits": taste,
+           "taste_labels": taste_labels}
+    return ref, {**ref, "text_logits": moved, "taste_logits": taste2}
+
+
+@pytest.mark.parametrize("case", ["decided and not", "nothing decided"])
+def test_tf_agreement_matches_jax(case):
+    """The teacher-forced metrics against the JAX script's numpy formula
+    (its `_serving_agreement` on the same rows)."""
+    ref_tf, row_tf = _tf_pair(case)
+    ref, row = _cases()["identical"]
+    ref, row = {**ref, "tf": ref_tf}, {**row, "tf": row_tf}
+    got = serving_fidelity.serving_agreement(ref, row)
+    want = _jax_script()._serving_agreement(ref, row, 8, L)
+    tf = {k: v for k, v in want.items() if k.startswith("tf_")}
+    assert len(tf) == 4 and {k: got[k] for k in tf} == tf
+    if case == "nothing decided":
+        assert got["tf_decided_fraction"] == 0.0
+        assert got["tf_text_agreement_decided"] == 1.0
+    else:
+        assert 0.0 < got["tf_decided_fraction"] < 1.0
+        assert 0.0 < got["tf_taste_agreement"] < 1.0
 
 
 def test_tiny_run_reports_every_row_and_metric():
@@ -143,7 +187,13 @@ def test_tiny_run_reports_every_row_and_metric():
     assert set(rep["floors"]) == {"bf16_merged", "int8", "int4"}
     assert rep["floors_pass"] == (not rep["floor_misses"])
     assert "s3_trajectory_agreement" not in rep["floors"]["int4"]
-    assert "A5" in rep["tf_metrics"] and "moved" in rep["reach"]
+    for name in serving_fidelity.ROWS[1:]:
+        row = rep["rows"][name]
+        for m in ("tf_text_agreement_raw", "tf_text_agreement_decided",
+                  "tf_decided_fraction", "tf_taste_agreement"):
+            assert 0.0 <= row[m] <= 1.0, (name, m)
+    assert "tf_taste_agreement" in rep["floors"]["int4"]
+    assert "moved" in rep["reach"]
     assert "caught_by" in rep["reach"]
     assert rep["twin_misses"] == []
     assert rep["twin_tolerances"] == serving_fidelity.TWIN_TOL
