@@ -164,6 +164,30 @@ quantizer (quant.py).  In order it:
    at B = 2 (96 asr tokens, 500 S3 targets: the S3 stack at T = 599, one
    rel-pos forward per layer exactly), the speech logits with kernels
    within 2e-2 of max |plain|;
+7b'. the training harness ("train_harness"), after the stage-1 step's
+   model is freed: (a) `train/trainer.py`'s Trainer drives four stage-1
+   steps at the same rung (a fresh bf16 model on the same weights, rvq
+   phase, per-layer remat, Adam 1e-4 clipped at 5, B = 8 x 30 s batches
+   of stage1_batch) with TrainerConfig(total_steps=4, log_every=1,
+   save_every=2, max_to_keep=2, best_metric="loss") in
+   build/train_harness/trainer: exactly train_launches(cfg, 4) launches,
+   four finite metrics.jsonl rows, checkpoints at steps 2 and 4 only; (b)
+   one step run twice from the restored step-2 state (must repeat bit for
+   bit; where it does not, the differing tensors and the ops that
+   torch.use_deterministic_algorithms names are printed and the spread
+   becomes the gate), then a fresh model and optimizer restored from
+   step 2 run steps 3 and 4: the losses, every parameter, EMA buffer and
+   Adam moment, the step and the generator against the uninterrupted
+   run's step-4 checkpoint, bit for bit (or within that spread); (c) the
+   train CLI (scripts/train.py, full config, f32, --synthetic --remat
+   full) as subprocesses: straight through 4 steps (saves at 2 and 4),
+   then a run killed with SIGKILL once its step-2 checkpoint has landed
+   and relaunched, whose steps 3-4 rows must match the straight run's
+   (bit for bit, or within (b)'s spread); the synthetic shapes (8 asr,
+   12 S3 tokens) run flash but not rel-pos, each run's launches exact;
+   then --stage 2 and --model flow, 2 steps each: finite losses and
+   "done".  It prints the step walls, the save and restore seconds, the
+   checkpoint bytes, the peak memory and each CLI run's wall;
 7c. the flow step ("flow_train"): the full-width flow in f32 with the
    serving config's fused-DiT flag on, B = 8 rows of 512 S3 tokens and
    882 mel frames (flow_mel, on the card, of a seeded 22.05 kHz wav);
@@ -227,7 +251,8 @@ quantizer (quant.py).  In order it:
    five gradients at the same tolerances of max|plain|, the forward and
    the backward bit-identical twice (the bf16 forward timed beside its
    library chain: torch.bmm for ac and bd, the gather skew, a masked
-   softmax, torch.bmm with v); p zeroed, p shifted by one row, the lengths
+   softmax, torch.bmm with v; the bf16 backward beside that chain's
+   backward under autograd); p zeroed, p shifted by one row, the lengths
    ignored and dp from one batch row must each move it past 5x the
    tolerance, and p shifted by one row must move the backward's dq_v and
    dp past it too.  Times are at the path's lengths, the backward's split
@@ -263,6 +288,8 @@ import copy
 import gc
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -304,6 +331,8 @@ from taste_spokenlm_tpu_torch.serving.server import (TasteEngine,
 from taste_spokenlm_tpu_torch.scripts import (profile_fusion, profile_lmhead,
                                               serving_fidelity)
 from taste_spokenlm_tpu_torch.train import optim, train_step
+from taste_spokenlm_tpu_torch.train.trainer import Trainer, TrainerConfig
+from taste_spokenlm_tpu_torch.utils.checkpoint import CheckpointManager
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 bytes/s, f32 outside the tensor
 # cores, bf16 on the tensor cores
@@ -1147,6 +1176,18 @@ def relpos_library_chain(q_u, q_v, k, v, p):
     return torch.bmm(torch.softmax(s, -1), vv)
 
 
+def relpos_chain_bwd_ms(xs, do) -> float:
+    """The backward of relpos_library_chain under autograd at full lengths
+    (the forward recorded once; torch.autograd.grad timed)."""
+    leaves = [x.detach().requires_grad_() for x in xs]
+    with torch.enable_grad():
+        out = relpos_library_chain(*leaves)
+    b, t, h, dk = xs[0].shape
+    grad = do.transpose(1, 2).reshape(b * h, t, dk)
+    return time_ms(lambda: torch.autograd.grad(out, leaves, grad,
+                                               retain_graph=True), reps=5)
+
+
 def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
     """The rel-pos attention forward and backward against their plain
     versions at the training path's shape (B, T, H, 128), bf16 (the path's
@@ -1273,6 +1314,11 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
         # dp)
         bnd, by = bound_ms(in_bytes + 2 * width * n_el + 4 * b * h * t
                            + width * (4 * n_el + p_el), 16 * dk * pairs, peak)
+        chain = {} if f32 else {
+            "library_chain_ms": relpos_chain_bwd_ms(xs, do),
+            "library_call": "the backward of the forward's library chain "
+                            "under autograd (bf16); library_ms null: no one "
+                            "call"}
         bwd_shapes.append({
             **common, "launches": n_b,
             "max_abs_err": max((g.float() - r.float()).abs().max().item()
@@ -1286,7 +1332,7 @@ def relpos_kernel_rows(dev, gen, launches: dict, profiled: list):
             "ragged_ms": time_ms(
                 lambda: relpos_attention.relpos_causal_attention_bwd(
                     *xs, lens, o, lse, do)),
-            "library_ms": None, "bound_ms": bnd, "bound_by": by})
+            "library_ms": None, **chain, "bound_ms": bnd, "bound_by": by})
         profiled.append((bwd_shapes[-1], lambda xs=xs, o=o_full, lse=lse_full,
                          do=do: relpos_attention.relpos_causal_attention_bwd(
                              *xs, full, o, lse, do), RELPOS_BWD_LAUNCHES, 3))
@@ -2923,6 +2969,324 @@ def train_path(dev, profile: bool):
 
 
 # ---------------------------------------------------------------------------
+# the training harness: the Trainer, a checkpoint round trip, the train CLI
+# ---------------------------------------------------------------------------
+
+HARNESS_DIR = os.path.join("build", "train_harness")
+HARNESS_STEPS = 4
+CLI_TIMEOUT_S = 600
+# the train CLI as `python -m` runs it, then the process's kernel launch
+# counts (the counters live in the process that launches); without
+# TensorBoard, whose import (TensorFlow) takes tens of seconds: the rows
+# checked are metrics.jsonl's
+CLI_WRAPPER = """
+import json, runpy, sys
+from taste_spokenlm_tpu_torch.kernels import launch_counts
+sys.modules["torch.utils.tensorboard"] = None
+sys.argv = ["train"] + sys.argv[1:]
+try:
+    runpy.run_module("taste_spokenlm_tpu_torch.scripts.train",
+                     run_name="__main__")
+except SystemExit as e:
+    if e.code:
+        raise
+print("launch_counts " + json.dumps(launch_counts()), flush=True)
+"""
+
+
+def harness_step(dev, cfg):
+    """A fresh bf16 model on the serving models' float weights, the rvq
+    phase's mask, Adam 1e-4 clipped at 5 -> its stage-1 step."""
+    with torch.device(dev):
+        model = TasteForCausalLM(cfg, dtype=torch.bfloat16, device=dev)
+    model.load_state_dict(random_state_dict(
+        model, torch.Generator(device=dev).manual_seed(0)), strict=True)
+    mask = optim.trainable_mask(model, optim.STAGE1_PHASES["rvq"])
+    opt = optim.make_optimizer(model, 1e-4, mask=mask, grad_clip=5.0)
+    return train_step.make_stage1_step(model, opt, trainable_mask=mask)
+
+
+def state_tensors(state_dict: dict) -> dict:
+    """{name: tensor} of a TrainState's state dict: the model's parameters
+    and buffers, Adam's moments and the generator's state."""
+    out = {f"model.{k}": v for k, v in state_dict["model"].items()}
+    for k in ("mu", "nu"):
+        out.update({f"{k}.{i}": v for i, v in
+                    enumerate(state_dict["optimizer"][k])})
+    out["generator"] = state_dict["generator"]
+    return out
+
+
+def state_spread(ref: dict, got: dict) -> dict:
+    """{name: max |got - ref| / max |ref|} of the tensors that differ."""
+    out = {}
+    for k, x in ref.items():
+        y = got[k].to(x.device)
+        if not torch.equal(x, y):
+            x, y = x.double(), y.double()
+            out[k] = ((x - y).abs().max()
+                      / x.abs().max().clamp(min=1e-30)).item()
+    return out
+
+
+def dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def nondeterministic_ops(step, batch) -> list:
+    """The messages torch gives, with deterministic algorithms asked for
+    (warn only), for the ops of one step that have none."""
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            step(batch)
+            torch.cuda.synchronize()
+        finally:
+            torch.use_deterministic_algorithms(False)
+    return sorted({str(w.message).split("\n")[0] for w in caught
+                   if "determinis" in str(w.message)})
+
+
+def run_cli(name: str, args: list, kill_after: str = None) -> dict:
+    """Run the train CLI as a subprocess (output in HARNESS_DIR/<name>.log)
+    -> {"wall_s", "counts", "rows"}; with `kill_after` (a checkpoint
+    directory), SIGKILL it once that directory exists."""
+    workdir = args[args.index("--workdir") + 1]
+    log_path = os.path.join(HARNESS_DIR, f"{name}.log")
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", CLI_WRAPPER, *args], stdout=log,
+            stderr=subprocess.STDOUT)
+        try:
+            if kill_after is not None:
+                target = os.path.join(workdir, "ckpt", kill_after)
+                while not os.path.isdir(target):
+                    check(proc.poll() is None and
+                          time.perf_counter() - t0 < CLI_TIMEOUT_S,
+                          f"{name}: no step-{kill_after} checkpoint before "
+                          f"it ended: {open(log_path).read()[-2000:]}")
+                    time.sleep(0.05)
+                os.kill(proc.pid, signal.SIGKILL)
+                proc.wait()
+                return {"wall_s": time.perf_counter() - t0,
+                        "steps_on_disk": sorted(
+                            int(n) for n in os.listdir(os.path.dirname(target))
+                            if n.isdigit())}
+            rc = proc.wait(timeout=CLI_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    text = open(log_path).read()
+    check(rc == 0, f"{name}: the train CLI exited {rc}: {text[-3000:]}")
+    lines = text.strip().splitlines()
+    check(lines[-2] == "done" and lines[-1].startswith("launch_counts "),
+          f"{name}: the train CLI did not end with 'done': {text[-2000:]}")
+    rows = {}
+    for line in open(os.path.join(workdir, "metrics.jsonl")):
+        row = json.loads(line)
+        rows[row["step"]] = row
+    counts = json.loads(lines[-1].split(" ", 1)[1])
+    return {"wall_s": time.perf_counter() - t0, "resumed":
+            "resuming from step" in text, "counts": counts,
+            "launched": {k: n for k, n in counts.items() if n}, "rows": rows}
+
+
+def cli_path(spread_gate: float) -> dict:
+    """(c): the train CLI at the full config (f32, per-layer remat) on the
+    synthetic stage-1 stream, straight through and killed-and-resumed, and
+    two steps of stage 2 and of the flow."""
+    cfg = apply_remat(TasteConfig.full(), True)
+    flash = flash_shapes(cfg, 2 * cfg.audio_tower.whisper.max_source_positions,
+                         8, "float32")
+    check(bool(flash), "the CLI's synthetic batch is not the flash kernel's")
+    per_step = {"flash_attention": sum(flash.values())}
+    base = ["--stage", "1", "--synthetic", "--save-every", "2",
+            "--log-every", "1", "--remat", "full"]
+    out = {}
+    work = {k: os.path.join(HARNESS_DIR, k) for k in
+            ("straight", "resumed", "stage2", "flow")}
+    straight = run_cli("cli_straight", base + ["--steps", "4", "--workdir",
+                                               work["straight"]])
+    check_counts(straight["counts"], {k: 4 * v for k, v in per_step.items()},
+                 "train CLI, straight")
+    shutil.rmtree(os.path.join(work["straight"], "ckpt"))
+    victim = run_cli("cli_victim", base + ["--steps", "500", "--workdir",
+                                           work["resumed"]], kill_after="2")
+    check(victim["steps_on_disk"][-1] < 4,
+          f"the killed run saved {victim['steps_on_disk']}")
+    resumed = run_cli("cli_resumed", base + ["--steps", "4", "--workdir",
+                                             work["resumed"]])
+    check(resumed["resumed"], "the relaunched CLI did not resume")
+    check_counts(resumed["counts"], {k: 2 * v for k, v in per_step.items()},
+                 "train CLI, resumed")
+    diffs = {}
+    for s in (3, 4):
+        for k in ("loss", "commit_loss", "grad_norm"):
+            a, b = straight["rows"][s][k], resumed["rows"][s][k]
+            check(np.isfinite(a), f"train CLI: non-finite {k} at step {s}")
+            diffs[f"{k}@{s}"] = abs(a - b) / max(abs(a), 1e-30)
+    worst = max(diffs.values())
+    check(worst <= spread_gate, f"train CLI: the resumed steps 3-4 part "
+                                f"from the straight run's by {worst}")
+    shutil.rmtree(os.path.join(work["resumed"], "ckpt"))
+    out["stage1"] = {
+        "straight_wall_s": straight["wall_s"], "victim_wall_s": victim["wall_s"],
+        "victim_steps_on_disk": victim["steps_on_disk"],
+        "resumed_wall_s": resumed["wall_s"], "rows_rel_diff": diffs,
+        "launches": {"straight": straight["launched"],
+                     "resumed": resumed["launched"]},
+        "losses": [straight["rows"][s]["loss"] for s in range(1, 5)]}
+    for name, args in (("stage2", ["--stage", "2"]),
+                       ("flow", ["--model", "flow"])):
+        run = run_cli(f"cli_{name}", args + [
+            "--synthetic", "--steps", "2", "--log-every", "1", "--workdir",
+            work[name]])
+        losses = [run["rows"][s]["loss"] for s in (1, 2)]
+        check(all(np.isfinite(losses)), f"train CLI {name}: losses {losses}")
+        out[name] = {"wall_s": run["wall_s"], "losses": losses,
+                     "launches": run["launched"]}
+    return out
+
+
+def harness_path(dev, card: str):
+    """The training harness at the bench rung (the docstring's 7b'):
+    -> ({kernel: {shape: launches}}, the counts of its in-process steps)."""
+    float_cfg, _ = configs()
+    cfg = apply_remat(float_cfg, True)
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    os.makedirs(HARNESS_DIR)
+    t_path = time.perf_counter()
+    per_step = {k: sum(v.values()) for k, v in train_launches(cfg, 1).items()}
+    batches = [stage1_batch(cfg, dev, 11 + i) for i in range(HARNESS_STEPS)]
+    step = harness_step(dev, cfg)
+    workdir = os.path.join(HARNESS_DIR, "trainer")
+    walls, saves = [], []
+
+    def timed_step(batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(batch)
+        float(m["loss"])
+        walls.append(time.perf_counter() - t0)
+        return m
+    trainer = Trainer(TrainerConfig(
+        total_steps=HARNESS_STEPS, log_every=1, save_every=2, max_to_keep=2,
+        best_metric="loss", workdir=workdir), timed_step,
+        schedule=lambda s: 1e-4)
+    manager_save = trainer.ckpt.save
+
+    def timed_save(*args, **kw):
+        t0 = time.perf_counter()
+        saved = manager_save(*args, **kw)
+        saves.append(time.perf_counter() - t0)
+        return saved
+    trainer.ckpt.save = timed_save
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    trainer.fit(trainer.maybe_resume(step.state), iter(batches))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    all_counts = [counts]
+    check_counts(counts, {k: HARNESS_STEPS * v for k, v in per_step.items()},
+                 "train_harness Trainer")
+    rows = [json.loads(x) for x in open(os.path.join(workdir,
+                                                     "metrics.jsonl"))]
+    check([r["step"] for r in rows] == [1, 2, 3, 4]
+          and all(np.isfinite(v) for r in rows for v in r.values()),
+          f"train_harness: metrics rows {rows}")
+    check(trainer.ckpt.all_steps() == [2, 4],
+          f"train_harness: checkpoints {trainer.ckpt.all_steps()}")
+    straight = {r["step"]: r for r in rows}
+    ckpt_bytes = dir_bytes(os.path.join(workdir, "ckpt", "2"))
+
+    # (b) one step twice from the restored step-2 state
+    t0 = time.perf_counter()
+    trainer.ckpt.restore(step.state, 2)
+    torch.cuda.synchronize()
+    restore_s = [time.perf_counter() - t0]
+    reset_launch_counts()
+    m_a = step(batches[2])
+    snap = {k: v.clone() for k, v in state_tensors(
+        step.state.state_dict()).items()}
+    trainer.ckpt.restore(step.state, 2)
+    m_b = step(batches[2])
+    counts = launch_counts()
+    check_counts(counts, {k: 2 * v for k, v in per_step.items()},
+                 "train_harness repeat")
+    all_counts.append(counts)
+    repeat = state_spread(snap, state_tensors(step.state.state_dict()))
+    repeat.update({f"metric.{k}": abs(float(m_a[k]) - float(m_b[k]))
+                   / max(abs(float(m_a[k])), 1e-30)
+                   for k in m_a if float(m_a[k]) != float(m_b[k])})
+    named = []
+    if repeat:
+        trainer.ckpt.restore(step.state, 2)
+        named = nondeterministic_ops(step, batches[2])
+    gate = max(repeat.values(), default=0.0)
+    del snap, m_a, m_b, trainer, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the round trip: a fresh model and optimizer from step 2, steps 3-4
+    fresh = harness_step(dev, cfg)
+    manager = CheckpointManager(os.path.join(workdir, "ckpt"), max_to_keep=2,
+                                best_metric="loss")
+    t0 = time.perf_counter()
+    manager.restore(fresh.state, 2)
+    torch.cuda.synchronize()
+    restore_s.append(time.perf_counter() - t0)
+    check(fresh.state.step == 2, "train_harness: restored step")
+    reset_launch_counts()
+    resumed = [fresh(b) for b in batches[2:]]
+    counts = launch_counts()
+    check_counts(counts, {k: 2 * v for k, v in per_step.items()},
+                 "train_harness resumed")
+    all_counts.append(counts)
+    metric_diff = {f"{k}@{s}": abs(float(m[k]) - straight[s][k])
+                   / max(abs(straight[s][k]), 1e-30)
+                   for s, m in zip((3, 4), resumed) for k in m}
+    ref = torch.load(os.path.join(workdir, "ckpt", "4", "state.pt"),
+                     map_location=dev, weights_only=True)
+    check(ref["step"] == fresh.state.step == 4, "train_harness: step 4")
+    diff = state_spread(state_tensors(ref),
+                        state_tensors(fresh.state.state_dict()))
+    worst = max([*diff.values(), *metric_diff.values()])
+    bitwise = not diff and worst == 0.0
+    log({"train_harness_round_trip": {
+        "repeat_bitwise": not repeat, "repeat_spread": repeat,
+        "nondeterministic_ops": named, "gate": gate,
+        "resumed_bitwise": bitwise, "resumed_max_rel_diff": worst,
+        "differing_tensors": dict(sorted(diff.items(),
+                                         key=lambda kv: -kv[1])[:10]),
+        "tensors_compared": len(state_tensors(ref))}})
+    check(worst <= gate, f"train_harness: the resumed run parts from the "
+                         f"uninterrupted one by {worst} (the step repeats "
+                         f"within {gate})")
+    del fresh, ref, resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(workdir, "ckpt"))
+
+    # (c) the train CLI
+    cli = cli_path(gate)
+    log({"train_harness": {
+        "card": card, "batch": f"{TRAIN_B}x30s", "trainer_step_walls_s": walls,
+        "trainer_step_s": min(walls), "save_s": saves, "restore_s": restore_s,
+        "checkpoint_bytes": ckpt_bytes, "peak_mem_gb": peak_gb,
+        "metrics": rows, "cli": cli,
+        "path_wall_s": time.perf_counter() - t_path}})
+    shutil.rmtree(HARNESS_DIR, ignore_errors=True)
+    return train_launches(cfg, HARNESS_STEPS + 4), {
+        k: sum(c[k] for c in all_counts) for k in all_counts[0]}
+
+
+# ---------------------------------------------------------------------------
 # reconstruction in mode "SpokenLLM" (the int8 model)
 # ---------------------------------------------------------------------------
 
@@ -3738,8 +4102,11 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # ---- the stage-1 training step ----
+    # ---- the stage-1 training step, then the training harness ----
     launches, counts = train_path(dev, opts.profile)
+    paths.append(launches)
+    all_counts.append(counts)
+    launches, counts = harness_path(dev, card)
     paths.append(launches)
     all_counts.append(counts)
 
@@ -3780,8 +4147,10 @@ def main(argv=None) -> int:
                    "reconstruction, int8 and int4 completion, the "
                    "streaming synthesis and pipelined completion, the "
                    "serving path's ASR, batched decodes, load tests and "
-                   "HTTP requests, three stage-1 steps, three stage-2 "
-                   "steps and the stage-2 eval, three flow steps, the "
+                   "HTTP requests, three stage-1 steps, the training "
+                   "harness's eight in-process stage-1 steps, three "
+                   "stage-2 steps and the stage-2 eval, three flow "
+                   "steps, the "
                    "decode-layout tools): per-launch times x launches; "
                    "per-shape rows in 'shapes'",
             "shapes": shapes})

@@ -28,6 +28,7 @@ from taste_spokenlm_tpu_torch.models.quantizer import ResidualVQ
 from taste_spokenlm_tpu_torch.models.whisper import WhisperDecoder, WhisperEncoder
 from taste_spokenlm_tpu_torch.ops.masking import length_mask
 from taste_spokenlm_tpu_torch.ops.segment import segment_mean_pool
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 
 class _Holder(nn.Module):
@@ -121,13 +122,15 @@ class TasteAudioTower(nn.Module):
             b = embeds.shape[0]
             keep = draws.get("audio_keep")
             if keep is None:
-                keep = torch.rand((b,), device=embeds.device,
-                                  generator=generator) >= cfg.audio_dropout_ratio
+                keep = mesh.draw_rows(lambda s: torch.rand(
+                    s, device=embeds.device, generator=generator), (b,)
+                ) >= cfg.audio_dropout_ratio
             noise = draws.get("audio_noise")
             if noise is None:
-                noise = torch.randn(embeds.shape, device=embeds.device,
-                                    generator=generator)
-            std = embeds.float().std(unbiased=False)
+                noise = mesh.draw_rows(lambda s: torch.randn(
+                    s, device=embeds.device, generator=generator),
+                    embeds.shape)
+            std = mesh.global_std(embeds.float())
             embeds = torch.where(keep.to(embeds.device)[:, None, None], embeds,
                                  (noise.to(embeds.device) * std).to(embeds.dtype))
         result["audio_unit_embeds"] = embeds

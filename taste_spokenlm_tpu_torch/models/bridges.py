@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.models.quantizer import (
     Codebook, codebook_indices_from_code)
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 _NOT_PORTED = ("bridge {!r} is not ported yet: ROADMAP.md queue A, "
                '"What the earlier slices left"')
@@ -93,8 +94,8 @@ class ContinueLatentLinearLastExtract(nn.Module):
         z = mu + sigma
         if train and (eps is not None or generator is not None):
             if eps is None:
-                eps = torch.randn(mu.shape, generator=generator,
-                                  device=mu.device)
+                eps = mesh.draw_rows(lambda s: torch.randn(
+                    s, generator=generator, device=mu.device), mu.shape)
             z = z + (mu + sigma * eps.to(mu.device) - z).detach()
         indices = codebook_indices_from_code(cb, z.detach())
         logits = F.one_hot(indices, self.k).float() * 1000.0

@@ -38,6 +38,7 @@ from taste_spokenlm_tpu_torch.kernels.fused_dit import (
 from taste_spokenlm_tpu_torch.models.conformer import ConformerEncoder
 from taste_spokenlm_tpu_torch.ops.attention import multi_head_attention
 from taste_spokenlm_tpu_torch.ops.masking import length_mask
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 
 def nearest_interpolate(x: torch.Tensor, out_len: int, in_lengths: torch.Tensor,
@@ -403,9 +404,11 @@ class ConditionalCFM(nn.Module):
         cfg = self.config
         b, dev = x1.shape[0], x1.device
         if t is None:
-            t = torch.rand((b,), generator=generator, device=dev)
+            t = mesh.draw_rows(lambda s: torch.rand(
+                s, generator=generator, device=dev), (b,))
         if z is None:
-            z = torch.randn(x1.shape, generator=generator, device=dev)
+            z = mesh.draw_rows(lambda s: torch.randn(
+                s, generator=generator, device=dev), x1.shape)
         t = t.to(dev, torch.float32)[:, None, None]
         if cfg.t_scheduler == "cosine":
             t = 1.0 - torch.cos(t * 0.5 * math.pi)
@@ -414,8 +417,9 @@ class ConditionalCFM(nn.Module):
         u = x1 - (1.0 - cfg.sigma_min) * z
         if cfg.training_cfg_rate > 0:
             if keep is None:
-                keep = (torch.rand((b,), generator=generator, device=dev)
-                        > cfg.training_cfg_rate)
+                keep = mesh.draw_rows(lambda s: torch.rand(
+                    s, generator=generator, device=dev), (b,)
+                ) > cfg.training_cfg_rate
             k = keep.to(dev, torch.float32)
             mu, spks, cond = mu * k[:, None, None], spks * k[:, None], \
                 cond * k[:, None, None]
@@ -423,7 +427,8 @@ class ConditionalCFM(nn.Module):
         pred = self.estimator(y.to(cdt), mask, mu.to(cdt), t[:, 0, 0],
                               spks.to(cdt), cond.to(cdt)).float()
         maskf = mask.float()[:, :, None]
-        return ((pred - u) ** 2 * maskf).sum() / (maskf.sum() * x1.shape[-1])
+        return (((pred - u) ** 2 * maskf).sum()
+                / (mesh.global_sum(maskf.sum()) * x1.shape[-1]))
 
 
 class MaskedDiffWithXvec(nn.Module):

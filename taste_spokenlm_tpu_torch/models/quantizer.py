@@ -8,8 +8,12 @@ train forward adds quantize dropout, gumbel code sampling, and the EMA
 codebook update with dead-code expiry, written in place to those buffers
 under no_grad (JAX threads them as the "quantizer" collection).  Its random
 draws (the dropout level, the gumbel noise, the dead-code picks) are passed
-in, or come from a torch.Generator.  K-means codebook init and the grouped /
-plain / k-means quantizers are not ported yet.
+in, or come from a torch.Generator.  Inside a data-parallel train step
+(parallel/mesh.py `data_parallel`) the EMA counts and sums are summed over the ranks, the
+dead-code picks are rows of the global batch and the commit loss divides by
+the global count, as JAX's update over the global batch does under pjit.
+`kmeans` and `ResidualVQ.init_codebook_state` initialise the codebooks;
+the grouped / plain / k-means quantizers are not ported yet.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 import torch.nn as nn
 
 from taste_spokenlm_tpu_torch.config import QuantizerConfig
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 
 class Codebook(NamedTuple):
@@ -81,6 +86,40 @@ def nearest(residual: torch.Tensor, codebook: torch.Tensor,
     return torch.argmax(scores, dim=-1)
 
 
+def kmeans(samples: torch.Tensor, k: int, iters: int,
+           generator: Optional[torch.Generator] = None,
+           sample_weight: Optional[torch.Tensor] = None,
+           init_idx: Optional[torch.Tensor] = None):
+    """Plain Lloyd k-means on [N, D] samples -> (centroids [K, D], sizes
+    [K]), as JAX's `kmeans` runs it.  The first centroids are the rows
+    `init_idx` [K] when given, else K rows drawn from `generator` (distinct
+    when N >= K, as jax.random.choice draws them)."""
+    n = samples.shape[0]
+    dev = samples.device
+    if init_idx is None:
+        init_idx = (torch.randperm(n, generator=generator, device=dev)[:k]
+                    if n >= k else
+                    torch.randint(0, n, (k,), generator=generator, device=dev))
+    centroids = samples[init_idx.to(dev).long()]
+    weight = (torch.ones(n, dtype=samples.dtype, device=dev)
+              if sample_weight is None else sample_weight)
+    sq = (samples ** 2).sum(dim=-1, keepdim=True)
+
+    def assign(c):
+        dists = sq - 2.0 * samples @ c.T + (c ** 2).sum(dim=-1)[None, :]
+        return torch.argmin(dists, dim=-1)
+
+    for _ in range(iters):
+        onehot = (torch.nn.functional.one_hot(assign(centroids), k)
+                  .to(samples.dtype) * weight[:, None])
+        counts = onehot.sum(0)
+        new = onehot.T @ samples / torch.clamp(counts, min=1e-9)[:, None]
+        centroids = torch.where(counts[:, None] > 0, new, centroids)
+    sizes = (torch.nn.functional.one_hot(assign(centroids), k)
+             .to(samples.dtype).T @ weight)
+    return centroids, sizes
+
+
 class _CodebookState(nn.Module):
     def __init__(self, size: int, dim: int):
         super().__init__()
@@ -129,8 +168,8 @@ class ResidualVQ(nn.Module):
         With `train`: quantize dropout keeps the levels <= `drop_after`
         (drawn in [cutoff, Q) when not given), gumbel sampling (when the
         config asks for it) adds `gumbel` [Q, B*T, K], and the EMA update
-        re-seeds dead codes from the batch rows `dead_picks` [Q, K]; each
-        draw comes from `generator` when not given."""
+        re-seeds dead codes from the rows `dead_picks` [Q, K] of the
+        (global) batch; each draw comes from `generator` when not given."""
         cfg = self.config
         z = self.project_in(x) if self.needs_projection else x
         z = z.float()
@@ -148,14 +187,15 @@ class ResidualVQ(nn.Module):
         sample = train and cfg.stochastic_sample_codes \
             and cfg.sample_codebook_temp > 0
         if sample and gumbel is None:
-            u = torch.rand((n_q, b * t, k), device=dev, generator=generator)
+            u = mesh.draw_rows(lambda s: torch.rand(
+                s, device=dev, generator=generator), (n_q, b * t, k), dim=1)
             gumbel = -torch.log(-torch.log(u.clamp_min(1e-20)))
         embed = self.embeds().float()
         residual = z
         quantized = torch.zeros_like(z)
         indices, residuals, commit = [], [], z.new_zeros(())
         maskf = mask.float()[:, :, None]
-        denom = torch.clamp(maskf.sum() * dc, min=1.0)
+        denom = torch.clamp(mesh.global_sum(maskf.sum()) * dc, min=1.0)
         for qi in range(n_q):
             residuals.append(residual)
             idx = nearest(residual.reshape(-1, dc), embed[qi],
@@ -199,8 +239,8 @@ class ResidualVQ(nn.Module):
             valid = maskf * (idx >= 0).float()
             onehot = torch.nn.functional.one_hot(
                 idx.clamp(min=0), k).float() * valid[:, None]
-            counts = onehot.sum(0)
-            sums = onehot.T @ res
+            counts = mesh.all_reduce_(onehot.sum(0))
+            sums = mesh.all_reduce_(onehot.T @ res)
             size = cb.cluster_size[0].float() * decay + counts * (1 - decay)
             avg = cb.embed_avg[0].float() * decay + sums * (1 - decay)
             n = size.sum()
@@ -209,14 +249,17 @@ class ResidualVQ(nn.Module):
             emb = torch.where(size[:, None] >= 1e-5, emb, cb.embed[0].float())
             if cfg.threshold_ema_dead_code > 0:
                 if dead_picks is None:
-                    total = valid.sum()
-                    probs = (valid / torch.clamp(total, min=1.0) if total > 0
-                             else torch.full_like(valid, 1.0 / valid.shape[0]))
+                    valid_all = mesh.gather_rows(valid)
+                    total = valid_all.sum()
+                    probs = (valid_all / torch.clamp(total, min=1.0)
+                             if total > 0 else
+                             torch.full_like(valid_all,
+                                             1.0 / valid_all.shape[0]))
                     pick = torch.multinomial(probs, k, replacement=True,
                                              generator=generator)
                 else:
                     pick = dead_picks[qi].to(res.device).long()
-                replacement = res[pick]
+                replacement = mesh.rows_at(res, pick)
                 dead = size < cfg.threshold_ema_dead_code
                 emb = torch.where(dead[:, None], replacement, emb)
                 avg = torch.where(dead[:, None], replacement, avg)
@@ -224,6 +267,38 @@ class ResidualVQ(nn.Module):
             cb.embed[0].copy_(emb)
             cb.embed_avg[0].copy_(avg)
             cb.cluster_size[0].copy_(size)
+
+    @torch.no_grad()
+    def init_codebook_state(self, samples: torch.Tensor,
+                            generator: Optional[torch.Generator] = None,
+                            init_idx: Optional[torch.Tensor] = None) -> None:
+        """K-means-initialise every level from samples [N, codebook_dim]
+        (through project_in already, when the RVQ has one), as JAX's
+        `init_codebook_state`: level q's codebook is the k-means of the
+        residual the levels before it leave, embed_avg the codebook times
+        the cluster sizes; without `kmeans_init`, normal draws x 0.02 and
+        sizes 1.  Writes the four buffers.  `init_idx` [Q, K]: each level's
+        first centroid rows (else drawn from `generator`).  Within
+        mesh.data_parallel() the samples are every rank's, gathered."""
+        cfg = self.config
+        residual = mesh.gather_rows(samples).float()
+        for qi, level in enumerate(self.layers):
+            if cfg.kmeans_init:
+                emb, size = kmeans(residual, cfg.codebook_size,
+                                   cfg.kmeans_iters, generator,
+                                   init_idx=(None if init_idx is None
+                                             else init_idx[qi]))
+            else:
+                emb = torch.randn((cfg.codebook_size, cfg.codebook_dim),
+                                  generator=generator,
+                                  device=residual.device) * 0.02
+                size = torch.ones(cfg.codebook_size, device=residual.device)
+            residual = residual - emb[nearest(residual, emb)]
+            cb = level._codebook
+            cb.embed[0].copy_(emb)
+            cb.embed_avg[0].copy_(emb * size[:, None])
+            cb.cluster_size[0].copy_(size)
+            cb.initted.fill_(1)
 
     def codebook(self) -> Codebook:
         if self.needs_projection:

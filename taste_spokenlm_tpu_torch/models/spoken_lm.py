@@ -41,6 +41,7 @@ from taste_spokenlm_tpu_torch.ops.losses import chunked_ce_kl, kl_to_reference
 from taste_spokenlm_tpu_torch.ops.masking import length_mask
 from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
 from taste_spokenlm_tpu_torch.ops.segment import ragged_concat, word_start_mask
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 
 def fill_forward_indices(indices: torch.Tensor) -> torch.Tensor:
@@ -274,11 +275,13 @@ class TasteSpokenLM(nn.Module):
             z, mu, logvar = info["z"], info["mu"], info["logvar"]
             target = codebook_code_from_indices(cb, taste_labels.clamp(min=0))
             maskf = taste_valid[..., None].float()
-            denom = torch.clamp(maskf.sum() * self.taste_d, min=1.0)
+            denom = torch.clamp(mesh.global_sum(maskf.sum()) * self.taste_d,
+                                min=1.0)
             l_reg = ((z - target) ** 2 * maskf).sum() / denom
             l_kl = 0.5 * ((torch.exp(logvar) + (mu - target) ** 2 - 1 - logvar)
                           .mean(dim=-1) * taste_valid).sum() / torch.clamp(
-                              taste_valid.sum().float(), min=1.0)
+                              mesh.global_sum(taste_valid.sum()).float(),
+                              min=1.0)
             taste_loss = 0.5 * l_reg + 0.5 * l_kl
         else:
             logp_t = torch.log_softmax(taste_logits.float(), dim=-1)
@@ -287,7 +290,8 @@ class TasteSpokenLM(nn.Module):
             level_valid = taste_labels != IGNORE_ID
             taste_loss = (torch.where(level_valid, nll_t,
                                       torch.zeros_like(nll_t)).sum()
-                          / torch.clamp(level_valid.sum(), min=1))
+                          / torch.clamp(mesh.global_sum(level_valid.sum()),
+                                        min=1))
         result["text_loss"] = text_loss
         result["taste_loss"] = taste_loss
         result["loss"] = w[0] * text_loss + w[1] * taste_loss

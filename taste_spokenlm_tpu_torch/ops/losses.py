@@ -2,6 +2,11 @@
 ops/losses.py): `label_smoothing_ce` and `masked_accuracy` (stage 1);
 `kl_to_reference`, `chunked_ce_kl` and `masked_log_likelihood` (stage 2 and
 the scorer).
+
+Inside a data-parallel train step (parallel/mesh.py `data_parallel`) the
+training means (`label_smoothing_ce`, `masked_accuracy`, `chunked_ce_kl`)
+divide the rank's own sum by the global batch's count, so the ranks'
+values add up to the global mean.
 """
 
 from __future__ import annotations
@@ -12,6 +17,8 @@ from typing import Callable, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 IGNORE_ID = -1
 
@@ -40,8 +47,8 @@ def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor,
     if low > 0.0:
         cross = cross + low * logp.sum(dim=-1)
     kl = torch.where(valid, entropy - cross, torch.zeros_like(cross))
-    denom = (torch.clamp(valid.sum(), min=1) if normalize_length
-             else logits.shape[0])
+    denom = (torch.clamp(mesh.global_sum(valid.sum()), min=1)
+             if normalize_length else logits.shape[0] * mesh.span())
     return kl.sum() / denom
 
 
@@ -50,7 +57,8 @@ def masked_accuracy(logits: torch.Tensor, targets: torch.Tensor,
     """Top-1 accuracy over the non-ignored targets."""
     valid = targets != ignore_id
     correct = ((logits.argmax(dim=-1) == targets) & valid).sum()
-    return correct.float() / torch.clamp(valid.sum(), min=1).float()
+    return correct.float() / torch.clamp(mesh.global_sum(valid.sum()),
+                                         min=1).float()
 
 
 def masked_log_likelihood(logits: torch.Tensor, targets: torch.Tensor,
@@ -160,8 +168,9 @@ def chunked_ce_kl(logits_fn: Callable[[torch.Tensor], torch.Tensor],
             nll_sum, kl_sum = one(*args)
         nll_sums.append(nll_sum)
         kl_sums.append(kl_sum)
-    text_ce = torch.stack(nll_sums).sum() / torch.clamp(valid.sum(), min=1)
+    text_ce = (torch.stack(nll_sums).sum()
+               / torch.clamp(mesh.global_sum(valid.sum()), min=1))
     if ref is None:
         return text_ce, None
-    return text_ce, torch.stack(kl_sums).sum() / torch.clamp(kl_valid.sum(),
-                                                              min=1)
+    return text_ce, (torch.stack(kl_sums).sum()
+                     / torch.clamp(mesh.global_sum(kl_valid.sum()), min=1))

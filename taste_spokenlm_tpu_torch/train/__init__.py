@@ -1,2 +1,2 @@
-"""Training of the port: optimizer, schedules, freeze masks and the stage-1
-step (counterpart of the JAX package's train/)."""
+"""Training of the port: optimizer, schedules, freeze masks, the train steps
+and the training loop (counterpart of the JAX package's train/)."""

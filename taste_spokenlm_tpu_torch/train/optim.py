@@ -13,7 +13,10 @@ limit and scaled by limit / norm otherwise (torch's clip_grad_norm_ uses
 limit / (norm + 1e-6)).  Each parameter is updated in place in its own
 dtype, with its moments in that dtype, one rounding per operation and the
 constants rounded to that dtype first, as optax's jitted update of a bf16
-tree (bench.py's train_main) does.
+tree (bench.py's train_main) does.  Under a data-parallel group
+(parallel/mesh.py) the gradients are summed over the ranks before the
+clip, and each rank keeps the moments of its slice of each parameter
+(ZeRO-1, JAX's `opt_state_shardings`).
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ from typing import Callable, Dict, Optional, Sequence, Union
 import numpy as np
 import torch
 import torch.nn as nn
+
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 Schedule = Callable[[int], float]
 
@@ -184,7 +189,15 @@ class Optimizer:
     reads each parameter's .grad (zero where it has none, as a gradient of
     JAX would be), clips, updates the parameters in place and returns the
     global norm of the raw gradients.  The update runs as foreach
-    operations over the parameters of each dtype."""
+    operations over the parameters of each dtype.
+
+    Under a data-parallel group the gradients are summed over the ranks
+    first, so every rank clips by the global batch's norm, and the moments
+    are sharded (ZeRO-1): parameter i's `mu` / `nu` hold the rank's slice
+    along `axes[i]` (mesh.zero_shard_rule; None: whole), the rank updates
+    that slice and all-gathers the parameter.
+    `state_dict()` holds the whole moments (a collective under a group), so
+    a checkpoint resumes at any number of ranks."""
 
     def __init__(self, params, learning_rate: Union[float, Schedule],
                  weight_decay: float = 0.0, b1: float = 0.9,
@@ -196,8 +209,12 @@ class Optimizer:
         self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1, b2,
                                                          eps)
         self.grad_clip = grad_clip
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
+        world = mesh.world_size()
+        self.axes = [mesh.zero_shard_rule(p.shape, world)
+                     for p in self.params]
+        self.mu = [torch.zeros_like(mesh.shard(p, a))
+                   for p, a in zip(self.params, self.axes)]
+        self.nu = [torch.zeros_like(m) for m in self.mu]
         self.count = 0
 
     def zero_grad(self) -> None:
@@ -208,6 +225,7 @@ class Optimizer:
     def step(self) -> torch.Tensor:
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in self.params]
+        mesh.all_reduce_grads_(grads)
         norm = global_norm(grads)
         if self.grad_clip:
             grads = clip_by_global_norm(grads, self.grad_clip, norm)
@@ -223,8 +241,8 @@ class Optimizer:
         for dtype, idx in groups.items():
             def c(v, dtype=dtype):
                 return _rounded(v, dtype)
-            ps = [self.params[i] for i in idx]
-            gs = [grads[i] for i in idx]
+            ps = [mesh.shard(self.params[i], self.axes[i]) for i in idx]
+            gs = [mesh.shard(grads[i], self.axes[i]) for i in idx]
             mus = [self.mu[i] for i in idx]
             nus = [self.nu[i] for i in idx]
             # mu = (1 - b1) g + b1 mu;  nu = (1 - b2) g^2 + b2 nu
@@ -247,7 +265,37 @@ class Optimizer:
                     ps, c(self.weight_decay)))
             torch._foreach_mul_(u, c(-lr))
             torch._foreach_add_(ps, u)
+        for p, axis in zip(self.params, self.axes):
+            mesh.all_gather_axis(p.data, axis)
         return norm
+
+    def _whole(self, moments):
+        out = []
+        for m, p, axis in zip(moments, self.params, self.axes):
+            if axis is None:
+                out.append(m)
+                continue
+            full = torch.empty_like(p)
+            mesh.shard(full, axis).copy_(m)
+            mesh.all_gather_axis(full, axis)
+            out.append(full)
+        return out
+
+    def state_dict(self) -> Dict:
+        """{"count", "mu", "nu"}: the moments whole, one a parameter."""
+        return {"count": self.count, "mu": self._whole(self.mu),
+                "nu": self._whole(self.nu)}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """The moments of `state_dict()` (from any number of ranks), each
+        rank keeping its slice."""
+        self.count = int(state["count"])
+        for mine, whole in ((self.mu, state["mu"]), (self.nu, state["nu"])):
+            if len(whole) != len(mine):
+                raise ValueError(f"{len(whole)} moments for "
+                                 f"{len(mine)} parameters")
+            for m, w, axis in zip(mine, whole, self.axes):
+                m.copy_(mesh.shard(w.to(m.device), axis))
 
 
 def make_optimizer(model: nn.Module, learning_rate: Union[float, Schedule],

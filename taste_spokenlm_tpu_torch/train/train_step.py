@@ -20,6 +20,17 @@ the JAX state's key is PRNGKey(0) in bench.py), or are passed in per step
   in time chunks.  `draws`: {"eps"}, the continue-latent bridge's noise.
 - The flow (MaskedDiffWithXvec): the OT-CFM loss on unfused DiT blocks.
   `draws`: {"t", "z", "keep"} (ConditionalCFM.compute_loss).
+
+Under a data-parallel group (parallel/mesh.py) a step takes the rank's rows
+of the global batch and runs within `mesh.data_parallel()`: the forward's
+means are the rank's shares of the global ones, and the step sums its
+metrics over the ranks, so every rank returns the global batch's.  `draws` are then the rank's own rows (the
+dead-code picks: rows of the global batch).
+
+`TrainState.state_dict()` is what a checkpoint holds, JAX's TrainState
+(utils/checkpoint.py): the model's parameters and buffers (the RVQ's EMA
+codebooks among them), the optimizer's moments and count, the step and the
+generator's state.
 """
 
 from __future__ import annotations
@@ -30,6 +41,7 @@ from typing import Callable, Dict, Optional
 import torch
 
 from taste_spokenlm_tpu_torch.ops.losses import IGNORE_ID, masked_accuracy
+from taste_spokenlm_tpu_torch.parallel import mesh
 from taste_spokenlm_tpu_torch.train.optim import Optimizer, apply_mask
 
 BATCH_KEYS = ("speaker_embeds", "asr_token_ids", "asr_token_lengths",
@@ -47,6 +59,29 @@ class TrainState:
     optimizer: Optimizer
     step: int = 0
     generator: Optional[torch.Generator] = None
+
+    def state_dict(self) -> Dict:
+        """{"model", "optimizer", "step", "generator"}; the optimizer's
+        moments whole (a collective under a data-parallel group)."""
+        return {"model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "step": self.step,
+                "generator": (None if self.generator is None
+                              else self.generator.get_state())}
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore `state_dict()` in place (strict over the model)."""
+        self.model.load_state_dict(state["model"], strict=True)
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        if self.generator is not None:
+            self.generator.set_state(state["generator"])
+
+
+def _global(metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The ranks' shares of each mean summed (the metrics themselves in one
+    process)."""
+    return {k: mesh.global_sum(v) for k, v in metrics.items()}
 
 
 def _train_state(model, optimizer: Optimizer,
@@ -72,6 +107,7 @@ def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
     requires_grad on every parameter; `step.state` is the TrainState."""
     state = _train_state(model, optimizer, trainable_mask)
 
+    @mesh.data_parallel()
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         out = model.forward_speech_autoencoder(
@@ -85,6 +121,7 @@ def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
                    "speech_token_accuracy": out["speech_token_accuracy"]}
         if "commit_loss" in out:
             metrics["commit_loss"] = out["commit_loss"].detach()
+        metrics = _global(metrics)
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -103,6 +140,7 @@ def make_stage2_step(model, optimizer: Optimizer, use_ref_kl: bool = False,
     optim.lora_only_mask) as in make_stage1_step."""
     state = _train_state(model, optimizer, trainable_mask)
 
+    @mesh.data_parallel()
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         out = model.forward_spoken_llm(
@@ -113,9 +151,8 @@ def make_stage2_step(model, optimizer: Optimizer, use_ref_kl: bool = False,
         out["loss"].backward()
         grad_norm = optimizer.step()
         state.step += 1
-        metrics = {k: out[k].detach() for k in ("loss", "text_loss",
-                                                 "taste_loss", "text_kl")
-                   if k in out}
+        metrics = _global({k: out[k].detach() for k in (
+            "loss", "text_loss", "taste_loss", "text_kl") if k in out})
         metrics["grad_norm"] = grad_norm
         return metrics
 
@@ -131,6 +168,7 @@ def make_flow_step(flow, optimizer: Optimizer,
     (`feat` [B, Tm, M] from ops/audio.flow_mel, `embedding` [B, spk])."""
     state = _train_state(flow, optimizer, trainable_mask)
 
+    @mesh.data_parallel()
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
         optimizer.zero_grad()
         out = flow(*(batch[k] for k in FLOW_KEYS), generator=state.generator,
@@ -138,7 +176,8 @@ def make_flow_step(flow, optimizer: Optimizer,
         out["loss"].backward()
         grad_norm = optimizer.step()
         state.step += 1
-        return {"loss": out["loss"].detach(), "grad_norm": grad_norm}
+        return {"loss": mesh.global_sum(out["loss"].detach()),
+                "grad_norm": grad_norm}
 
     step.state = state
     return step
