@@ -2,8 +2,9 @@
 SpeechAutoEncoder and SpokenLLM), completion in the int8 and the int4
 serving tiers, streaming (the chunked synthesis and the pipelined
 completion), the stage-1 and stage-2 training steps and the stage-2 eval,
-the flow's OT-CFM step, and the decode-layout tools (profile_lmhead,
-profile_fusion).
+the flow's OT-CFM step, the decode-layout tools (profile_lmhead,
+profile_fusion), TASLM in the int8 layout, padded flash attention at the
+flow's shapes, and the model variants (card against host).
 
     python3 chip_smoke.py
 
@@ -35,7 +36,8 @@ quantizer (quant.py).  In order it:
    runs the same completion on it (step 6); frees that, runs the serving
    tiers' fidelity gate (step 6), builds the bf16 training model and runs
    the stage-1 step (step 7); frees that and runs
-   the decode-layout tools (step 8).  Each counted run
+   the decode-layout tools (step 8), then TASLM (step 8t), padded flash
+   (step 8p) and the variants (step 8v).  Each counted run
    has every launch count set to 0 just before it and read just after, and
    prints its peak device memory.  The serving paths' conformers run at
    40 and 128 asr tokens and their S3 decode through the KV cache, below
@@ -210,6 +212,43 @@ quantizer (quant.py).  In order it:
    It prints each layout's graph and eager ms a step and the share of its
    weight bytes' HBM bound (the tools' weights make x overflow to inf /
    NaN after a few layers; the timing does not depend on the values);
+8t. TASLM ("taslm"): TaslmConfig() (Llama-3.2-1B width, 16 layers; 4
+   speech channels x 4096, the 1280-wide RVQ space) with seeded random
+   weights in bf16, LoRA merged and the Llama quantized by the port's
+   quant.py as the int8 serving layout (int8 projections, fused qkv and
+   MLP, an int8 table with the int4 tied head); a seeded codebook [4,
+   4096, 256] -> 1280.  A sampled decode (B = 1, a 40-token text prompt
+   with 60 speech rows, the last 20 forced; 64 steps; text top-p 0.9,
+   speech top-p 0.3) counted: exactly 16 gated_mlp_int8 launches over the
+   40 prefix rows, 16 a step at one row but the stopping one, one
+   matmul_int4 head a step, every other kernel 0; the forced rows
+   emitted; the same trajectory again from the same generator state; a
+   greedy decode with the kernels against one with the plain versions,
+   text and speech logits within LOGIT_TOL of max |logit| over their
+   shared history.  Then scoring at B = 2 x 256 (the teacher-forced
+   forward with every loss and calculate_log_likelihood, counted: the
+   MLPs past 256 rows unfused, the int4 head twice at 512 rows): finite,
+   the log-likelihoods within 1e-3 relative of the plain run's.  It
+   prints the prefill s, ms a step, the decode wall and the peak memory;
+8p. padded flash ("padded_flash"): ops/attention.padded_flash_attention
+   at the flow U-Net's shapes (B = 2, T = 904 and 452, 8 heads x 64, f32
+   and bf16, key lengths [T, T - 37] and [T, 0]), one counted launch
+   each; against the plain masked attention on the valid query rows
+   (1e-4 abs f32, 2e-2 of max|plain| bf16), bit-identical twice, finite
+   everywhere (the row with no valid key too); times beside the plain
+   version and SDPA with the boolean mask;
+8v. the variants ("variants"): each module of this slice at
+   TasteConfig.full() widths with the depth cut (the Llama 2 layers, the
+   whisper encoder 4, the conformers 2 blocks; printed as `reduced`), in
+   f32 (TF32 off) on the card and on the host from the same weights: every
+   quantizer of the zoo, every bridge, the spoken LM in each audio-embed
+   mode and with a weighted-layer out bridge (its greedy decode too), the
+   conv-module / macaron conformer under each stem (its train forward's
+   BatchNorm statistics too), the speech decoder's concat fusions and
+   fuse_normalize (forward and greedy decode), the legacy and the
+   add_and_norm towers on the path's mel.  Floats within 1e-3 relative,
+   discrete outputs equal on >= 0.99 of the positions; the two towers'
+   whisper encoders launch flash exactly 8 times;
 9. holds each kernel against its plain PyTorch version at the shapes the
    counted runs gave it (the streaming windows' DiT and conv shapes
    too), and times kernel, plain version and a library call that
@@ -312,14 +351,25 @@ from taste_spokenlm_tpu_torch.kernels import (KERNEL_SOURCES, _build, conv1d,
                                               int8_matmul, launch_counts,
                                               relpos_attention,
                                               reset_launch_counts)
+from taste_spokenlm_tpu_torch.models import bridges
 from taste_spokenlm_tpu_torch.models import spoken_lm as spoken_lm_module
+from taste_spokenlm_tpu_torch.models.audio_tower import TasteAudioTower
+from taste_spokenlm_tpu_torch.models.conformer import ConformerEncoder
 from taste_spokenlm_tpu_torch.models.flow import MaskedDiffWithXvec
 from taste_spokenlm_tpu_torch.models.llama import RMSNorm
+from taste_spokenlm_tpu_torch.models.quantizer import QUANTIZER_CLASSES
+from taste_spokenlm_tpu_torch.models.quantizer import Codebook as TasteCodebook
 from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
                                                      build_sampler_tables)
+from taste_spokenlm_tpu_torch.models.speech_decoder import TasteSpeechDecoder
+from taste_spokenlm_tpu_torch.models.spoken_lm import TasteSpokenLM
+from taste_spokenlm_tpu_torch.models.taslm import (TaslmConfig,
+                                                   TaslmForCausalLM)
 from taste_spokenlm_tpu_torch.models.taste import TasteForCausalLM
 from taste_spokenlm_tpu_torch.models.whisper import WhisperForASR
 from taste_spokenlm_tpu_torch.ops import losses
+from taste_spokenlm_tpu_torch.ops.attention import (multi_head_attention,
+                                                    padded_flash_attention)
 from taste_spokenlm_tpu_torch.ops.audio import flow_mel, whisper_log_mel
 from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
@@ -1069,7 +1119,11 @@ def quantized_kernel_rows(cfg: TasteConfig, dev, gen, launches: dict, randn):
         w16 = int4_matmul.dequantize_int4(wp, scale).to(torch.bfloat16)
         group = int4_matmul._group(d)
         for m, n in sorted(per_m.items()):
-            check(m <= INT4_KERNEL_MAX_ROWS, f"matmul_int4 at M={m}")
+            # the tied head takes the kernel at any row count (TASLM's
+            # scoring: 512 rows); the projections up to 256
+            check(m <= INT4_KERNEL_MAX_ROWS
+                  or n_out == cfg.spoken_lm.llama.vocab_size,
+                  f"matmul_int4 at M={m}")
             x = randn(m, d)
             broken = {"swapped nibble planes": (x, swap(wp), scale)}
             plan = None
@@ -3910,6 +3964,607 @@ def decode_layouts_path(dev):
     return launches, counts
 
 
+# ---------------------------------------------------------------------------
+# TASLM in the int8 serving layout
+# ---------------------------------------------------------------------------
+
+TASLM_STEPS, TASLM_TEXT, TASLM_SPEECH = 64, 40, 60
+TASLM_SCORE_B, TASLM_SCORE_T = 2, 256
+
+
+def taslm_model(dev, gen):
+    """(the int8 TASLM model, its config, the codebook): TaslmConfig() at
+    Llama-3.2-1B width (16 layers) with 4 speech channels of 4096 and the
+    1280-wide RVQ space; random float weights (random_state_dict, LoRA
+    adapters too) in bf16, LoRA merged and the Llama quantized by the
+    port's quant.py as bench.py's int8 layout (int8 projections, fused qkv
+    and MLP, an int8 table with the int4 tied head).  The codebook [4,
+    4096, 256] -> 1280 is seeded from `gen`."""
+    float_cfg = TaslmConfig()
+    pre = "language_model."
+    with torch.device(dev):
+        model = TaslmForCausalLM(float_cfg, dtype=torch.bfloat16, device=dev)
+        n_float = sum(p.numel() for p in model.parameters())
+        sd = random_state_dict(model, gen)
+        del model
+        lora = float_cfg.lora
+        lm = quant.quantize_llama_params(
+            quant.merge_lora_params({k[len(pre):]: v for k, v in sd.items()
+                                     if k.startswith(pre)}, lora.alpha, lora.r),
+            include_embed=True, mode="int8", embed_head_mode="int4",
+            fuse_qkv=True, fused_mlp=True)
+        cfg = float_cfg.replace(use_lora=False, llama=float_cfg.llama.replace(
+            quantized_serving="int8", quantized_embed_serving="int4head",
+            fused_qkv_serving=True, fused_mlp_serving=True))
+        model = TaslmForCausalLM(cfg, dtype=torch.bfloat16, device=dev)
+    state = {k: v for k, v in sd.items() if not k.startswith(pre)}
+    state.update({pre + k: v for k, v in lm.items()})
+    model.load_state_dict(state, strict=True)
+    c, v = cfg.speech_num_channels, cfg.speech_vocab_size
+    cb = TasteCodebook(
+        torch.randn((c, v, 256), generator=gen, device=dev) * 0.5,
+        torch.randn((cfg.speech_hidden_size, 256), generator=gen,
+                    device=dev) / 16.0,
+        torch.zeros(cfg.speech_hidden_size, device=dev))
+    return model.eval(), cfg, cb, n_float
+
+
+def taslm_batch(cfg, dev, b: int, t_text: int, t_speech: int, seed: int):
+    """Seeded llm ids [b, t_text] and speech ids [b, t_speech, C], the
+    speech bos first."""
+    rng = np.random.RandomState(seed)
+    text = rng.randint(100, 120000, (b, t_text)) % cfg.llama.vocab_size
+    speech = rng.randint(0, cfg.speech_vocab_size,
+                         (b, t_speech, cfg.speech_num_channels))
+    speech[:, 0] = cfg.speech_bos_id
+    return (torch.from_numpy(text).to(dev), torch.from_numpy(speech).to(dev))
+
+
+class TaslmRecorder:
+    """Each decode step's text logits (the head over one row) and speech
+    logits (the speech head over one row), f32."""
+
+    def __init__(self, model):
+        self.text, self.speech = [], []
+        self._lm = model.language_model
+        head = self._lm.logits
+
+        def text(h):
+            out = head(h)
+            if h.shape[:-1] == (1, 1):
+                self.text.append(out.float().reshape(-1))
+            return out
+        self._lm.logits = text
+        self._hook = model.speech_head.register_forward_hook(
+            lambda mod, args, out: self.speech.append(
+                out.float().reshape(-1)) if out.shape[:-1] == (1, 1) else None)
+
+    def close(self):
+        del self._lm.logits
+        self._hook.remove()
+
+
+def taslm_launches(cfg, n_steps: int, score_rows: int = 0) -> dict:
+    """{kernel: {shape: launches}} of one TASLM decode of `n_steps` steps:
+    the fused MLP of each Llama layer over the 40 prefix rows and over one
+    row at every step but the last (a stopping step runs no Llama), the
+    int4 tied head once a step; and of `score_rows` rows of scoring (two
+    teacher-forced forwards: the MLPs past the fused kernel's 256 rows run
+    unfused, the head takes the int4 kernel at any row count)."""
+    llama = cfg.llama
+    h, n_l = llama.hidden_size, llama.num_hidden_layers
+    out = {"gated_mlp_int8": {}, "matmul_int4": {}}
+    if n_steps:
+        out["gated_mlp_int8"] = {(TASLM_TEXT, h, llama.intermediate_size): n_l,
+                                 (1, h, llama.intermediate_size):
+                                 n_l * (n_steps - 1)}
+        out["matmul_int4"] = {(1, h, llama.vocab_size): n_steps}
+    if score_rows:
+        check(score_rows > FUSED_MLP_MAX_ROWS, "scoring rows take the fused "
+                                               "MLP: count them")
+        out["matmul_int4"][(score_rows, h, llama.vocab_size)] = 2
+    return {k: {s: n for s, n in v.items() if n} for k, v in out.items()
+            if any(v.values())}
+
+
+def taslm_path(dev, card: str):
+    """TASLM in the int8 layout ("taslm"): a sampled decode (B = 1, a
+    40-token text prompt with 60 speech rows, 20 of them forced, 64 steps,
+    JAX's default top-p: text 0.9, speech 0.3) counted, and again from the
+    same generator state (the same trajectory); a greedy decode with the
+    kernels against one with the plain versions (text and speech logits
+    within LOGIT_TOL of max |logit| over the shared history); then scoring
+    at B = 2 x 256 (a teacher-forced forward with every loss and
+    calculate_log_likelihood, counted): finite, and the log-likelihoods
+    within 1e-3 relative of the plain run's.  -> (launches, [counts])."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    t0 = time.perf_counter()
+    model, cfg, cb, n_float = taslm_model(dev, gen)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text, speech = taslm_batch(cfg, dev, 1, TASLM_TEXT, TASLM_SPEECH, 3)
+
+    def decode(seed=None, **kw):
+        g = None if seed is None else torch.Generator(device=dev).manual_seed(
+            seed)
+        return model.generate(cb, text, speech, TASLM_TEXT, TASLM_SPEECH,
+                              max_steps=TASLM_STEPS, generator=g, **kw)
+    decode(5)                                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    run = decode(7)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n = int(run["num_steps"])
+    check(n >= 21, f"taslm: the decode stopped after {n} steps, inside its "
+                   "20 forced speech rows")
+    launches = taslm_launches(cfg, n)
+    check_counts(counts, {k: sum(v.values()) for k, v in launches.items()},
+                 "taslm decode")
+    check(torch.equal(run["speech_ids"][:20].cpu(), speech[0, 40:60].cpu()),
+          "taslm: the forced speech rows were not emitted")
+    ids = run["text_ids"][:n]
+    check(bool(((ids >= 0) & (ids < cfg.llama.vocab_size)).all()) and bool(
+        ((run["speech_ids"][:n] >= 0)
+         & (run["speech_ids"][:n] < cfg.speech_vocab_size)).all()),
+          "taslm: ids out of the vocabularies")
+    again = decode(7)
+    check(again["num_steps"] == n and torch.equal(again["text_ids"],
+                                                  run["text_ids"])
+          and torch.equal(again["speech_ids"], run["speech_ids"]),
+          "taslm: one generator state gave two trajectories")
+    # prefill and step walls: a decode of 1 step is the prefill and a head
+    t0 = time.perf_counter()
+    decode(7, speech_use_greedy=True, text_top_p=0.0)
+    torch.cuda.synchronize()
+    greedy_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.generate(cb, text, speech, TASLM_TEXT, TASLM_SPEECH, max_steps=1,
+                   speech_use_greedy=True, text_top_p=0.0)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+
+    # greedy with kernels against the plain versions on the shared history
+    recs = []
+    for use in (True, False):
+        set_use_kernels(model, use)
+        rec = TaslmRecorder(model)
+        out = decode(speech_use_greedy=True, text_top_p=0.0)
+        rec.close()
+        recs.append((out, rec))
+    set_use_kernels(model, True)
+    (ok_, rk), (op_, rp) = recs
+    shared = min(int(ok_["num_steps"]), int(op_["num_steps"]))
+    for s in range(shared):
+        if not (torch.equal(ok_["text_ids"][s], op_["text_ids"][s])
+                and torch.equal(ok_["speech_ids"][s], op_["speech_ids"][s])):
+            shared = s + 1       # step s's logits saw the same history
+            break
+    errs = {}
+    for what, a, b in (("text", rk.text, rp.text),
+                       ("speech", rk.speech, rp.speech)):
+        e = max(((x - y).abs().max() / y.abs().max()).item()
+                for x, y in zip(a[:shared], b[:shared]))
+        check(e <= LOGIT_TOL, f"taslm: {what} logits with kernels {e} of "
+                              f"max|plain| > {LOGIT_TOL}")
+        errs[what] = e
+    agree = (ok_["speech_ids"][:shared] == op_["speech_ids"][:shared]
+             ).float().mean().item()
+
+    # scoring at B = 2 x 256
+    st, ss = taslm_batch(cfg, dev, TASLM_SCORE_B, TASLM_SCORE_T,
+                         TASLM_SCORE_T, 4)
+    lens = torch.tensor([TASLM_SCORE_T, TASLM_SCORE_T - 16], device=dev)
+    valid = torch.arange(TASLM_SCORE_T, device=dev)[None] < lens[:, None]
+    tl = torch.where(valid, st, torch.full_like(st, -1))
+    sl = torch.where(valid[..., None], ss, torch.full_like(ss, -1))
+
+    def score():
+        with torch.no_grad():
+            out = model(cb, st, ss, tl, sl, lens)
+            ll = model.calculate_log_likelihood(cb, st, ss, tl, sl, lens)
+        return ({k: float(v) for k, v in out.items() if v.dim() == 0},
+                {k: float(v) for k, v in ll.items()})
+    score()
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    losses_k, ll_k = score()
+    torch.cuda.synchronize()
+    score_wall = time.perf_counter() - t0
+    score_counts = launch_counts()
+    score_launches = taslm_launches(cfg, 0, TASLM_SCORE_B * TASLM_SCORE_T)
+    check_counts(score_counts, {k: sum(v.values())
+                                for k, v in score_launches.items()},
+                 "taslm scoring")
+    set_use_kernels(model, False)
+    losses_p, ll_p = score()
+    set_use_kernels(model, True)
+    ll_rel = {k: abs(ll_k[k] - ll_p[k]) / abs(ll_p[k]) for k in ll_k}
+    check(all(np.isfinite(v) for v in [*losses_k.values(), *ll_k.values()]),
+          f"taslm scoring: non-finite {losses_k} {ll_k}")
+    check(max(ll_rel.values()) <= 1e-3,
+          f"taslm: log-likelihoods with kernels against plain {ll_rel}")
+    log({"taslm": {
+        "card": card, "model_init_s": build_s, "float_params": n_float,
+        "decode_steps": n, "decode_wall_s": wall,
+        "prefill_s": prefill_s,
+        "ms_per_step": (greedy_wall - prefill_s) / max(
+            int(ok_["num_steps"]) - 1, 1) * 1e3,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "greedy_shared_steps": shared, "greedy_logit_rel_err": errs,
+        "greedy_speech_agreement": agree, "scoring_wall_s": score_wall,
+        "scoring_losses": losses_k, "log_likelihood": ll_k,
+        "log_likelihood_rel_err": ll_rel, "launches": counts,
+        "scoring_launches": score_counts}})
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return merge_launches(launches, score_launches), [counts, score_counts]
+
+
+def set_use_kernels(model, flag: bool) -> None:
+    for m in model.modules():
+        if hasattr(m, "use_kernels"):
+            m.use_kernels = flag
+
+
+# ---------------------------------------------------------------------------
+# padded flash attention at the flow's shapes
+# ---------------------------------------------------------------------------
+
+PADDED_FLASH_T = (904, 452)
+
+
+def padded_flash_path(dev, card: str):
+    """ops/attention.padded_flash_attention at the flow U-Net's shapes
+    ("padded_flash"): B = 2 (CFG), T = 904 and 452, 8 heads x 64, f32 and
+    bf16, key lengths [T, T - 37] and [T, 0]; one counted call each.
+    Checks: exact launches; against the plain version (the masked
+    attention on the mask) on the valid query rows (1e-4 abs f32, 2e-2 of
+    max|plain| bf16); bit-identical twice; finite everywhere (the empty
+    row too).  -> (launches, counts)."""
+    gen = torch.Generator(device=dev).manual_seed(23)
+    cases = []
+    for t in PADDED_FLASH_T:
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn((2, t, 8, 64), generator=gen, device=dev
+                                   ).to(dt) for _ in range(3))
+            for lens in ([t, t - 37], [t, 0]):
+                kv = (torch.arange(t, device=dev)[None]
+                      < torch.tensor(lens, device=dev)[:, None])
+                cases.append((t, dt, lens, q, k, v, kv))
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    outs = [padded_flash_attention(q, k, v, kv)
+            for _, _, _, q, k, v, kv in cases]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    launches = {"flash_attention": {}}
+    for t, dt, *_ in cases:
+        key = (2, t, 8, 64, str(dt).split(".")[-1])
+        launches["flash_attention"][key] = launches[
+            "flash_attention"].get(key, 0) + 1
+    check_counts(counts, {"flash_attention": len(cases)}, "padded_flash")
+    rows = []
+    for (t, dt, lens, q, k, v, kv), out in zip(cases, outs):
+        f32 = dt == torch.float32
+        ref = multi_head_attention(q, k, v, mask=kv[:, None, None, :])
+        check(bool(torch.isfinite(out.float()).all()),
+              f"padded_flash: non-finite output at T={t} {dt} {lens}")
+        err = max(((out[i, :n].float() - ref[i, :n].float()).abs().max()
+                   .item() if n else 0.0) for i, n in enumerate(lens))
+        scale = ref.float().abs().max().item()
+        tol = 1e-4 if f32 else 2e-2
+        check((err if f32 else err / scale) <= tol,
+              f"padded_flash: err {err} at T={t} {dt} lengths {lens}")
+        check(torch.equal(padded_flash_attention(q, k, v, kv), out),
+              f"padded_flash: not bit-identical twice at T={t} {dt}")
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        mask = kv[:, None, None, :]
+        rows.append({
+            "shape": [2, t, 8, 64], "dtype": str(dt).split(".")[-1],
+            "key_lengths": lens, "max_abs_err": err,
+            "rel_err": err / scale,
+            "ms": time_ms(lambda: padded_flash_attention(q, k, v, kv)),
+            "plain_ms": time_ms(lambda: multi_head_attention(
+                q, k, v, mask=mask)),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask))})
+    log({"padded_flash": {"card": card, "rows": rows, "launches": counts}})
+    return launches, counts
+
+
+# ---------------------------------------------------------------------------
+# the model variants, card against host
+# ---------------------------------------------------------------------------
+
+VARIANT_TOL, VARIANT_AGREE = 1e-3, 0.99
+VARIANT_LLAMA_LAYERS, VARIANT_WHISPER_LAYERS, VARIANT_BLOCKS = 2, 4, 2
+STEM_INPUT = 80           # the conv stems' input features (fbank bins)
+
+
+def variant_weights(module, seed: int) -> dict:
+    """random_state_dict on the host from `seed`, with BatchNorm running
+    variances positive."""
+    sd = random_state_dict(module, torch.Generator().manual_seed(seed))
+    for k, v in sd.items():
+        if k.endswith("running_var"):
+            sd[k] = v.abs() + 0.5
+        elif k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros_like(v)
+    return sd
+
+
+def compare_outputs(name: str, host: dict, card: dict) -> dict:
+    """Floats within VARIANT_TOL of max |host|; integers (ids, indices)
+    equal on >= VARIANT_AGREE of the positions."""
+    out = {}
+    for k, h in host.items():
+        c = card[k].detach().float().cpu() if torch.is_tensor(card[k]) \
+            else torch.tensor(float(card[k]))
+        h = h.detach().float() if torch.is_tensor(h) else torch.tensor(float(h))
+        if k.startswith("ids:"):
+            agree = (c == h).float().mean().item()
+            check(agree >= VARIANT_AGREE,
+                  f"variants: {name} {k} agreement {agree} < {VARIANT_AGREE}")
+            out[k] = {"agreement": agree}
+        else:
+            check(bool(torch.isfinite(c).all()), f"variants: {name} {k} "
+                                                 "non-finite on the card")
+            err = ((c - h).abs().max() / h.abs().max().clamp_min(1e-30)).item()
+            check(err <= VARIANT_TOL, f"variants: {name} {k} rel err {err} > "
+                                      f"{VARIANT_TOL}")
+            out[k] = {"rel_err": err}
+    return out
+
+
+def on_both(name: str, build, run, dev, seed: int, results: dict,
+            walls: dict):
+    """`build()` on the host, seeded weights, a copy on the card; `run(m,
+    device)` on each (f32, TF32 off) -> {output: tensor}, compared."""
+    t0 = time.perf_counter()
+    torch.manual_seed(seed)
+    host = build().float()
+    host.load_state_dict(variant_weights(host, seed), strict=True)
+    card = copy.deepcopy(host).to(dev)
+    host.eval()
+    card.eval()
+    with torch.no_grad():
+        ref = run(host, torch.device("cpu"))
+        got = run(card, dev)
+    torch.cuda.synchronize()
+    results[name] = compare_outputs(name, ref, got)
+    walls[name] = time.perf_counter() - t0
+    del host, card
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def variants_path(dev, card: str, x):
+    """Each module this slice ported, at TasteConfig.full() widths with the
+    depth cut ("variants"; `reduced` lists each cut), on the card in f32
+    (TF32 off) and on the host from the same weights: every quantizer of
+    the zoo, every bridge, the spoken LM in each audio-embed mode and with
+    a weighted-layer out bridge (its greedy decode too), the conv-module /
+    macaron conformer under each stem (and its train forward's BatchNorm
+    statistics), the speech decoder's concat fusions and fuse_normalize
+    (forward and greedy decode), the legacy and the add_and_norm towers
+    (their whisper encoders run flash on the card: 4 launches each,
+    counted).  Floats within 1e-3 relative, ids >= 0.99.  -> (launches,
+    counts)."""
+    full = TasteConfig.full()
+    q = full.audio_tower.quantizer
+    llama = full.spoken_lm.llama.replace(num_hidden_layers=VARIANT_LLAMA_LAYERS)
+    h, a = llama.hidden_size, q.dim
+    reduced = {
+        "llama_layers": f"{full.spoken_lm.llama.num_hidden_layers} -> "
+                        f"{VARIANT_LLAMA_LAYERS}",
+        "whisper_encoder_layers": f"{full.audio_tower.whisper.encoder_layers}"
+                                  f" -> {VARIANT_WHISPER_LAYERS}, the middle "
+                                  f"hidden read at layer "
+                                  f"{full.audio_tower.encoder_target_hidden_layer}"
+                                  f" -> {VARIANT_WHISPER_LAYERS // 2}",
+        "conformer_blocks": "3 / 2 / 7 -> 2",
+        "conv_stem_input_size": f"{STEM_INPUT} (the fbank bins of the "
+                                "conv2d stems' usual input; the linear "
+                                "stem keeps 512)",
+        "legacy_tower_quantizer_dim": f"{q.dim} -> "
+                                      f"{full.audio_tower.encoder_input_size}"
+                                      " (the affine layer's output)"}
+    results, walls = {}, {}
+    reset_launch_counts()
+    seed = iter(range(1000, 2000))
+    r = torch.Generator().manual_seed(31)
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(shape, generator=r) * scale
+
+    def moved(args, device):
+        return [z.to(device) if torch.is_tensor(z) else z for z in args]
+
+    # the quantizer zoo, [1, 64, 1280] rows
+    xq, mq = rn(1, 64, a), torch.ones(1, 64, dtype=torch.bool)
+    for kind, build in (
+            ("rvq", lambda: QUANTIZER_CLASSES["rvq"](q)),
+            ("grouped_rvq", lambda: QUANTIZER_CLASSES["grouped_rvq"](
+                q.replace(groups=2))),
+            ("vq", lambda: QUANTIZER_CLASSES["vq"](q)),
+            ("kmeans", lambda: QUANTIZER_CLASSES["kmeans"](
+                q.codebook_size, a)),
+            ("no", lambda: QUANTIZER_CLASSES["no"](a, q.codebook_dim,
+                                                    q.codebook_size))):
+        def run(m, device):
+            o = m(*moved((xq, mq), device))
+            return {"feats": o["quantized_feats"],
+                    "ids:indices": o["quantized_indices"]}
+        on_both(f"quantizer_{kind}", build, run, dev, next(seed), results,
+                walls)
+
+    # every bridge, standalone
+    embed = rn(q.num_quantizers, q.codebook_size, q.codebook_dim, scale=0.5)
+    text, audio = rn(1, 42, h), rn(1, 42, a)
+    hs = tuple(rn(1, 42, h) for _ in range(VARIANT_LLAMA_LAYERS + 1))
+    for name in bridges.BRIDGE_FUSION_CLASSES:
+        on_both(f"fusion_{name}", lambda: bridges.make_fusion(name, h, a),
+                lambda m, device: {"out": m(*moved((text, audio), device))},
+                dev, next(seed), results, walls)
+    for name in bridges.BRIDGE_EXTRACT_CLASSES:
+        base = rn(1, 42, 512)
+
+        def build():
+            if name == "reference_mix":
+                return bridges.ReferenceMixExtract(h)
+            return bridges.make_extract(name, h, q.codebook_size,
+                                        q.codebook_dim, q.num_quantizers,
+                                        VARIANT_LLAMA_LAYERS + 1)
+
+        def run(m, device):
+            kw = {"hidden_states": tuple(z.to(device) for z in hs)}
+            if name == "reference_mix":
+                kw["audio_embeds"] = base.to(device)
+            logits, info = m(text.to(device), TasteCodebook(embed.to(device)),
+                             **kw)
+            out = {f"info:{k}": v for k, v in info.items()}
+            if name.startswith("continue"):
+                out["ids:argmax"] = logits.argmax(-1)
+            else:
+                out["logits"] = logits
+            return out
+        on_both(f"extract_{name}", build, run, dev, next(seed), results,
+                walls)
+
+    # the spoken LM: each audio-embed mode, and a weighted-layer out bridge
+    # with its greedy decode (every hidden state each step)
+    lm_rng = np.random.RandomState(5)
+    word_ids = torch.arange(T_TOK)[None] // 2
+    ids = torch.from_numpy(lm_rng.randint(100, 120000, (1, T_TOK))
+                           % llama.vocab_size)
+    lens = torch.tensor([T_TOK])
+    idx = torch.from_numpy(lm_rng.randint(0, q.codebook_size,
+                                          (1, T_TOK, q.num_quantizers)))
+    idx[:, 1::2] = -1                             # taste at word starts
+    proj = rn(a, q.codebook_dim, scale=q.codebook_dim ** -0.5)
+    tables = {k: torch.from_numpy(v) for k, v in build_sampler_tables(
+        VocabScan(), llama.vocab_size).items()}
+    greedy = SamplerConfig(delay=1, delay_level="word", text_top_p=0.0,
+                           taste_top_p=0.0, extra_words=8, has_prefix=True)
+    slm_cfg = full.spoken_lm.replace(llama=llama)
+    for mode, out_mod in (("pad", None), ("embed_a0_only", None),
+                          ("get_codes_from_indices", None),
+                          (None, "continue_latent_weighted_layer")):
+        c = slm_cfg.replace(**({"audio_embed_conv_mode": mode} if mode else
+                               {"out_llm_module": out_mod}))
+
+        def run(m, device, decode=out_mod is not None):
+            cb = TasteCodebook(embed.to(device), proj.to(device),
+                               torch.zeros(a, device=device))
+            args = moved((idx, ids, lens, word_ids), device)
+            o = m(cb, *args)
+            out = {"loss": o["loss"], "text_logits": o["text_logits"],
+                   "ids:taste": o["taste_logits"].argmax(-1)}
+            if decode:
+                g = m.generate(cb, greedy, {k: v.to(device) for k, v in
+                                            tables.items()}, *args,
+                               max_steps=16)
+                out["ids:tokens"] = g["llm_token_ids"]
+                out["ids:taste"] = g["taste_indices"]
+            return out
+        on_both(f"spoken_lm_{mode or out_mod}", lambda: TasteSpokenLM(
+            c, audio_dim=a, taste_k=q.codebook_size, taste_d=q.codebook_dim,
+            taste_l=q.num_quantizers), run, dev, next(seed), results, walls)
+
+    # the conformer with the conv module and the macaron FFN under each
+    # stem (BatchNorm; layer_norm + causal on the linear stem too); the
+    # train forward moves the BatchNorm statistics on both sides alike
+    enc = full.speech_decoder.text_encoder.replace(
+        num_blocks=VARIANT_BLOCKS, use_cnn_module=True, macaron_style=True)
+    for stem, norm, causal in (("linear", "batch_norm", False),
+                               ("linear", "layer_norm", True),
+                               ("conv1d2", "batch_norm", False),
+                               ("conv2d", "batch_norm", False),
+                               ("conv2d4", "batch_norm", True),
+                               ("conv2d6", "batch_norm", False),
+                               ("conv2d8", "batch_norm", False)):
+        c = enc.replace(input_layer=stem, cnn_module_norm=norm,
+                        cnn_causal=causal, input_size=(
+                            enc.input_size if stem == "linear"
+                            else STEM_INPUT))
+        xs = rn(2, 200, c.input_size)
+        ls = torch.tensor([200, 150])
+
+        def run(m, device, bn=norm == "batch_norm"):
+            out = {"eval": m(*moved((xs, ls), device))}
+            if bn:
+                out["train"] = m(*moved((xs, ls), device), train=True)
+                out["running_var"] = m.encoders[0].conv_module.norm.running_var
+            return out
+        on_both(f"conformer_{stem}_{norm}{'_causal' if causal else ''}",
+                lambda: ConformerEncoder(c), run, dev, next(seed), results,
+                walls)
+
+    # the speech decoder's fusions
+    sdc = full.speech_decoder
+    sdc = sdc.replace(**{k: getattr(sdc, k).replace(num_blocks=VARIANT_BLOCKS)
+                         for k in ("text_encoder", "audio_encoder", "llm")})
+    spk, aud = rn(1, sdc.spk_embed_dim), rn(1, 40, sdc.audio_encoder_input_size)
+    asr = torch.randint(0, sdc.text_token_size, (1, 40), generator=r)
+    s3 = torch.randint(0, sdc.speech_token_size, (1, 60), generator=r)
+    for fuse in ("concat", "concat_with_sep", "weighted_sum_normalize"):
+        c = sdc.replace(**({"fuse_normalize": True}
+                           if fuse.startswith("weighted") else
+                           {"fuse_type": fuse}))
+
+        def run(m, device):
+            args = moved((spk, aud, torch.tensor([40]), asr, torch.tensor([40])),
+                         device)
+            o = m(*args, s3.to(device), torch.tensor([60], device=device))
+            g = m.generate(*args, max_steps=32, sampling_k=1)
+            return {"logits": o["logits"], "loss": o["loss"],
+                    "ids:s3": g["speech_token_ids"]}
+        on_both(f"speech_decoder_{fuse}", lambda: TasteSpeechDecoder(c), run,
+                dev, next(seed), results, walls)
+
+    # the legacy and the add_and_norm towers on the path's mel
+    tower = full.audio_tower
+    tower = tower.replace(
+        whisper=tower.whisper.replace(encoder_layers=VARIANT_WHISPER_LAYERS),
+        encoder_target_hidden_layer=VARIANT_WHISPER_LAYERS // 2)
+    mel = x["audio_features"].float().cpu()
+    asr_ids = x["asr_token_ids"].cpu()
+    asr_lens = x["asr_token_lengths"].cpu()
+    al = torch.sort(torch.rand((1, T_TOK, 2), generator=r), dim=-1).values
+    for variant, c in (
+            ("legacy", tower.replace(
+                is_joint_encoder_segmenter=False,
+                quantizer=q.replace(dim=tower.encoder_input_size))),
+            ("add_and_norm", tower.replace(fuse_forward_type="add_and_norm"))):
+        def run(m, device, legacy=variant == "legacy"):
+            kw = ({"asr_token_alignments": al.to(device)} if legacy else
+                  {"asr_word_ids": x["asr_word_ids"].to(device)})
+            o = m(*moved((mel, asr_ids, asr_lens), device), **kw)
+            return {"embeds": o["audio_unit_embeds"],
+                    "ids:indices": o["quantized_indices"]}
+        on_both(f"tower_{variant}", lambda: TasteAudioTower(c), run, dev,
+                next(seed), results, walls)
+
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    w = tower.whisper
+    key = (1, (mel.shape[-1] + 1) // 2, w.encoder_heads,
+           w.d_model // w.encoder_heads, "float32")
+    launches = {"flash_attention": {key: 2 * VARIANT_WHISPER_LAYERS}}
+    check_counts(counts, {"flash_attention": 2 * VARIANT_WHISPER_LAYERS},
+                 "variants")
+    log({"variants": {"card": card, "reduced": reduced, "results": results,
+                      "walls_s": walls, "total_s": sum(walls.values()),
+                      "launches": counts}})
+    return launches, counts
+
+
 def merge_launches(*paths: dict) -> dict:
     """{kernel: {shape: launches}} summed over paths."""
     out = {}
@@ -4121,6 +4776,14 @@ def main(argv=None) -> int:
     paths.append(launches)
     all_counts.append(counts)
 
+    # ---- TASLM in the int8 layout; padded flash; the model variants ----
+    launches, counts = taslm_path(dev, card)
+    paths.append(launches)
+    all_counts.extend(counts)
+    for path in (padded_flash_path(dev, card), variants_path(dev, card, x)):
+        paths.append(path[0])
+        all_counts.append(path[1])
+
     launches = merge_launches(*paths)
     counts = {name: sum(c[name] for c in all_counts) for name in all_counts[0]}
     for name, shapes in launches.items():
@@ -4151,7 +4814,9 @@ def main(argv=None) -> int:
                    "harness's eight in-process stage-1 steps, three "
                    "stage-2 steps and the stage-2 eval, three flow "
                    "steps, the "
-                   "decode-layout tools): per-launch times x launches; "
+                   "decode-layout tools, TASLM's decode and scoring, "
+                   "padded flash at the flow's shapes, the variants' "
+                   "whisper encoders): per-launch times x launches; "
                    "per-shape rows in 'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})

@@ -1,10 +1,11 @@
 """JAX parameter tree (as numpy) -> the port's state dict.
 
 The port's own copy of the parts of the JAX package's utils/export.py that
-its slices need (audio tower, RVQ, speech decoder, conformer, spoken LM with
-its Llama and bridges, flow, CFM estimator, HiFT).  Keys are the reference
-state-dict names, so a published TASTE / CosyVoice checkpoint can load the
-same way:
+its slices need (audio tower, legacy one included, RVQ and the quantizer
+zoo, speech decoder, conformer with its conv module, macaron FFN, stems and
+BatchNorm statistics, spoken LM with its Llama and every bridge, TASLM,
+flow, CFM estimator, HiFT).  Keys are the reference state-dict names, so a
+published TASTE / CosyVoice checkpoint can load the same way:
 
     sd = params_to_state_dict(jax.tree.map(np.asarray, variables))
     model.load_state_dict(to_torch(sd), strict=True)
@@ -23,6 +24,7 @@ dict is loaded.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Optional
 
 import numpy as np
@@ -133,14 +135,50 @@ def rvq_state_dict(params: Mapping, quantizer: Mapping, prefix: str) -> Dict:
 
 def audio_tower_state(tree: Mapping, quantizer: Optional[Mapping] = None,
                       prefix: str = "audio_tower.") -> Dict:
+    """The tower: encoder, decoder (absent in the legacy segmenter), the
+    legacy `audio_affine_layer`, add_and_norm's `early_exit_layer_norm`
+    and the RVQ."""
     out: Dict = {}
     seg = f"{prefix}audio_joint_encoder_segmenter."
     out.update(whisper_encoder_state(tree["encoder"],
                                      f"{seg}audio_encoder.encoder."))
-    out.update(whisper_decoder_state(tree["decoder"],
-                                     f"{seg}audio_segmenter.decoder."))
+    if "decoder" in tree:
+        out.update(whisper_decoder_state(tree["decoder"],
+                                         f"{seg}audio_segmenter.decoder."))
+    if "audio_affine_layer" in tree:
+        _put_dense(out, f"{prefix}audio_affine_layer",
+                   tree["audio_affine_layer"])
+    if "early_exit_layer_norm" in tree:
+        _put_norm(out, f"{prefix}early_exit_layer_norm",
+                  tree["early_exit_layer_norm"])
     if "vq" in tree and quantizer is not None:
         out.update(rvq_state_dict(tree["vq"], quantizer, f"{prefix}vq.rvq."))
+    return out
+
+
+def quantizer_state(kind: str, params: Mapping, quantizer: Mapping,
+                    prefix: str = "") -> Dict:
+    """A quantizer of the zoo (QUANTIZER_CLASSES' keys): rvq; vq (its one
+    level under `vq.`); grouped_rvq (`rvqs.{g}.` from `rvq_{g}`); kmeans
+    and no (proj_in / proj_out and the frozen `codebook`)."""
+    if kind == "rvq":
+        return rvq_state_dict(params, quantizer, prefix)
+    if kind == "vq":
+        return rvq_state_dict(params.get("vq", {}), quantizer["vq"],
+                              f"{prefix}vq.")
+    if kind == "grouped_rvq":
+        out: Dict = {}
+        for name, q in quantizer.items():
+            g = name.split("_")[-1]
+            out.update(rvq_state_dict(params.get(name, {}), q,
+                                      f"{prefix}rvqs.{g}."))
+        return out
+    out = {}
+    for name, p in params.items():
+        if name == "codebook":
+            out[f"{prefix}codebook"] = _np(p)
+        else:
+            _put_dense(out, f"{prefix}{name}", p)
     return out
 
 
@@ -149,19 +187,34 @@ def audio_tower_state(tree: Mapping, quantizer: Optional[Mapping] = None,
 # ---------------------------------------------------------------------------
 
 
-def conformer_state(tree: Mapping, prefix: str) -> Dict:
-    """flax ConformerEncoder (linear input layers, no conv module) ->
-    CosyVoice encoder names."""
+def conformer_state(tree: Mapping, prefix: str,
+                    batch_stats: Optional[Mapping] = None) -> Dict:
+    """flax ConformerEncoder -> CosyVoice encoder names: the linear input
+    layer or a conv stem (conv_{0,2,4} -> embed.conv.{i}, 2-D kernels
+    [kh, kw, in, out] -> [out, in, kh, kw]; out_0 / linear), the layers
+    with their macaron FFN and conv module, and the conv module's
+    BatchNorm running statistics from the `batch_stats` collection."""
     out: Dict = {}
     for name, sub in tree.items():
         if name == "embed_linear":
             _put_dense(out, f"{prefix}embed.out.0", sub)
         elif name == "embed_norm":
             _put_norm(out, f"{prefix}embed.out.1", sub)
+        elif name in ("conv_0", "conv_2", "conv_4"):
+            k = _np(sub["kernel"])
+            w = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.transpose(2, 1, 0)
+            base = f"{prefix}embed.conv.{name[-1]}"
+            out[f"{base}.weight"] = w
+            if "bias" in sub:
+                out[f"{base}.bias"] = _np(sub["bias"])
+        elif name in ("out_0", "linear"):
+            _put_dense(out, f"{prefix}embed.out.0" if name == "out_0"
+                       else f"{prefix}embed.linear", sub)
         elif name == "after_norm":
             _put_norm(out, f"{prefix}after_norm", sub)
         elif name.startswith("encoders_"):
             base = f"{prefix}encoders.{name.split('_')[-1]}"
+            bs = None if batch_stats is None else batch_stats.get(name)
             for mod, msub in sub.items():
                 if mod == "self_attn":
                     for p_name, p in msub.items():
@@ -169,11 +222,14 @@ def conformer_state(tree: Mapping, prefix: str) -> Dict:
                             out[f"{base}.self_attn.{p_name}"] = _np(p)
                         else:
                             _put_linear(out, f"{base}.self_attn.{p_name}", p)
-                elif mod == "feed_forward":
+                elif mod in ("feed_forward", "feed_forward_macaron"):
                     for p_name, p in msub.items():
                         _put_linear(out, f"{base}.{mod}.{p_name}", p)
-                elif mod in ("norm1", "norm2", "norm_mha", "norm_ff"):
+                elif mod in ("norm1", "norm2", "norm_mha", "norm_ff",
+                             "norm_ff_macaron", "norm_conv", "norm_final"):
                     _put_norm(out, f"{base}.{mod}", msub)
+                elif mod == "conv_module":
+                    _conv_module_state(out, f"{base}.conv_module", msub, bs)
                 else:
                     raise KeyError(f"unhandled conformer layer param: "
                                    f"{base}.{mod}")
@@ -182,7 +238,22 @@ def conformer_state(tree: Mapping, prefix: str) -> Dict:
     return out
 
 
-def speech_decoder_state(tree: Mapping, prefix: str = "speech_decoder.") -> Dict:
+def _conv_module_state(out: Dict, base: str, tree: Mapping,
+                       batch_stats: Optional[Mapping]):
+    for p_name, p in tree.items():
+        if p_name == "norm":
+            _put_norm(out, f"{base}.norm", p)
+        else:
+            _put_conv(out, f"{base}.{p_name}", p)
+    bn = (batch_stats or {}).get("conv_module", {}).get("norm")
+    if bn is not None:
+        out[f"{base}.norm.running_mean"] = _np(bn["mean"])
+        out[f"{base}.norm.running_var"] = _np(bn["var"])
+        out[f"{base}.norm.num_batches_tracked"] = np.asarray(0, np.int64)
+
+
+def speech_decoder_state(tree: Mapping, prefix: str = "speech_decoder.",
+                         batch_stats: Optional[Mapping] = None) -> Dict:
     out: Dict = {}
     for name, sub in tree.items():
         if name in ("text_embedding", "llm_embedding", "speech_embedding"):
@@ -194,8 +265,11 @@ def speech_decoder_state(tree: Mapping, prefix: str = "speech_decoder.") -> Dict
             _put_linear(out, f"{prefix}{name}", sub)
         elif name == "fuse_weights":
             out[f"{prefix}fuse_encoded_audio_text_module.weights"] = _np(sub)
+        elif name == "sep_embed":
+            out[f"{prefix}fuse_encoded_audio_text_module.sep_embed"] = _np(sub)
         elif name in ("text_encoder", "audio_token_encoder", "llm"):
-            out.update(conformer_state(sub, f"{prefix}{name}."))
+            out.update(conformer_state(sub, f"{prefix}{name}.",
+                                       (batch_stats or {}).get(name)))
         else:
             raise KeyError(f"unhandled speech decoder param: {name}")
     return out
@@ -250,23 +324,81 @@ def llama_state(tree: Mapping, prefix: str) -> Dict:
     return out
 
 
+def bridge_state(tree: Mapping, prefix: str) -> Dict:
+    """A bridge, by name: flax `{name}_{i}` -> torch `{name}.{i}` (a
+    ModuleList), kernel -> transposed weight, embedding -> weight, bare
+    arrays as they are."""
+    out: Dict = {}
+
+    def walk(node, path):
+        if not isinstance(node, Mapping):
+            leaf, w = path[-1], _np(node)
+            if leaf == "kernel":
+                path, w = path[:-1] + ["weight"], w.T
+            elif leaf == "embedding":
+                path = path[:-1] + ["weight"]
+            out[prefix + ".".join(path)] = w
+            return
+        for k, v in node.items():
+            m = re.fullmatch(r"(.+)_(\d+)", k)
+            walk(v, path + ([m.group(1), m.group(2)] if m else [k]))
+
+    walk(tree, [])
+    return out
+
+
 def spoken_lm_state(tree: Mapping, prefix: str = "spoken_lm.") -> Dict:
     """flax TasteSpokenLM -> the port's names: language_model.* (Llama),
-    the bridges' Linears as {weight, bias} and their bare parameters."""
+    the bridges (`bridge_state`), the audio-embed modes' a0_embedding and
+    code_linear, and the bare embeds."""
     out: Dict = {}
     for name, sub in tree.items():
         if name == "language_model":
             out.update(llama_state(sub, f"{prefix}language_model."))
-        elif name in ("fuse_for_bridge_in_llm", "extract_for_bridge_out_llm"):
-            for p_name, p in sub.items():
-                if isinstance(p, Mapping):
-                    _put_dense(out, f"{prefix}{name}.{p_name}", p)
-                else:
-                    out[f"{prefix}{name}.{p_name}"] = _np(p)
-        elif name in ("pad_text_unit_embed", "pad_audio_unit_embed"):
+        elif name in ("fuse_for_bridge_in_llm", "extract_for_bridge_out_llm",
+                      "code_linear"):
+            out.update(bridge_state(sub, f"{prefix}{name}."))
+        elif name == "a0_embedding":
+            out[f"{prefix}a0_embedding.weight"] = _np(sub["embedding"])
+        elif name in ("pad_text_unit_embed", "pad_audio_unit_embed",
+                      "empty_audio_unit_embed"):
             out[f"{prefix}{name}"] = _np(sub)
         else:
             raise KeyError(f"unhandled spoken_lm param: {name}")
+    return out
+
+
+def taslm_state(tree: Mapping, prefix: str = "") -> Dict:
+    """flax TaslmForCausalLM -> the port's TASLM names (models/taslm.py):
+    the Llama (float with LoRA, or a serving layout) under
+    language_model., the fusion, the speech embeddings and heads.  The
+    learned special rows `speech_special_embed` go across, where JAX's
+    export to the reference drops them (the reference has none).  The
+    codebook is not part of the model: it is an argument of its calls."""
+    out: Dict = {}
+    for name, sub in tree.items():
+        if name == "language_model":
+            out.update(llama_state(sub, f"{prefix}language_model."))
+        elif name == "fusion_layer":
+            if "layer_norm_speech" in sub:
+                _put_norm(out, f"{prefix}fusion_layer.layer_norm_speech",
+                          sub["layer_norm_speech"])
+            if "gate" in sub:
+                _put_dense(out, f"{prefix}fusion_layer.gate", sub["gate"])
+            if "weights" in sub:
+                out[f"{prefix}fusion_layer.weights"] = _np(sub["weights"])
+        elif name in ("speech_embed_tokens", "speech_special_embed"):
+            out[f"{prefix}{name}.weight"] = _np(sub["embedding"])
+        elif name in ("speech_token_embed_proj_layer",
+                      "speech_rvq_hidden_proj_layer", "speech_head"):
+            _put_dense(out, f"{prefix}{name}", sub)
+        elif name == "speech_latent_sampler":
+            _put_dense(out, f"{prefix}speech_latent_sampler.fc_mu",
+                       sub["fc_mu"])
+            out[f"{prefix}speech_latent_sampler.b_logvar"] = \
+                _np(sub["b_logvar"])
+        else:
+            raise KeyError(f"unhandled taslm param: {name}")
     return out
 
 
@@ -462,7 +594,9 @@ def params_to_state_dict(variables: Mapping) -> Dict:
     out: Dict = {}
     out.update(audio_tower_state(
         params["audio_tower"], quantizer.get("audio_tower", {}).get("vq")))
-    out.update(speech_decoder_state(params["speech_decoder"]))
+    out.update(speech_decoder_state(
+        params["speech_decoder"], batch_stats=variables.get(
+            "batch_stats", {}).get("speech_decoder")))
     if "spoken_lm" in params:
         out.update(spoken_lm_state(params["spoken_lm"]))
     vg = params["voice_generator"]

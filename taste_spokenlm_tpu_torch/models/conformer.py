@@ -15,15 +15,22 @@ takes its Pallas kernel on the TPU: the S3 stack's stage-1 training pass,
 and the text and audio encoders on a long transcript.  Everything else,
 and every CPU tensor, takes the JAX package's non-kernel branch.  With
 `remat` set in the stack's config, each layer is checkpointed
-(ops/remat.py).  The convolution module, macaron FFN and conv subsampling
-stems are not ported yet.
+(ops/remat.py).  The conformer options of the config run in the
+full-sequence forward: the convolution module (`use_cnn_module`: GLU,
+depthwise conv with causal or centred padding, BatchNorm or LayerNorm),
+the macaron FFN and the conv subsampling stems (`input_layer` conv1d2,
+conv2d, conv2d4, conv2d6, conv2d8, with the reference's length mapping);
+the cached decode takes neither the conv module nor a stem, as in JAX.
 
-Names follow the reference state dict: embed.out.{0,1}, encoders.{i}.
+Names follow the reference state dict: embed.out.{0,1} (or the stems'
+embed.conv.{0,2,4} and embed.out.0 / embed.linear), encoders.{i}.
 self_attn.linear_{q,k,v,out,pos} (or linear_qkv), pos_bias_u/v,
-feed_forward.w_1/w_2, norm_mha/norm_ff (or norm1/norm2 for linear_legacy),
-after_norm; a QDense holds kernel_q [in, out], scale and bias, a QDense4
-kernel_q4 [in/2, out], scale [in/g, out] and bias.  Decode
-caches are written in place.
+feed_forward.w_1/w_2, feed_forward_macaron, conv_module.{pointwise_conv1,
+depthwise_conv, norm, pointwise_conv2}, norm_mha/norm_ff (or norm1/norm2
+for linear_legacy), norm_ff_macaron, norm_conv, norm_final, after_norm; a
+QDense holds kernel_q [in, out], scale and bias, a QDense4 kernel_q4
+[in/2, out], scale [in/g, out] and bias.  Decode caches are written in
+place.
 """
 
 from __future__ import annotations
@@ -194,14 +201,98 @@ class PositionwiseFeedForward(nn.Module):
         return self.w_2(self.act(self.w_1(x)))
 
 
+class FlaxBatchNorm(nn.Module):
+    """BatchNorm over [B, T, C] with flax's arithmetic: train mode
+    normalises with the batch's mean and biased variance (E[x^2] - E[x]^2,
+    clipped at 0, over every row, padding included) and moves the running
+    statistics as flax's `batch_stats` do, r = 0.99 r + 0.01 s (torch's
+    momentum 0.01) with the biased variance; eval mode reads them.  State
+    dict: weight, bias, running_mean, running_var, num_batches_tracked."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.99):
+        super().__init__()
+        self.eps, self.momentum = eps, momentum
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+        self.register_buffer("num_batches_tracked",
+                             torch.zeros((), dtype=torch.long))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if train:
+            xf = x.float().reshape(-1, x.shape[-1])
+            mean = xf.mean(dim=0)
+            var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean.float()
+                                        + (1 - m) * mean.detach())
+                self.running_var.copy_(m * self.running_var.float()
+                                       + (1 - m) * var.detach())
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean.float(), self.running_var.float()
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return ((x.float() - mean) * mul + self.bias.float()).to(x.dtype)
+
+
+class ConvolutionModule(nn.Module):
+    """Pointwise conv -> GLU -> depthwise conv -> norm -> activation ->
+    pointwise conv, on [B, T, C], padded frames zeroed at the input and at
+    the output.  Causal mode left-pads the raw input by k - 1 before the
+    first pointwise conv (so its bias reaches the window's left edge, as
+    in the reference); otherwise the GLU output is zero-padded by
+    (k - 1) / 2 on both sides."""
+
+    def __init__(self, channels: int, kernel_size: int = 15,
+                 activation: str = "swish", norm_type: str = "batch_norm",
+                 causal: bool = False):
+        super().__init__()
+        self.kernel_size, self.causal, self.norm_type = (kernel_size, causal,
+                                                         norm_type)
+        self.act = _ACT[activation]
+        self.pointwise_conv1 = nn.Conv1d(channels, 2 * channels, 1)
+        self.depthwise_conv = nn.Conv1d(channels, channels, kernel_size,
+                                        groups=channels)
+        self.norm = (nn.LayerNorm(channels, eps=1e-5)
+                     if norm_type == "layer_norm" else FlaxBatchNorm(channels))
+        self.pointwise_conv2 = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x, pad_mask=None, train: bool = False):
+        if pad_mask is not None:
+            x = x * pad_mask[..., None].to(x.dtype)
+        y = x.transpose(1, 2)                                  # [B, C, T]
+        if self.causal:
+            y = F.pad(y, (self.kernel_size - 1, 0))
+        a, g = self.pointwise_conv1(y).chunk(2, dim=1)
+        y = a * torch.sigmoid(g)
+        if not self.causal:
+            half = (self.kernel_size - 1) // 2
+            y = F.pad(y, (half, half))
+        y = self.depthwise_conv(y).transpose(1, 2)             # [B, T, C]
+        y = (self.norm(y) if self.norm_type == "layer_norm"
+             else self.norm(y, train))
+        y = self.pointwise_conv2(self.act(y).transpose(1, 2)).transpose(1, 2)
+        if pad_mask is not None:
+            y = y * pad_mask[..., None].to(y.dtype)
+        return y
+
+
 class EncoderLayer(nn.Module):
-    """Pre-LN MHA -> FFN layer; `conformer_names` picks norm_mha/norm_ff
-    (else norm1/norm2), as the reference state dicts do."""
+    """Pre-LN (macaron FFN ->) MHA (-> conv module) -> FFN layer (and a
+    final LayerNorm with the conv module); `conformer_names` picks
+    norm_mha/norm_ff (else norm1/norm2), as the reference state dicts
+    do."""
 
     def __init__(self, d_model: int, num_heads: int, ffn_dim: int,
                  activation: str, conformer_names: bool = True,
                  quantized=False, fused_qkv: bool = False,
-                 fused_mlp: bool = False):
+                 fused_mlp: bool = False, macaron_style: bool = False,
+                 use_cnn_module: bool = False, cnn_module_kernel: int = 15,
+                 cnn_module_norm: str = "batch_norm",
+                 cnn_causal: bool = False):
         super().__init__()
         self.self_attn = RelPositionAttention(d_model, num_heads, quantized,
                                               fused_qkv)
@@ -211,44 +302,114 @@ class EncoderLayer(nn.Module):
         self.ff_norm_name = "norm_ff" if conformer_names else "norm2"
         setattr(self, self.mha_norm_name, nn.LayerNorm(d_model, eps=1e-5))
         setattr(self, self.ff_norm_name, nn.LayerNorm(d_model, eps=1e-5))
+        self.macaron, self.use_cnn = macaron_style, use_cnn_module
+        self.ff_scale = 0.5 if macaron_style else 1.0
+        if macaron_style:
+            self.feed_forward_macaron = PositionwiseFeedForward(
+                d_model, ffn_dim, activation, quantized, fused_mlp)
+            self.norm_ff_macaron = nn.LayerNorm(d_model, eps=1e-5)
+        if use_cnn_module:
+            self.conv_module = ConvolutionModule(
+                d_model, cnn_module_kernel, activation, cnn_module_norm,
+                cnn_causal)
+            self.norm_conv = nn.LayerNorm(d_model, eps=1e-5)
+            self.norm_final = nn.LayerNorm(d_model, eps=1e-5)
 
     def forward(self, x, pos_emb, mask=None, cache=None, cache_index: int = 0,
-                pos_proj=None, causal_scores: bool = False):
+                pos_proj=None, causal_scores: bool = False, pad_mask=None,
+                train: bool = False):
+        if self.macaron:
+            x = x + self.ff_scale * self.feed_forward_macaron(
+                self.norm_ff_macaron(x))
         h, new_cache = self.self_attn(
             getattr(self, self.mha_norm_name)(x), pos_emb, mask=mask,
             cache=cache, cache_index=cache_index, pos_proj=pos_proj,
             causal_scores=causal_scores)
         x = x + h
-        x = x + self.feed_forward(getattr(self, self.ff_norm_name)(x))
+        if self.use_cnn:
+            x = x + self.conv_module(self.norm_conv(x), pad_mask, train)
+        h = self.feed_forward(getattr(self, self.ff_norm_name)(x))
+        x = x + (self.ff_scale * h if self.macaron else h)
+        if self.use_cnn:
+            x = self.norm_final(x)
         return x, new_cache
 
 
+_CONV2D = {"conv2d": (3, 2), "conv2d4": (3, 2), "conv2d6": (5, 3),
+           "conv2d8": (3, 2)}   # the second conv's kernel and stride
+
+
 class _Embed(nn.Module):
-    def __init__(self, input_size: int, output_size: int):
+    """The input layer: Linear -> LayerNorm (`out`), or a conv stem:
+    conv1d2 (`conv` = two Conv1d, GELU each, the second stride 2) or the
+    conv2d stems (`conv` = 3x3 stride-2 VALID Conv2d, ReLU, then 3x3 / 5x5
+    stride 2 / 3 (and, in conv2d8, a third 3x3 stride 2), each ReLU;
+    then `out.0` (conv2d, conv2d4) or `linear` over the (channel,
+    frequency) flatten)."""
+
+    def __init__(self, layer: str, input_size: int, output_size: int):
         super().__init__()
-        self.out = nn.Sequential(nn.Linear(input_size, output_size),
-                                 nn.LayerNorm(output_size, eps=1e-5))
+        self.layer = layer
+        if layer in ("linear", "linear_legacy"):
+            self.out = nn.Sequential(nn.Linear(input_size, output_size),
+                                     nn.LayerNorm(output_size, eps=1e-5))
+        elif layer == "conv1d2":
+            self.conv = nn.Sequential(
+                nn.Conv1d(input_size, output_size, 3, padding=1), nn.GELU(),
+                nn.Conv1d(output_size, output_size, 3, stride=2, padding=1),
+                nn.GELU())
+        elif layer in _CONV2D:
+            k2, s2 = _CONV2D[layer]
+            mods = [nn.Conv2d(1, output_size, 3, 2), nn.ReLU(),
+                    nn.Conv2d(output_size, output_size, k2, s2), nn.ReLU()]
+            f = ((input_size - 1) // 2 - k2) // s2 + 1
+            if layer == "conv2d8":
+                mods += [nn.Conv2d(output_size, output_size, 3, 2), nn.ReLU()]
+                f = (f - 3) // 2 + 1
+            if f <= 0:
+                raise ValueError(f"input_size={input_size} is too small for "
+                                 f"{layer!r}: the VALID conv stack consumes "
+                                 "the whole feature axis")
+            self.conv = nn.Sequential(*mods)
+            lin = nn.Linear(output_size * f, output_size)
+            if layer in ("conv2d", "conv2d4"):
+                self.out = nn.Sequential(lin)
+            else:
+                self.linear = lin
+        else:
+            raise ValueError(f"unknown input_layer {layer!r}")
+
+    def forward(self, x):
+        if self.layer in ("linear", "linear_legacy"):
+            x = self.out(x)
+            return F.relu(x) if self.layer == "linear_legacy" else x
+        if self.layer == "conv1d2":
+            return self.conv(x.transpose(1, 2)).transpose(1, 2)
+        x = self.conv(x[:, None])                          # [B, C, T', F']
+        b, c, t, f = x.shape
+        x = x.transpose(1, 2).reshape(b, t, c * f)         # c-major flatten
+        return (self.out(x) if self.layer in ("conv2d", "conv2d4")
+                else self.linear(x))
 
 
 class ConformerEncoder(nn.Module):
-    """Linear -> LayerNorm -> (ReLU if linear_legacy) -> x*sqrt(d), then the
-    rel-pos encoder layers and a final LayerNorm."""
+    """Input layer -> x*sqrt(d), then the rel-pos encoder layers and a final
+    LayerNorm."""
 
     def __init__(self, config: EncoderStackConfig, max_len: int = 4096):
         super().__init__()
         cfg = self.config = config
-        if cfg.input_layer not in ("linear", "linear_legacy"):
-            raise NotImplementedError(f"input_layer {cfg.input_layer!r}")
-        if cfg.use_cnn_module or cfg.macaron_style:
-            raise NotImplementedError("conformer conv module / macaron FFN")
         self.max_len = max_len
-        self.embed = _Embed(cfg.input_size, cfg.output_size)
+        self.embed = _Embed(cfg.input_layer, cfg.input_size, cfg.output_size)
         conformer_names = cfg.input_layer != "linear_legacy"
         act = cfg.activation_type if conformer_names else "relu"
         self.encoders = nn.ModuleList(
             EncoderLayer(cfg.output_size, cfg.attention_heads, cfg.linear_units,
                          act, conformer_names, cfg.quantized_serving,
-                         cfg.fused_qkv_serving, cfg.fused_mlp_serving)
+                         cfg.fused_qkv_serving, cfg.fused_mlp_serving,
+                         cfg.macaron_style, cfg.use_cnn_module,
+                         cfg.cnn_module_kernel, cfg.cnn_module_norm,
+                         cfg.cnn_causal)
             for _ in range(cfg.num_blocks))
         self.after_norm = nn.LayerNorm(cfg.output_size, eps=1e-5)
         self.register_buffer("pe_table", torch.from_numpy(
@@ -259,15 +420,45 @@ class ConformerEncoder(nn.Module):
         return self.after_norm.weight.dtype
 
     def _embed(self, x):
-        x = self.embed.out(x.to(self.dtype))
-        if self.config.input_layer == "linear_legacy":
-            x = F.relu(x)
+        x = self.embed(x.to(self.dtype))
         return x * torch.tensor(math.sqrt(self.config.output_size),
                                 dtype=x.dtype, device=x.device)
 
-    def forward(self, x, lengths=None, causal: Optional[bool] = None):
-        """Full-sequence forward: x [B, T, input_size] -> [B, T, output_size]."""
+    def subsampled_length(self, t_in: int) -> int:
+        """Output frame count of the input layer for a t_in-frame input."""
+        il = self.config.input_layer
+        if il in ("linear", "linear_legacy"):
+            return t_in
+        if il == "conv1d2":
+            return (t_in + 1) // 2
+        t = (t_in - 1) // 2
+        if il in ("conv2d", "conv2d4"):
+            return (t - 1) // 2
+        if il == "conv2d6":
+            return (t - 4) // 3
+        return ((t - 1) // 2 - 1) // 2
+
+    def subsample_lengths(self, lengths: torch.Tensor, t_in: int,
+                          t_out: int) -> torch.Tensor:
+        """Valid-length mapping of the stems, as the reference slices its
+        mask: ceil((len - p0) / step) clipped to [0, t_out]."""
+        il = self.config.input_layer
+        if il in ("linear", "linear_legacy"):
+            return lengths
+        p0, step = {"conv1d2": ((t_in + 1) % 2, 2), "conv2d": (6, 4),
+                    "conv2d4": (6, 4), "conv2d6": (10, 6),
+                    "conv2d8": (14, 8)}[il]
+        return torch.clamp(
+            torch.div(lengths - p0 + step - 1, step, rounding_mode="floor"),
+            0, t_out)
+
+    def forward(self, x, lengths=None, causal: Optional[bool] = None,
+                train: bool = False):
+        """Full-sequence forward: x [B, T, input_size] -> [B, T', output_size]
+        (T' = subsampled_length(T)); `train` moves the conv module's
+        BatchNorm statistics."""
         cfg = self.config
+        t_in = x.shape[1]
         x = self._embed(x)
         t = x.shape[1]
         pe = self.pe_table[self.max_len - t: self.max_len + t - 1]
@@ -276,11 +467,14 @@ class ConformerEncoder(nn.Module):
         mask = chunk_causal_mask(t, cfg.static_chunk_size if causal else 0,
                                  x.device)[None, None]
         sc = bool(causal) and cfg.static_chunk_size == 1
+        pad_mask = None
         if lengths is not None:
-            valid = length_mask(lengths, t)
+            valid = length_mask(self.subsample_lengths(lengths, t_in, t), t)
             mask = mask & valid[:, None, None, :]
+            pad_mask = valid if cfg.use_cnn_module else None
         for layer in self.encoders:
-            x, _ = call_layer(layer, cfg.remat, x, pe, mask, causal_scores=sc)
+            x, _ = call_layer(layer, cfg.remat, x, pe, mask, causal_scores=sc,
+                              pad_mask=pad_mask, train=train)
         return self.after_norm(x)
 
     def init_cache(self, batch: int, max_len: int) -> List[Dict[str, torch.Tensor]]:
@@ -301,7 +495,12 @@ class ConformerEncoder(nn.Module):
                     pos_projs=None):
         """One-token (or prefill-chunk) step: x [B, S, input_size], `index`
         the absolute position of x[:, 0].  Attends to cache positions <= its
-        own; `key_valid` [B, 1, 1, Tk] also masks invalid cache slots."""
+        own; `key_valid` [B, 1, 1, Tk] also masks invalid cache slots.
+        The stack takes neither the conv module nor a subsampling stem."""
+        if self.config.use_cnn_module or self.config.input_layer not in (
+                "linear", "linear_legacy"):
+            raise ValueError("decode_step needs a linear input layer and no "
+                             "conv module (as JAX's)")
         b, s, _ = x.shape
         x = self._embed(x)
         tk = caches[0]["k"].shape[1]

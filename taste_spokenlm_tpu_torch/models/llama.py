@@ -26,6 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from taste_spokenlm_tpu_torch.config import LlamaConfig, LoraConfig
+from taste_spokenlm_tpu_torch.ops.attention import gqa_attention
 from taste_spokenlm_tpu_torch.ops.quantized import (F32Buffers, QEmbed,
                                                     fused_gated_mlp_apply,
                                                     int4_apply,
@@ -146,20 +147,6 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
         cos, sin = cos[None], sin[None]
     cos, sin = cos[:, :, None, :], sin[:, :, None, :]
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-
-
-def gqa_attention(q, k, v, mask=None):
-    """Grouped-query attention, fp32 softmax: q [B, Tq, Hq, D], k/v [B, Tk,
-    Hkv, D], mask bool [B, 1, Tq, Tk] -> [B, Tq, Hq, D]."""
-    b, tq, hq, d = q.shape
-    hkv = k.shape[2]
-    qg = q.reshape(b, tq, hkv, hq // hkv, d)
-    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * d ** -0.5
-    if mask is not None:
-        logits = torch.where(mask[:, :, None], logits, logits.new_tensor(NEG_F32))
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(), v.float())
-    return out.reshape(b, tq, hq, d).to(q.dtype)
 
 
 class RMSNorm(nn.Module):

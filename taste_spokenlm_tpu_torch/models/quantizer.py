@@ -12,13 +12,15 @@ in, or come from a torch.Generator.  Inside a data-parallel train step
 (parallel/mesh.py `data_parallel`) the EMA counts and sums are summed over the ranks, the
 dead-code picks are rows of the global batch and the commit loss divides by
 the global count, as JAX's update over the global batch does under pjit.
-`kmeans` and `ResidualVQ.init_codebook_state` initialise the codebooks;
-the grouped / plain / k-means quantizers are not ported yet.
+`kmeans` and `ResidualVQ.init_codebook_state` initialise the codebooks.
+The zoo of the reference (`QUANTIZER_CLASSES`): the plain VQ (a one-level
+RVQ), the feature-grouped RVQ, the frozen k-means codebook and the linear
+no-VQ bottleneck.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -72,6 +74,14 @@ def codebook_indices_from_code(cb: Codebook, code: torch.Tensor
         residual = residual - emb[idx]
         indices.append(idx)
     return torch.stack(indices, dim=-1)
+
+
+def codebook_distributed_codes(cb: Codebook, logits: torch.Tensor
+                               ) -> torch.Tensor:
+    """Soft codes: per-level logits [..., Q, K] -> softmax-weighted
+    codebook rows [..., Q, Dc] (no gradient to the codebooks)."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    return torch.einsum("...qk,qkd->...qd", probs, cb.embed.detach().float())
 
 
 def nearest(residual: torch.Tensor, codebook: torch.Tensor,
@@ -300,8 +310,148 @@ class ResidualVQ(nn.Module):
             cb.cluster_size[0].copy_(size)
             cb.initted.fill_(1)
 
+    # the index -> code APIs the grouped RVQ reads (JAX `ResidualVQ.get_*`)
+
+    def get_codes_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """[B, T, Q] -> per-level codes [Q, B, T, Dc]; -1 indices give 0."""
+        return codebook_codes_from_indices(Codebook(self.embeds()), indices)
+
+    def get_code_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        return self.get_codes_from_indices(indices).sum(dim=0)
+
+    def get_output_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """[B, T, Q] -> model-space vectors [B, T, dim]."""
+        summed = self.get_code_from_indices(indices)
+        return self.project_out(summed) if self.needs_projection else summed
+
     def codebook(self) -> Codebook:
         if self.needs_projection:
             return Codebook(self.embeds(), self.project_out.weight,
                             self.project_out.bias)
         return Codebook(self.embeds())
+
+
+# ---------------------------------------------------------------------------
+# the quantizer zoo (reference audio_quantizer.py)
+# ---------------------------------------------------------------------------
+
+
+class VectorQuantizer(nn.Module):
+    """Plain single-level VQ: a ResidualVQ with one level and no quantize
+    dropout, named `vq`."""
+
+    def __init__(self, config: QuantizerConfig):
+        super().__init__()
+        self.config = config
+        self.vq = ResidualVQ(config.replace(num_quantizers=1,
+                                            quantize_dropout=False))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None,
+                **draws):
+        return self.vq(x, mask=mask, train=train, generator=generator,
+                       **draws)
+
+
+class GroupedResidualVQ(nn.Module):
+    """Feature-grouped RVQ: x's last dim splits into `groups` chunks, each
+    quantized by its own ResidualVQ (`rvqs.{g}`), outputs concatenated.
+    Indices [B, T, G, Q]; the commit loss is the sum over the groups.
+
+    In train mode each group draws its own quantize-dropout level (JAX
+    folds the step key with the group), where the reference shares one
+    level across the groups; the port follows JAX.  `draws` is one dict of
+    the RVQ's draws a group (`drop_after`, `gumbel`, `dead_picks`)."""
+
+    def __init__(self, config: QuantizerConfig):
+        super().__init__()
+        cfg = self.config = config
+        if cfg.dim % cfg.groups:
+            raise ValueError(f"dim {cfg.dim} not divisible by groups "
+                             f"{cfg.groups}")
+        sub = cfg.replace(dim=cfg.dim // cfg.groups, groups=1)
+        self.rvqs = nn.ModuleList(ResidualVQ(sub) for _ in range(cfg.groups))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None,
+                draws: Optional[Sequence[Dict]] = None):
+        outs = [rvq(xg, mask=mask, train=train, generator=generator,
+                    **(draws[g] if draws is not None else {}))
+                for g, (rvq, xg) in enumerate(zip(
+                    self.rvqs, x.chunk(self.config.groups, dim=-1)))]
+        return {
+            "quantized_feats": torch.cat(
+                [o["quantized_feats"] for o in outs], dim=-1),
+            "quantized_indices": torch.stack(
+                [o["quantized_indices"] for o in outs], dim=2),
+            "commit_loss": sum(o["commit_loss"] for o in outs)}
+
+    def get_codes_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """[B, T, G, Q] -> per-group per-level codes [G, Q, B, T, Dc]."""
+        return torch.stack([rvq.get_codes_from_indices(indices[:, :, g])
+                            for g, rvq in enumerate(self.rvqs)])
+
+    def get_output_from_indices(self, indices: torch.Tensor) -> torch.Tensor:
+        """[B, T, G, Q] -> model-space vectors [B, T, dim]."""
+        return torch.cat([rvq.get_output_from_indices(indices[:, :, g])
+                          for g, rvq in enumerate(self.rvqs)], dim=-1)
+
+
+class KmeansQuantizer(nn.Module):
+    """Nearest-neighbour lookup in a frozen external codebook (a buffer,
+    loaded with the checkpoint)."""
+
+    def __init__(self, codebook_size: int, dim: int):
+        super().__init__()
+        self.register_buffer("codebook", torch.zeros(codebook_size, dim))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        b, t, d = x.shape
+        cb = self.codebook.float()
+        idx = nearest(x.reshape(-1, d).float(), cb).view(b, t)
+        quant = cb[idx]
+        if mask is not None:
+            quant = quant * mask[:, :, None]
+        return {"quantized_feats": quant.to(x.dtype),
+                "quantized_indices": idx[..., None],
+                "commit_loss": x.new_zeros((), dtype=torch.float32)}
+
+
+class NoQuantizer(nn.Module):
+    """Linear bottleneck (proj_in -> proj_out) without quantization; with a
+    `codebook_size`, the bottleneck is snapped to a frozen k-means
+    codebook's nearest row."""
+
+    def __init__(self, dim: int, codebook_dim: int, codebook_size: int = 0):
+        super().__init__()
+        self.proj_in = nn.Linear(dim, codebook_dim)
+        self.proj_out = nn.Linear(codebook_dim, dim)
+        self.codebook_size = codebook_size
+        if codebook_size:
+            self.register_buffer("codebook",
+                                 torch.zeros(codebook_size, codebook_dim))
+
+    def forward(self, x, mask=None, train: bool = False, generator=None):
+        z = self.proj_in(x)
+        hidden = z
+        result = {}
+        if self.codebook_size:
+            b, t, d = z.shape
+            idx = nearest(z.reshape(-1, d).float(),
+                          self.codebook.float()).view(b, t)
+            z = self.codebook[idx].to(x.dtype)
+            result["quantized_indices"] = idx[..., None]
+        out = self.proj_out(z)
+        if mask is not None:
+            out = out * mask[:, :, None]
+        result.update(quantized_feats=out,
+                      commit_loss=x.new_zeros((), dtype=torch.float32),
+                      intermediate_hiddens=hidden.detach())
+        return result
+
+
+QUANTIZER_CLASSES = {
+    "rvq": ResidualVQ,
+    "grouped_rvq": GroupedResidualVQ,
+    "vq": VectorQuantizer,
+    "kmeans": KmeansQuantizer,
+    "no": NoQuantizer,
+}

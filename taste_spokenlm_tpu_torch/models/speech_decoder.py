@@ -4,7 +4,9 @@ inference path).
 
   text ids  -> embed -> causal conformer -> affine
   taste emb -> affine -> causal conformer -> affine
-  fuse (softmax-weighted sum)
+  fuse (softmax-weighted sum, optionally of LayerNormed streams; or the
+        concat fusions [audio | text] and [audio | sep | text], packed
+        raggedly, 2T (+1) long)
   prefix = [sos | spk | fused | task], packed left-padded
   KV-cached AR decode of the llm conformer -> head (V+1, last = EOS)
 
@@ -12,7 +14,8 @@ The teacher-forced forward (stage-1 training) packs [sos | spk | fused |
 task | S3] raggedly, runs one causal pass of the llm conformer and scores
 the head against [IGNORE x (2 + T) | S3 | EOS] with the label-smoothing CE
 and the top-1 accuracy.  Module names follow the reference
-TasteSpeechDecoder state dict.  The concat fusions are not ported yet.
+TasteSpeechDecoder state dict; the learned separator of concat_with_sep
+is fuse_encoded_audio_text_module.sep_embed.
 
 The sampling noise of the AR decode is indexed by the absolute decode
 step (`gumbel` [max_steps, B, V+1] sliced at the state's step), so a
@@ -37,10 +40,19 @@ from taste_spokenlm_tpu_torch.ops.segment import ragged_concat
 
 
 class _Fuse(nn.Module):
-    def __init__(self, init_type: str):
+    def __init__(self, init_type: str, sep_dim: int = 0):
         super().__init__()
         init = {"balance": [1.0, 1.0], "zero_audio": [-2.0, 2.0]}[init_type]
         self.weights = nn.Parameter(torch.tensor(init))
+        if sep_dim:
+            self.sep_embed = nn.Parameter(torch.zeros(sep_dim))
+
+
+def _layer_norm_no_affine(x: torch.Tensor) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
 
 
 class TasteSpeechDecoder(nn.Module):
@@ -48,10 +60,8 @@ class TasteSpeechDecoder(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
-        if cfg.fuse_type != "weighted_sum" or cfg.fuse_normalize:
-            raise NotImplementedError(
-                f"fuse_type {cfg.fuse_type!r}, fuse_normalize "
-                f"{cfg.fuse_normalize}")
+        if cfg.fuse_type not in ("weighted_sum", "concat", "concat_with_sep"):
+            raise ValueError(f"fuse_type {cfg.fuse_type!r}")
         self.text_embedding = nn.Embedding(cfg.text_token_size,
                                            cfg.text_encoder_input_size)
         self.text_encoder = ConformerEncoder(cfg.text_encoder)
@@ -62,7 +72,9 @@ class TasteSpeechDecoder(nn.Module):
         self.audio_token_encoder = ConformerEncoder(cfg.audio_encoder)
         self.audio_token_encoder_affine_layer = nn.Linear(
             cfg.audio_encoder.output_size, cfg.llm_input_size)
-        self.fuse_encoded_audio_text_module = _Fuse(cfg.fuse_weight_init_type)
+        self.fuse_encoded_audio_text_module = _Fuse(
+            cfg.fuse_weight_init_type,
+            cfg.llm_input_size if cfg.fuse_type == "concat_with_sep" else 0)
         self.llm_embedding = nn.Embedding(2, cfg.llm_input_size)
         self.llm = ConformerEncoder(cfg.llm)
         # the logits head rides the llm stack's serving quantization
@@ -89,12 +101,27 @@ class TasteSpeechDecoder(nn.Module):
         return self.audio_token_encoder_affine_layer(enc)
 
     def fuse(self, audio_encoded, text_encoded, lengths=None):
-        """Softmax-weighted sum of the two streams; keeps the aligned
-        length."""
-        w = torch.softmax(self.fuse_encoded_audio_text_module.weights.float(),
-                          dim=0)
-        fused = w[0] * audio_encoded.float() + w[1] * text_encoded.float()
-        return fused.to(self.dtype), lengths
+        """weighted_sum: the softmax-weighted sum of the two streams (each
+        LayerNormed without affine first under `fuse_normalize`), at the
+        aligned length.  concat / concat_with_sep: [audio | (sep) | text]
+        of each row's valid rows, packed to 2T (+1) columns, and the packed
+        lengths."""
+        cfg = self.config
+        mod = self.fuse_encoded_audio_text_module
+        if cfg.fuse_type == "weighted_sum":
+            if cfg.fuse_normalize:
+                audio_encoded = _layer_norm_no_affine(audio_encoded)
+                text_encoded = _layer_norm_no_affine(text_encoded)
+            w = torch.softmax(mod.weights.float(), dim=0)
+            fused = w[0] * audio_encoded.float() + w[1] * text_encoded.float()
+            return fused.to(self.dtype), lengths
+        b, t = audio_encoded.shape[:2]
+        segments = [(audio_encoded, lengths)]
+        if cfg.fuse_type == "concat_with_sep":
+            segments.append((mod.sep_embed[None, None, :].expand(b, 1, -1)
+                             .to(audio_encoded.dtype), None))
+        segments.append((text_encoded, lengths))
+        return ragged_concat(segments, 2 * t + len(segments) - 2)
 
     def prepare_conditional_embeds(self, speaker_embeds, audio_unit_embeds,
                                    audio_unit_lengths, asr_token_ids,

@@ -2,12 +2,18 @@
 the JAX models/spoken_lm.py).
 
 Ported: the word / token / no-delay conditional prefix
-(`prepare_conditional_embeds`, audio embeds by `fill_forward`), the
+(`prepare_conditional_embeds`, audio embeds by every
+`audio_embed_conv_mode`: `fill_forward`, `pad`, `embed_a0_only`,
+`get_codes_from_indices`), the
 teacher-forced forward with its losses (`forward`: text CE, optionally
 with the KL to the frozen base, and the taste loss), the KV-cached joint
 decode in the modes zero / text / audio / instruct
 (`generate_stream_init`, `generate_stream_chunk`, `generate`) with the
-branchless sampler (models/sampler.py), and `get_audio_embeds_from_taste`.
+branchless sampler (models/sampler.py), and `get_audio_embeds_from_taste`,
+with every in- and out-bridge of models/bridges.py but the `reference_mix`
+extraction, which JAX's spoken LM cannot run either.  The weighted-layer
+bridges read every hidden state of the Llama, in the forward and at each
+decode step.
 The decode is a Python loop over steps; it stops early once every row is
 done, as the JAX while-loop does.
 
@@ -82,35 +88,66 @@ class TasteSpokenLM(nn.Module):
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         cfg = self.config = config
-        if cfg.audio_embed_conv_mode != "fill_forward":
-            raise NotImplementedError(
-                f"audio_embed_conv_mode {cfg.audio_embed_conv_mode!r} is not "
-                "ported yet: ROADMAP.md queue A, "
-                '"What the earlier slices left"')
+        if cfg.out_llm_module == "reference_mix":
+            raise ValueError("out_llm_module 'reference_mix' reads taste "
+                             "embeds the spoken LM does not pass (JAX's "
+                             "raises on it too)")
+        mode = cfg.audio_embed_conv_mode
+        if mode not in ("fill_forward", "pad", "embed_a0_only",
+                        "get_codes_from_indices"):
+            raise ValueError(f"audio_embed_conv_mode {mode!r}")
         self.dtype, self.audio_dim, self.taste_l = dtype, audio_dim, taste_l
         h = cfg.llama.hidden_size
         self.language_model = LlamaModel(
             cfg.llama, cfg.lora if cfg.use_lora else None, dtype)
         self.fuse_for_bridge_in_llm = make_fusion(cfg.in_llm_module, h, audio_dim)
         self.extract_for_bridge_out_llm = make_extract(
-            cfg.out_llm_module, h, taste_k, taste_d, taste_l)
+            cfg.out_llm_module, h, taste_k, taste_d, taste_l,
+            cfg.llama.num_hidden_layers + 1)
         if cfg.delay > 0:
             self.pad_text_unit_embed = nn.Parameter(torch.zeros(h))
         self.pad_audio_unit_embed = nn.Parameter(torch.zeros(audio_dim))
+        if mode != "fill_forward":
+            self.empty_audio_unit_embed = nn.Parameter(torch.zeros(audio_dim))
+        if mode == "embed_a0_only":
+            self.a0_embedding = nn.Embedding(taste_k, audio_dim).to(dtype)
+        if mode == "get_codes_from_indices":
+            self.code_linear = nn.Linear(taste_d, audio_dim).to(dtype)
         self.fuse_for_bridge_in_llm.to(dtype)
         self.extract_for_bridge_out_llm.to(dtype)
         self.taste_d = taste_d
         # the latent heads take the regression + KL taste loss, the others
-        # the per-level CE
+        # (multi-head ones too) the per-level CE
         self.do_continue = "continue_latent" in cfg.out_llm_module
+        self.do_multihead = "multi_" in cfg.out_llm_module
+        self.needs_hidden_states = \
+            self.extract_for_bridge_out_llm.needs_hidden_states
 
     def encode_audio(self, llm_indices: torch.Tensor, cb: Codebook):
-        """Per-position taste indices -> audio embeds (fill_forward: the last
-        valid row carried forward, the pad embed before the first)."""
-        filled = fill_forward_indices(llm_indices)
-        emb = codebook_output_from_indices(cb, filled.clamp(min=0))
-        return torch.where((filled[..., 0] >= 0)[..., None], emb.float(),
-                           self.pad_audio_unit_embed.float()[None, None, :])
+        """Per-position taste indices [B, T, L] -> audio embeds [B, T, A]
+        (f32).  fill_forward: the last valid row carried forward, the pad
+        embed before the first; pad: the RVQ output; embed_a0_only: a
+        learned embedding of level 0's index; get_codes_from_indices: a
+        linear map of the summed codebook codes.  In the last three a row
+        with an invalid index takes the empty embed."""
+        mode = self.config.audio_embed_conv_mode
+        if mode == "fill_forward":
+            filled = fill_forward_indices(llm_indices)
+            emb = codebook_output_from_indices(cb, filled.clamp(min=0))
+            return torch.where((filled[..., 0] >= 0)[..., None], emb.float(),
+                               self.pad_audio_unit_embed.float()[None, None, :])
+        valid = (llm_indices >= 0).all(dim=-1)
+        zeroed = llm_indices.clamp(min=0)
+        if mode == "pad":
+            emb = codebook_output_from_indices(cb, zeroed)
+        elif mode == "embed_a0_only":
+            valid = llm_indices[..., 0] >= 0
+            emb = self.a0_embedding(zeroed[..., 0].long())
+        else:
+            code = codebook_code_from_indices(cb, zeroed)
+            emb = self.code_linear(code.to(self.code_linear.weight.dtype))
+        return torch.where(valid[..., None], emb.float(),
+                           self.empty_audio_unit_embed.float()[None, None, :])
 
     def _embed(self, ids: torch.Tensor) -> torch.Tensor:
         return self.language_model.embed_tokens(ids).to(self.dtype)
@@ -170,8 +207,16 @@ class TasteSpokenLM(nn.Module):
             post = torch.where((wi >= 0)[:, :, None],
                                _take_rows(llm_indices, post_tok),
                                torch.full_like(llm_indices[:, :d], IGNORE_ID))
+            emb_pre = self.encode_audio(pre, cb)
+            if cfg.audio_embed_conv_mode != "fill_forward":
+                # rows before the first delayed word start take the pad
+                # embed in every mode (fill_forward does so itself)
+                before = torch.cumsum(src_ok.long(), dim=1) == 0
+                emb_pre = torch.where(
+                    before[:, :, None],
+                    self.pad_audio_unit_embed.float()[None, None, :], emb_pre)
             audio_stream, _ = ragged_concat(
-                [(self.encode_audio(pre, cb), llm_token_lengths),
+                [(emb_pre, llm_token_lengths),
                  (self.encode_audio(post, cb), None)], t + d)
             labels, _ = ragged_concat(
                 [(pre.long(), llm_token_lengths), (post.long(), None),
@@ -224,9 +269,11 @@ class TasteSpokenLM(nn.Module):
                     ref_logits = lm.logits(hid)
                 else:
                     ref_hidden = hid
-        out = lm(inputs_embeds=inputs_embeds, attention_lengths=output_lengths)
+        out = lm(inputs_embeds=inputs_embeds, attention_lengths=output_lengths,
+                 output_hidden_states=self.needs_hidden_states)
         taste_logits, info = self.extract_for_bridge_out_llm(
-            out["last_hidden"], cb, train=train, eps=eps, generator=generator)
+            out["last_hidden"], cb, train=train, eps=eps, generator=generator,
+            hidden_states=out.get("hidden_states"))
 
         # next-token text targets, IGNORE_ID from each row's length on
         total = inputs_embeds.shape[1]
@@ -354,9 +401,13 @@ class TasteSpokenLM(nn.Module):
         slot = torch.arange(total, device=dev)
         key_valid0 = slot[None, :] < prefix_len[:, None]
         out0 = lm(inputs_embeds=prefix, caches=caches, cache_index=0,
-                  key_valid=key_valid0)
+                  key_valid=key_valid0,
+                  output_hidden_states=self.needs_hidden_states)
         last = (prefix_len - 1)[:, None]
         hidden = _take_rows(out0["last_hidden"], last)[:, 0]
+        all_hidden = (tuple(_take_rows(h, last)[:, 0]
+                            for h in out0["hidden_states"])
+                      if self.needs_hidden_states else None)
 
         sampler = init_state(b, cfg.llama.vocab_size, d, dev)
         if conditional_mode != "zero":
@@ -370,7 +421,8 @@ class TasteSpokenLM(nn.Module):
                                                    dtype=torch.long, device=dev))
             sampler = sampler._replace(token_counts=counts)
         return {
-            "step": 0, "caches": caches, "hidden": hidden, "sampler": sampler,
+            "step": 0, "caches": caches, "hidden": hidden,
+            "all_hidden": all_hidden, "sampler": sampler,
             "last_audio_embed": torch.zeros((b, self.audio_dim), device=dev),
             "pending_ptr": pending_start,
             "out_tokens": torch.full((b, max_steps), IGNORE_ID, device=dev),
@@ -412,7 +464,9 @@ class TasteSpokenLM(nn.Module):
                 break
             text_logits = lm.logits(st["hidden"][:, None])[:, 0]
             taste_logits, _ = self.extract_for_bridge_out_llm(
-                st["hidden"][:, None].float(), cb)
+                st["hidden"][:, None].float(), cb, hidden_states=(
+                    None if st["all_hidden"] is None
+                    else tuple(h[:, None] for h in st["all_hidden"])))
             taste_logits = taste_logits[:, 0]
             noise = [None, None]
             for j, (p, given, shape) in enumerate((
@@ -456,9 +510,12 @@ class TasteSpokenLM(nn.Module):
             out_step = lm(inputs_embeds=fused, caches=st["caches"],
                           cache_index=max_prefix + step,
                           position_offset=st["prefix_len"] + step,
-                          key_valid=st["key_valid0"] | gen_valid[None])
+                          key_valid=st["key_valid0"] | gen_valid[None],
+                          output_hidden_states=self.needs_hidden_states)
             st.update(
                 step=step + 1, hidden=out_step["last_hidden"][:, 0],
+                all_hidden=(tuple(h[:, 0] for h in out_step["hidden_states"])
+                            if self.needs_hidden_states else None),
                 sampler=sampler, last_audio_embed=last_audio,
                 pending_ptr=st["pending_ptr"] + out.use_prefix.long(),
                 out_tokens=out_tokens, out_taste=out_taste,

@@ -1,6 +1,7 @@
 """Ragged word-level ops as batched tensor ops (counterpart of the JAX
 ops/segment.py: `segment_mean_pool`, `word_start_remap`, `remap_gather`,
-`ragged_concat`, `compact_valid_rows`, `word_count`)."""
+`ragged_concat`, `compact_valid_rows`, `word_count`,
+`cross_tokenizer_remap`, `alignment_mean_pool`)."""
 
 from __future__ import annotations
 
@@ -123,3 +124,42 @@ def compact_valid_rows(values: torch.Tensor, valid: torch.Tensor,
 def word_count(word_ids: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """[B] number of word runs within each row's valid length."""
     return word_start_mask(word_ids, lengths).sum(dim=1)
+
+
+def cross_tokenizer_remap(src_word_ids, src_lengths, dst_word_ids, dst_lengths
+                          ) -> torch.Tensor:
+    """Word-aligned remap matrix M [B, Td, Ts]: `M @ src_feats` copies, for
+    every valid destination token, the feature of the first source token of
+    the same word run (runs are matched by their order, as JAX does)."""
+    ts = src_word_ids.shape[1]
+    td = dst_word_ids.shape[1]
+    dev = src_word_ids.device
+    src_groups = consecutive_group_ids(src_word_ids)
+    dst_groups = consecutive_group_ids(dst_word_ids)
+    src_start = word_start_mask(src_word_ids, src_lengths)
+    ar = torch.arange(ts, device=dev)
+    src_sel = ((src_groups[:, None, :] == ar[None, :, None])
+               & src_start[:, None, :])                      # [B, G, Ts]
+    dst_sel = dst_groups[:, :, None] == ar[None, None, :]    # [B, Td, G]
+    m = torch.einsum("btg,bgs->bts", dst_sel.float(), src_sel.float())
+    return m * length_mask(dst_lengths, td)[:, :, None].float()
+
+
+def alignment_mean_pool(feats: torch.Tensor, feat_lengths: torch.Tensor,
+                        alignments: torch.Tensor, token_lengths: torch.Tensor
+                        ) -> torch.Tensor:
+    """The legacy segmenter's pooling: each token averages the frames i
+    with start <= i <= end, where alignments [B, Ttok, 2] hold (start, end)
+    in [0, 1] scaled by the row's feat length (truncated to int).  feats
+    [B, Tf, C] -> [B, Ttok, C]; tokens past `token_lengths` and empty
+    intervals give 0."""
+    tf = feats.shape[1]
+    bounds = (alignments.float() * feat_lengths.float()[:, None, None]
+              ).to(torch.int32)
+    frame = torch.arange(tf, device=feats.device)[None, None, :]
+    sel = (frame >= bounds[:, :, 0:1]) & (frame <= bounds[:, :, 1:2])
+    sel = sel & length_mask(token_lengths, alignments.shape[1])[:, :, None]
+    w = sel.float()
+    sums = torch.einsum("btf,bfc->btc", w, feats.float())
+    counts = torch.clamp(w.sum(dim=-1, keepdim=True), min=1.0)
+    return (sums / counts).to(feats.dtype)

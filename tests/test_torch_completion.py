@@ -461,13 +461,16 @@ def test_quantized_conformer_matches_jax(monkeypatch, layout, t_len):
 
 
 def test_unported_layouts_name_their_roadmap_item():
+    """Every bridge is ported now: the registries hold JAX's keys and the
+    layouts that used to raise build."""
+    from taste_spokenlm_tpu.models import bridges as jb
     from taste_spokenlm_tpu_torch.models import bridges
-    with pytest.raises(NotImplementedError,
-                       match='queue A, "What the earlier slices left"'):
-        bridges.make_extract("multi_linear_last", 8, 4, 4, 2)
-    with pytest.raises(NotImplementedError,
-                       match='queue A, "What the earlier slices left"'):
-        bridges.make_fusion("reference_mix", 8, 4)
+    assert set(bridges.BRIDGE_FUSION_CLASSES) == set(jb.BRIDGE_FUSION_CLASSES)
+    assert set(bridges.BRIDGE_EXTRACT_CLASSES) == set(jb.BRIDGE_EXTRACT_CLASSES)
+    assert isinstance(bridges.make_extract("multi_linear_last", 8, 4, 4, 2),
+                      bridges.MultiLinearLastExtract)
+    assert isinstance(bridges.make_fusion("reference_mix", 8, 4),
+                      bridges.ReferenceMixFusion)
 
 
 @pytest.mark.parametrize("layout", ["int4_fused", "int4"])

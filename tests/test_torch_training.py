@@ -39,7 +39,8 @@ from taste_spokenlm_tpu_torch.ops import losses
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
 from taste_spokenlm_tpu_torch.train import optim, train_step
 
-from torch_parity_common import inputs, port_model, rel_err, t, tiny_pair
+from torch_parity_common import (dead_picks, inputs, port_model, rel_err, t,
+                                 tiny_pair)
 
 torch.set_num_threads(2)
 TOL = 1e-4
@@ -226,24 +227,6 @@ def _rvq_pair(cfg, seed=0):
     return mod, {"params": params, "quantizer": quantizer}, port
 
 
-def _dead_picks(rng, mask, drop_after, cfg):
-    """The JAX EMA update's dead-code picks for `rng` (the step's dropout
-    key): per level, `choice` over the batch rows with probability over the
-    valid rows (the masked-in rows of the levels that were not dropped)."""
-    n = mask.size
-    picks = []
-    for qi in range(cfg.num_quantizers):
-        valid = jnp.asarray(mask.reshape(-1), jnp.float32) * float(
-            drop_after is None or qi <= drop_after)
-        total = valid.sum()
-        probs = jnp.where(total > 0, valid / jnp.maximum(total, 1.0),
-                          jnp.full_like(valid, 1.0 / n))
-        picks.append(np.asarray(jax.random.choice(
-            jax.random.fold_in(rng, qi + 1), n, (cfg.codebook_size,),
-            p=probs)))
-    return np.stack(picks)
-
-
 @pytest.mark.parametrize("case", ["greedy", "dropped", "gumbel"])
 def test_rvq_train_forward_matches_jax(case):
     """Indices exact, the commit loss, the straight-through gradient and the
@@ -286,7 +269,7 @@ def test_rvq_train_forward_matches_jax(case):
     greedy = port(t(x), t(mask))["quantized_indices"]
     xt = t(x).requires_grad_()
     got = port(xt, t(mask), train=True, drop_after=drop_after, gumbel=gumbel,
-               dead_picks=t(_dead_picks(key, mask, drop_after, cfg)))
+               dead_picks=t(dead_picks(key, mask, drop_after, cfg)))
     (got["quantized_feats"] * t(w)).sum().add(got["commit_loss"]).backward()
     np.testing.assert_array_equal(got["quantized_indices"].numpy(),
                                   np.asarray(ref["quantized_indices"]))
@@ -345,7 +328,7 @@ def test_audio_dropout_matches_jax():
         "audio_features", "asr_token_ids", "asr_token_lengths",
         "asr_word_ids")), train=True, draws={
             "drop_after": drop_after,
-            "dead_picks": t(_dead_picks(key, mask, drop_after, q)),
+            "dead_picks": t(dead_picks(key, mask, drop_after, q)),
             "audio_keep": t(keep.reshape(2)), "audio_noise": t(noise)})
     np.testing.assert_array_equal(got["quantized_indices"].numpy(),
                                   np.asarray(ref["quantized_indices"]))
@@ -476,7 +459,7 @@ def _jax_run(phase: str, lr: float, clip: float):
         mask_bt = (np.arange(batch["asr_token_ids"].shape[1])[None]
                    < batch["asr_token_lengths"].numpy()[:, None])
         draws.append({"drop_after": drop_after, "dead_picks": t(
-            _dead_picks(sub, mask_bt, drop_after, qcfg))})
+            dead_picks(sub, mask_bt, drop_after, qcfg))})
         jb = {k: jnp.asarray(v.numpy()) for k, v in batch.items()}
         state, m = step(state, jb)
         metrics.append({k: float(v) for k, v in m.items()})

@@ -64,6 +64,39 @@ def random_params(shapes, r):
     return jax.tree_util.tree_map_with_path(lambda p, x: _fill(p, x, r), shapes)
 
 
+def fill_params(shapes, seed: int):
+    """random_params from RandomState(seed), scalar parameters at 0.7
+    (away from relu's zero)."""
+    r = np.random.RandomState(seed)
+    return jax.tree_util.tree_map_with_path(
+        lambda p, x: np.float32(0.7) if x.shape == () else _fill(p, x, r),
+        shapes)
+
+
+def jit_apply(module, variables, *args, **kw):
+    """module.apply jitted, keyword arguments static: on the CPU a traced
+    call of a tiny model is several times faster than eager dispatch."""
+    return jax.jit(lambda v, *a: module.apply(v, *a, **kw))(variables, *args)
+
+
+def dead_picks(rng, mask, drop_after, cfg):
+    """The JAX EMA update's dead-code picks for `rng` (the step's dropout
+    key): per level, `choice` over the batch rows with probability over the
+    valid rows (the masked-in rows of the levels that were not dropped)."""
+    n = mask.size
+    picks = []
+    for qi in range(cfg.num_quantizers):
+        valid = jnp.asarray(mask.reshape(-1), jnp.float32) * float(
+            drop_after is None or qi <= drop_after)
+        total = valid.sum()
+        probs = jnp.where(total > 0, valid / jnp.maximum(total, 1.0),
+                          jnp.full_like(valid, 1.0 / n))
+        picks.append(np.asarray(jax.random.choice(
+            jax.random.fold_in(rng, qi + 1), n, (cfg.codebook_size,),
+            p=probs)))
+    return np.stack(picks)
+
+
 @functools.lru_cache(maxsize=1)
 def tiny_pair(seed: int = 0):
     """(jax config, jax model, jax variables, port model) at
