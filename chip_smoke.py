@@ -4,7 +4,9 @@ serving tiers, streaming (the chunked synthesis and the pipelined
 completion), the stage-1 and stage-2 training steps and the stage-2 eval,
 the flow's OT-CFM step, the decode-layout tools (profile_lmhead,
 profile_fusion), TASLM in the int8 layout, padded flash attention at the
-flow's shapes, and the model variants (card against host).
+flow's shapes, the model variants (card against host), and the offline
+user journey through the CLIs (seed, export, import, generate, extract,
+eval).
 
     python3 chip_smoke.py
 
@@ -37,7 +39,8 @@ quantizer (quant.py).  In order it:
    tiers' fidelity gate (step 6), builds the bf16 training model and runs
    the stage-1 step (step 7); frees that and runs
    the decode-layout tools (step 8), then TASLM (step 8t), padded flash
-   (step 8p) and the variants (step 8v).  Each counted run
+   (step 8p), the variants (step 8v) and the offline journey (step 8c).
+   Each counted run
    has every launch count set to 0 just before it and read just after, and
    prints its peak device memory.  The serving paths' conformers run at
    40 and 128 asr tokens and their S3 decode through the KV cache, below
@@ -249,6 +252,33 @@ quantizer (quant.py).  In order it:
    add_and_norm towers on the path's mel.  Floats within 1e-3 relative,
    discrete outputs equal on >= 0.99 of the positions; the two towers'
    whisper encoders launch flash exactly 8 times;
+8c. the offline journey ("clis"), each CLI a subprocess through run_cli
+   (its launches read in that process), at TasteConfig.full() with the
+   serving config's kernel flags: create_seed_model (bf16, f32 tower)
+   writes a float directory; convert_checkpoint --export-torch writes the
+   reference-named composite, which the script cuts into an HF whisper
+   dir (pytorch_model.bin), an HF Llama dir (model.safetensors, PEFT names
+   with the LoRA adapters), the taste rest, flow.pt and hift.pt
+   (weight-norm pairs); the importer's float dict must equal the seed's
+   state dict bit for bit; convert_checkpoint imports the files with
+   --merge-lora --quantize-llama --quantize-s3-decoder --fuse-qkv
+   --fused-mlp --quantize-embed int4head, and the directory must equal a
+   model's state dict loaded with quant.serving_state_dict of the seed's
+   weights byte for byte, its config quant.serving_config's;
+   generate_audio --task completion on a 6 s 44.1 kHz 16-bit stereo wav
+   (forced text, the offline tokenizers, a CAM++-shaped x-vector graph
+   from onnx_build, greedy text and taste, 64 joint and 512 S3 steps, 904
+   mel frames): launches exactly as quantized_launches (and flash, DiT,
+   conv) predict, the x-vector on the card within 1e-5 relative of the
+   host's (f32, TF32 off), the text and S3 trajectories equal to an
+   in-process run on the same inputs, the wav finite and of the length
+   its S3 tokens imply; the S3 topline (--use-target-speech-token with an
+   S3-tokenizer-shaped graph): its ids on the card equal the host's, >= 16
+   distinct, and the CLI vocodes exactly those; extract_vq --synthetic
+   (2 x 8 rows) equal to an in-process extract_vq; eval --synthetic (2 x
+   4 rows, stages 1 and 2) within 1e-5 of the in-process forwards.  It
+   prints each step's wall, generate_audio's StageTimer report and its
+   joint_decode_step_bytes / s3_decode_step_bytes;
 9. holds each kernel against its plain PyTorch version at the shapes the
    counted runs gave it (the streaming windows' DiT and conv shapes
    too), and times kernel, plain version and a library call that
@@ -356,7 +386,6 @@ from taste_spokenlm_tpu_torch.models import spoken_lm as spoken_lm_module
 from taste_spokenlm_tpu_torch.models.audio_tower import TasteAudioTower
 from taste_spokenlm_tpu_torch.models.conformer import ConformerEncoder
 from taste_spokenlm_tpu_torch.models.flow import MaskedDiffWithXvec
-from taste_spokenlm_tpu_torch.models.llama import RMSNorm
 from taste_spokenlm_tpu_torch.models.quantizer import QUANTIZER_CLASSES
 from taste_spokenlm_tpu_torch.models.quantizer import Codebook as TasteCodebook
 from taste_spokenlm_tpu_torch.models.sampler import (SamplerConfig,
@@ -380,6 +409,10 @@ from taste_spokenlm_tpu_torch.serving.server import (TasteEngine,
                                                      run_load_test)
 from taste_spokenlm_tpu_torch.scripts import (profile_fusion, profile_lmhead,
                                               serving_fidelity)
+# seeded random weights at bench.py's scales (norms near 1, fan-in scaled
+# DiT matrices, the Llama's RMSNorm at 0.01 x N(0, 1): its docstring says why)
+from taste_spokenlm_tpu_torch.scripts.create_seed_model import (
+    seed_state_dict as random_state_dict)
 from taste_spokenlm_tpu_torch.train import optim, train_step
 from taste_spokenlm_tpu_torch.train.trainer import Trainer, TrainerConfig
 from taste_spokenlm_tpu_torch.utils.checkpoint import CheckpointManager
@@ -1487,48 +1520,6 @@ def _leaves(tree):
 # ---------------------------------------------------------------------------
 
 
-def random_state_dict(model: torch.nn.Module, gen) -> dict:
-    """Seeded random weights scaled as bench.py's _fill_variables (0.02 for
-    matrices, 1e-3 for vectors), except that norm scales and Snake alphas
-    sit near 1, their initial value, so activations stay O(1) and the
-    taste-index comparison is not decided by the codebook norms alone.
-    The CFM estimator's transformer blocks take fan-in scaled matrices: at
-    0.02 their softmax would be near uniform over ~900 keys, and the
-    attention branch too small for the flow's kernel-against-plain check
-    to see.  The Llama's RMSNorm weights are 0.01 x N(0, 1): at the bench's
-    1e-3 the MLPs' output never reaches the bf16 residual stream (the
-    greedy check would be blind to the kernels), and near 1 the random
-    16-layer Llama is chaotic in bf16, so its greedy trajectory with the
-    kernels parts from the plain versions' within a few steps, whatever the
-    kernels' own error."""
-    near_one, rms = set(), set()
-    for name, mod in model.named_modules():
-        if isinstance(mod, (torch.nn.LayerNorm, torch.nn.GroupNorm)):
-            near_one.add(f"{name}.weight")
-        elif isinstance(mod, RMSNorm):
-            rms.add(f"{name}.weight")
-    sd = {}
-    for name, ref in model.state_dict().items():
-        shape = ref.shape
-        r = torch.randn(shape, generator=gen, device=ref.device)
-        dit_matrix = (".estimator." in name and ref.dim() == 2
-                      and (".attn1." in name or ".ff.net." in name))
-        if name in near_one or name.endswith(".alpha"):
-            v = 1.0 + 0.02 * r
-        elif name in rms:
-            v = 0.01 * r
-        elif name.endswith(("cluster_size", "initted")):
-            v = torch.ones(shape, device=ref.device)
-        elif dit_matrix:
-            v = shape[1] ** -0.5 * r
-        elif ref.dim() >= 2:
-            v = 0.02 * r
-        else:
-            v = 1e-3 * r
-        sd[name] = v.to(ref.dtype)
-    return sd
-
-
 def inputs(cfg: TasteConfig, dev):
     rng = np.random.RandomState(0)
     sr, secs = 16000, 14.0
@@ -1845,17 +1836,19 @@ def check_counts(counts: dict, expected: dict, path: str) -> None:
 
 
 def quantized_launches(cfg: TasteConfig, tier: str, steps: int,
-                       s3_len: int) -> dict:
+                       s3_len: int, lm_tokens: int = T_TOK) -> dict:
     """{kernel: {shape: launches}} of the quantized kernels in one completion
     of a tier, from the config: per Llama layer one prefill of the prefix
-    rows and one row a joint step; per S3 layer one prefill of the 131
-    prefix rows and one row an S3 step (the one that emits EOS included);
+    rows (1 + lm_tokens + delay) and one row a joint step; per S3 layer one
+    prefill of the 131 prefix rows and one row an S3 step (the one that
+    emits EOS included);
     the tied head once a joint step, the S3 head once an S3 step.  In int4
     the Llama's qkv / o and the S3 stack's qkv / out run matmul_int4 too
     (rows, in, out); the S3 linear_pos runs over 2 x 643 - 1 rows, past
     the kernel's limit, once per synthesis."""
     llama, s3 = cfg.spoken_lm.llama, cfg.speech_decoder.llm
-    lm_rows, s3_rows = B * (1 + T_TOK + cfg.spoken_lm.delay), B * (3 + SYN_ASR)
+    lm_rows = B * (1 + lm_tokens + cfg.spoken_lm.delay)
+    s3_rows = B * (3 + SYN_ASR)
     check(max(lm_rows, s3_rows) <= min(FUSED_MLP_MAX_ROWS, INT4_KERNEL_MAX_ROWS),
           "a prefill past the kernels' row limit")
     n_s3 = min(s3_len + 1, MAX_SPEECH)
@@ -3029,18 +3022,18 @@ def train_path(dev, profile: bool):
 HARNESS_DIR = os.path.join("build", "train_harness")
 HARNESS_STEPS = 4
 CLI_TIMEOUT_S = 600
-# the train CLI as `python -m` runs it, then the process's kernel launch
-# counts (the counters live in the process that launches); without
-# TensorBoard, whose import (TensorFlow) takes tens of seconds: the rows
-# checked are metrics.jsonl's
+TRAIN_CLI = "taste_spokenlm_tpu_torch.scripts.train"
+# a CLI module as `python -m` runs it (the module, then its arguments), then
+# the process's kernel launch counts (the counters live in the process that
+# launches); without TensorBoard, whose import (TensorFlow) takes tens of
+# seconds: the train CLI's rows checked are metrics.jsonl's
 CLI_WRAPPER = """
 import json, runpy, sys
 from taste_spokenlm_tpu_torch.kernels import launch_counts
 sys.modules["torch.utils.tensorboard"] = None
-sys.argv = ["train"] + sys.argv[1:]
+sys.argv = sys.argv[1:]
 try:
-    runpy.run_module("taste_spokenlm_tpu_torch.scripts.train",
-                     run_name="__main__")
+    runpy.run_module(sys.argv[0], run_name="__main__")
 except SystemExit as e:
     if e.code:
         raise
@@ -3104,19 +3097,22 @@ def nondeterministic_ops(step, batch) -> list:
                    if "determinis" in str(w.message)})
 
 
-def run_cli(name: str, args: list, kill_after: str = None) -> dict:
-    """Run the train CLI as a subprocess (output in HARNESS_DIR/<name>.log)
-    -> {"wall_s", "counts", "rows"}; with `kill_after` (a checkpoint
-    directory), SIGKILL it once that directory exists."""
-    workdir = args[args.index("--workdir") + 1]
-    log_path = os.path.join(HARNESS_DIR, f"{name}.log")
+def run_cli(name: str, args: list, kill_after: str = None,
+            module: str = TRAIN_CLI, log_dir: str = HARNESS_DIR) -> dict:
+    """Run a CLI module as a subprocess (output in <log_dir>/<name>.log) ->
+    {"wall_s", "counts", "launched", "text"}; the train CLI's also
+    {"resumed", "rows"} (its metrics.jsonl), and with `kill_after` (a
+    checkpoint directory) it is killed with SIGKILL once that directory
+    exists."""
+    log_path = os.path.join(log_dir, f"{name}.log")
     t0 = time.perf_counter()
     with open(log_path, "w") as log:
         proc = subprocess.Popen(
-            [sys.executable, "-c", CLI_WRAPPER, *args], stdout=log,
+            [sys.executable, "-c", CLI_WRAPPER, module, *args], stdout=log,
             stderr=subprocess.STDOUT)
         try:
             if kill_after is not None:
+                workdir = args[args.index("--workdir") + 1]
                 target = os.path.join(workdir, "ckpt", kill_after)
                 while not os.path.isdir(target):
                     check(proc.poll() is None and
@@ -3136,18 +3132,23 @@ def run_cli(name: str, args: list, kill_after: str = None) -> dict:
                 proc.kill()
                 proc.wait()
     text = open(log_path).read()
-    check(rc == 0, f"{name}: the train CLI exited {rc}: {text[-3000:]}")
+    check(rc == 0, f"{name}: {module} exited {rc}: {text[-3000:]}")
     lines = text.strip().splitlines()
-    check(lines[-2] == "done" and lines[-1].startswith("launch_counts "),
-          f"{name}: the train CLI did not end with 'done': {text[-2000:]}")
-    rows = {}
-    for line in open(os.path.join(workdir, "metrics.jsonl")):
-        row = json.loads(line)
-        rows[row["step"]] = row
+    check(lines[-1].startswith("launch_counts "),
+          f"{name}: no launch counts at the end: {text[-2000:]}")
     counts = json.loads(lines[-1].split(" ", 1)[1])
-    return {"wall_s": time.perf_counter() - t0, "resumed":
-            "resuming from step" in text, "counts": counts,
-            "launched": {k: n for k, n in counts.items() if n}, "rows": rows}
+    out = {"wall_s": time.perf_counter() - t0, "counts": counts,
+           "launched": {k: n for k, n in counts.items() if n}, "text": text}
+    if module == TRAIN_CLI:
+        check(lines[-2] == "done",
+              f"{name}: the train CLI did not end with 'done': {text[-2000:]}")
+        rows = {}
+        workdir = args[args.index("--workdir") + 1]
+        for line in open(os.path.join(workdir, "metrics.jsonl")):
+            row = json.loads(line)
+            rows[row["step"]] = row
+        out.update(resumed="resuming from step" in text, rows=rows)
+    return out
 
 
 def cli_path(spread_gate: float) -> dict:
@@ -4565,6 +4566,496 @@ def variants_path(dev, card: str, x):
     return launches, counts
 
 
+# ---------------------------------------------------------------------------
+# the offline journey: the CLIs as subprocesses at full width
+# ---------------------------------------------------------------------------
+
+CLIS_DIR = os.path.join("build", "clis")
+CLI_MODULE = "taste_spokenlm_tpu_torch.scripts."
+JOURNEY_TEXT = ("a seeded chirp walks through the offline journey from a "
+                "reference checkpoint to a spoken continuation")
+JOURNEY_SECS, JOURNEY_SR = 6.0, 44100
+XVEC_TOL = 1e-5                 # the x-vector, card against host, f32
+
+
+def campplus_graph(path: str, dim: int) -> None:
+    """A CAM++-shaped x-vector graph (onnx_build): fbank [1, T, 80] ->
+    conv stem, two dense TDNN blocks (BN -> ReLU -> dilated conv, concat),
+    context-aware masking (mean -> Gemm -> Sigmoid gate), mean / std
+    pooling -> Gemm -> [1, dim]; fan-in scaled random weights."""
+    from taste_spokenlm_tpu_torch.frontend import onnx_build as OB
+    r = np.random.RandomState(11)
+    c, g = 128, 64
+
+    def w(*shape):
+        return (r.randn(*shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    def bn(tag, ch):
+        return {f"{tag}_s": (1 + 0.1 * r.randn(ch)).astype(np.float32),
+                f"{tag}_b": (0.1 * r.randn(ch)).astype(np.float32),
+                f"{tag}_m": (0.1 * r.randn(ch)).astype(np.float32),
+                f"{tag}_v": r.uniform(0.5, 2.0, ch).astype(np.float32)}
+    cin = c + 2 * g
+    init = {"stem": w(c, 80, 5), "stem_b": np.zeros(c, np.float32),
+            "d1": w(g, c, 3), "d2": w(g, c + g, 3), "cam": w(cin, cin),
+            "emb": w(2 * cin, dim), "u2": np.asarray([2], np.int64),
+            **bn("bn0", c), **bn("bn1", c), **bn("bn2", c + g)}
+
+    def bnode(x, tag, out):
+        return OB.node("BatchNormalization", [x, f"{tag}_s", f"{tag}_b",
+                                              f"{tag}_m", f"{tag}_v"], [out])
+    nodes = [
+        OB.node("Transpose", ["fbank"], ["x"], perm=[0, 2, 1]),
+        OB.node("Conv", ["x", "stem", "stem_b"], ["h0c"], kernel_shape=[5],
+                pads=[2, 2]),
+        bnode("h0c", "bn0", "h0n"), OB.node("Relu", ["h0n"], ["h0"]),
+        bnode("h0", "bn1", "n1"), OB.node("Relu", ["n1"], ["r1"]),
+        OB.node("Conv", ["r1", "d1"], ["c1"], kernel_shape=[3], pads=[1, 1]),
+        OB.node("Concat", ["h0", "c1"], ["cat1"], axis=1),
+        bnode("cat1", "bn2", "n2"), OB.node("Relu", ["n2"], ["r2"]),
+        OB.node("Conv", ["r2", "d2"], ["c2"], kernel_shape=[3], pads=[2, 2],
+                dilations=[2]),
+        OB.node("Concat", ["cat1", "c2"], ["feat"], axis=1),
+        OB.node("ReduceMean", ["feat"], ["ctx"], axes=[2], keepdims=0),
+        OB.node("Gemm", ["ctx", "cam"], ["gl"]),
+        OB.node("Sigmoid", ["gl"], ["gate"]),
+        OB.node("Unsqueeze", ["gate", "u2"], ["gate3"]),
+        OB.node("Mul", ["feat", "gate3"], ["gated"]),
+        OB.node("ReduceMean", ["gated"], ["mu"], axes=[2], keepdims=1),
+        OB.node("Sub", ["gated", "mu"], ["cent"]),
+        OB.node("Mul", ["cent", "cent"], ["sq"]),
+        OB.node("ReduceMean", ["sq"], ["var"], axes=[2], keepdims=0),
+        OB.node("Sqrt", ["var"], ["sd"]),
+        OB.node("Squeeze", ["mu"], ["mu2"], axes=[2]),
+        OB.node("Concat", ["mu2", "sd"], ["stats"], axis=1),
+        OB.node("Gemm", ["stats", "emb"], ["xvec"]),
+    ]
+    with open(path, "wb") as f:
+        f.write(OB.build(nodes, ["fbank"], ["xvec"], init))
+
+
+def s3_tokenizer_graph(path: str, n_mels: int, vocab: int) -> None:
+    """An S3-tokenizer-shaped graph (onnx_build): (mel [1, n_mels, T], len)
+    -> conv stem with erf-GELU (stride 2), a decomposed-LayerNorm attention
+    block (4 heads x 64, the head split by Reshape with -1), the encoding
+    centred over time, the VQ's nearest codebook row (the distance matmul,
+    ArgMin) -> int32 ids."""
+    from taste_spokenlm_tpu_torch.frontend import onnx_build as OB
+    r = np.random.RandomState(12)
+    d, h = 256, 4
+
+    def w(*shape):
+        return (r.randn(*shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+
+    def gelu(src, dst):
+        return [OB.node("Div", [src, "sqrt2"], [f"{dst}_d"]),
+                OB.node("Erf", [f"{dst}_d"], [f"{dst}_e"]),
+                OB.node("Add", [f"{dst}_e", "one"], [f"{dst}_a"]),
+                OB.node("Mul", [src, f"{dst}_a"], [f"{dst}_m"]),
+                OB.node("Mul", [f"{dst}_m", "half"], [dst])]
+    # rows of one norm: the nearest row is the one most aligned with the
+    # encoding (with free norms the shortest row would win everywhere)
+    cb = r.randn(vocab, d)
+    cb = (cb * np.sqrt(d) / np.linalg.norm(cb, axis=1, keepdims=True)
+          ).astype(np.float32)
+    init = {"c1": w(d, n_mels, 3), "c2": w(d, d, 3), "qkv": w(3 * d, d).T.copy(),
+            "wo": w(d, d), "ln_g": np.ones(d, np.float32),
+            "ln_b": np.zeros(d, np.float32), "cb": cb,
+            "sqrt2": np.asarray(np.sqrt(2.0), np.float32),
+            "one": np.asarray(1.0, np.float32), "half": np.asarray(0.5, np.float32),
+            "two": np.asarray(2.0, np.float32), "eps": np.asarray(1e-5, np.float32),
+            "scale": np.asarray(1 / 8.0, np.float32),
+            "m2": np.asarray(-2.0, np.float32),
+            "heads": np.asarray([1, -1, h, d // h], np.int64),
+            "flat": np.asarray([1, -1, d], np.int64)}
+    nodes = [
+        OB.node("Conv", ["mel", "c1"], ["h1"], kernel_shape=[3], pads=[1, 1]),
+        *gelu("h1", "g1"),
+        OB.node("Conv", ["g1", "c2"], ["h2"], kernel_shape=[3], strides=[2],
+                pads=[1, 1]),
+        *gelu("h2", "g2"),
+        OB.node("Transpose", ["g2"], ["seq"], perm=[0, 2, 1]),
+        OB.node("ReduceMean", ["seq"], ["mu"], axes=[-1], keepdims=1),
+        OB.node("Sub", ["seq", "mu"], ["cent"]),
+        OB.node("Pow", ["cent", "two"], ["sq"]),
+        OB.node("ReduceMean", ["sq"], ["var"], axes=[-1], keepdims=1),
+        OB.node("Add", ["var", "eps"], ["ve"]),
+        OB.node("Sqrt", ["ve"], ["sd"]),
+        OB.node("Div", ["cent", "sd"], ["nrm"]),
+        OB.node("Mul", ["nrm", "ln_g"], ["ns"]),
+        OB.node("Add", ["ns", "ln_b"], ["x"]),
+        OB.node("MatMul", ["x", "qkv"], ["qkv_out"]),
+        OB.node("Split", ["qkv_out"], ["q", "k", "v"], axis=-1, num_outputs=3),
+        *[OB.node("Reshape", [t, "heads"], [f"{t}4"]) for t in "qkv"],
+        OB.node("Transpose", ["q4"], ["qh"], perm=[0, 2, 1, 3]),
+        OB.node("Transpose", ["k4"], ["kh"], perm=[0, 2, 3, 1]),
+        OB.node("Transpose", ["v4"], ["vh"], perm=[0, 2, 1, 3]),
+        OB.node("MatMul", ["qh", "kh"], ["s_raw"]),
+        OB.node("Mul", ["s_raw", "scale"], ["s"]),
+        OB.node("Softmax", ["s"], ["p"], axis=-1),
+        OB.node("MatMul", ["p", "vh"], ["ctx4"]),
+        OB.node("Transpose", ["ctx4"], ["ctx_t"], perm=[0, 2, 1, 3]),
+        OB.node("Reshape", ["ctx_t", "flat"], ["ctx"]),
+        OB.node("MatMul", ["ctx", "wo"], ["att"]),
+        OB.node("Add", ["seq", "att"], ["enc0"]),
+        # centred over time, so the frames' differences pick the rows
+        OB.node("ReduceMean", ["enc0"], ["enc_mu"], axes=[1], keepdims=1),
+        OB.node("Sub", ["enc0", "enc_mu"], ["enc"]),
+        OB.node("Transpose", ["cb"], ["cbt"], perm=[1, 0]),
+        OB.node("MatMul", ["enc", "cbt"], ["ec"]),
+        OB.node("Mul", ["ec", "m2"], ["d1"]),
+        OB.node("Mul", ["cb", "cb"], ["c2sq"]),
+        OB.node("ReduceSum", ["c2sq"], ["css"], axes=[-1], keepdims=0),
+        OB.node("Add", ["d1", "css"], ["dist"]),
+        OB.node("ArgMin", ["dist"], ["ids"], axis=-1, keepdims=0),
+        OB.node("Cast", ["ids"], ["ids32"], to=6),
+    ]
+    with open(path, "wb") as f:
+        f.write(OB.build(nodes, ["mel", "mel_len"], ["ids32"], init))
+
+
+def journey_wav(path: str) -> None:
+    """A seeded chirp with noise, 44.1 kHz 16-bit stereo (the channels
+    differ, so the readers' mixdown matters)."""
+    rng = np.random.RandomState(13)
+    tt = np.arange(int(JOURNEY_SR * JOURNEY_SECS)) / JOURNEY_SR
+    x = 0.3 * np.sin(2 * np.pi * 160.0 * tt * (1 + 0.1 * np.sin(tt))) \
+        + 0.02 * rng.randn(tt.size)
+    pcm = (np.clip(np.stack([x, 0.6 * x], 1), -1, 1) * 32767).astype("<i2")
+    import wave
+    with wave.open(path, "wb") as f:
+        f.setnchannels(2)
+        f.setsampwidth(2)
+        f.setframerate(JOURNEY_SR)
+        f.writeframes(pcm.reshape(-1).tobytes())
+
+
+def load_state(path: str) -> dict:
+    return torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+
+
+def states_equal(got: dict, want: dict, what: str) -> int:
+    """Every tensor of `want` in `got`, same dtype, bit for bit; no other
+    key.  -> the bytes compared."""
+    check(set(got) == set(want), f"{what}: keys differ: "
+          f"{sorted(set(got) ^ set(want))[:8]}")
+    n = 0
+    for k, v in want.items():
+        g = got[k]
+        check(g.dtype == v.dtype and g.shape == v.shape
+              and torch.equal(g.cpu(), v.cpu()), f"{what}: {k} differs")
+        n += v.numel() * v.element_size()
+    return n
+
+
+def cli_step(name: str, script: str, args: list, walls: dict,
+             launches: dict, counts: list, expected: dict) -> dict:
+    """One CLI as a subprocess through run_cli; its launches exactly
+    `expected` ({kernel: {shape: launches}}), added to the phase's."""
+    run = run_cli(name, args, module=CLI_MODULE + script, log_dir=CLIS_DIR)
+    check_counts(run["counts"], {k: sum(v.values())
+                                 for k, v in expected.items()}, f"clis {name}")
+    walls[name] = run["wall_s"]
+    counts.append(run["counts"])
+    for kernel, shapes in expected.items():
+        for key, n in shapes.items():
+            launches.setdefault(kernel, {})[key] = \
+                launches.get(kernel, {}).get(key, 0) + n
+    return run
+
+
+def clis_path(dev, card: str):
+    """The offline journey (the docstring's 8c) at full width: seed ->
+    export -> reference-named files -> import with the serving flags ->
+    generate_audio completion from a wav with the ONNX x-vector ->
+    extract_vq -> eval (stages 1 and 2) -> the S3 topline from the
+    S3-tokenizer graph.  -> ({kernel: {shape: launches}}, the counts)."""
+    from taste_spokenlm_tpu_torch import convert_import
+    from taste_spokenlm_tpu_torch.data import native
+    from taste_spokenlm_tpu_torch.frontend.processor import (
+        s3_tokenizer_from_onnx, speaker_embedder_from_onnx)
+    from taste_spokenlm_tpu_torch.ops.audio import speaker_fbank_features
+    from taste_spokenlm_tpu_torch.pretrained import WEIGHTS_FILE
+    from taste_spokenlm_tpu_torch.scripts import (eval as eval_cli,
+                                                  extract_vq as vq_cli,
+                                                  generate_audio as ga)
+    from taste_spokenlm_tpu_torch.scripts._cli import (load_tokenizers,
+                                                       to_device)
+    from taste_spokenlm_tpu_torch.utils.profiling import (
+        StageTimer, joint_decode_step_bytes, s3_decode_step_bytes)
+    t_phase = time.perf_counter()
+    float_cfg, serving = configs()
+    cfg = serving["int8"]
+    shutil.rmtree(CLIS_DIR, ignore_errors=True)
+    os.makedirs(CLIS_DIR)
+    d = {k: os.path.join(CLIS_DIR, k) for k in (
+        "seed", "exported", "ref", "serving", "gen", "topline", "vq")}
+    cfg_path = os.path.join(CLIS_DIR, "float_config.json")
+    with open(cfg_path, "w") as f:
+        f.write(float_cfg.to_json())
+    walls, launches, counts, out = {}, {}, [], {}
+
+    # 1-2. the seed (bf16, f32 tower) and its reference-named export
+    cli_step("create_seed_model", "create_seed_model",
+             ["--config", cfg_path, "--dtype", "bfloat16", "--output",
+              d["seed"]], walls, launches, counts, {})
+    cli_step("export", "convert_checkpoint",
+             ["--export-torch", d["seed"], "--output", d["exported"]],
+             walls, launches, counts, {})
+    # the composite cut into the importer's files: an HF whisper dir, an HF
+    # Llama dir (.safetensors, PEFT names), the taste rest, flow.pt, hift.pt
+    t0 = time.perf_counter()
+    files = convert_import.split_composite(
+        load_state(os.path.join(d["exported"], "pytorch_model.bin")))
+    os.makedirs(os.path.join(d["ref"], "whisper"))
+    os.makedirs(os.path.join(d["ref"], "llama"))
+    paths = {"whisper": os.path.join(d["ref"], "whisper", "pytorch_model.bin"),
+             "llama": os.path.join(d["ref"], "llama", "model.safetensors"),
+             "taste": os.path.join(d["ref"], "taste.bin"),
+             "flow": os.path.join(d["ref"], "flow.pt"),
+             "hift": os.path.join(d["ref"], "hift.pt")}
+    check(any(k.endswith(".lora_A.default.weight") for k in files["llama"])
+          and any(k.endswith(".weight_g") for k in files["hift"]),
+          "the export has no PEFT adapters or no weight-norm pairs")
+    for name, path in paths.items():
+        if name == "llama":
+            convert_import.write_safetensors(files[name], path)
+        else:
+            torch.save(files[name], path)
+    del files
+    shutil.rmtree(d["exported"])
+    walls["split_s"] = time.perf_counter() - t0
+
+    # the float import equals the seed's state dict exactly
+    seed_sd = load_state(os.path.join(d["seed"], WEIGHTS_FILE))
+    imported = convert_import.import_checkpoint(
+        **{k: convert_import.load_weights(p) for k, p in paths.items()})
+    out["float_import_bytes"] = states_equal(imported, seed_sd,
+                                             "the float import")
+    del imported
+
+    # 3. the import with the serving flags, against quant.serving_state_dict
+    # of the same weights (the model built as from_pretrained builds it)
+    src = []
+    for name in ("whisper", "llama"):
+        src += [f"--{name}", os.path.dirname(paths[name])]
+    for name in ("taste", "flow", "hift"):
+        src += [f"--{name}", paths[name]]
+    cli_step("convert_serving", "convert_checkpoint", src + [
+        "--config", cfg_path, "--output", d["serving"], "--merge-lora",
+        "--quantize-llama", "--quantize-s3-decoder", "--fuse-qkv",
+        "--fused-mlp", "--quantize-embed", "int4head"],
+        walls, launches, counts, {})
+    shutil.rmtree(d["ref"])
+    with open(os.path.join(d["serving"], "config.json")) as f:
+        check(json.load(f) == json.loads(cfg.to_json()),
+              "the serving dir's config is not quant.serving_config's")
+    with torch.device(dev):
+        ref_model = TasteForCausalLM(cfg, dtype=torch.bfloat16,
+                                     tower_dtype=torch.float32, device=dev)
+    ref_model.load_state_dict(quant.serving_state_dict(
+        {k: v.to(dev) for k, v in seed_sd.items()}, cfg, "int8"), strict=True)
+    out["serving_bytes"] = states_equal(
+        load_state(os.path.join(d["serving"], WEIGHTS_FILE)),
+        ref_model.state_dict(), "the serving dir")
+    del ref_model, seed_sd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4. generate_audio --task completion on a 44.1 kHz stereo wav with the
+    # CAM++-shaped x-vector graph; greedy text and taste
+    wav_path = os.path.join(CLIS_DIR, "journey.wav")
+    journey_wav(wav_path)
+    xvec_onnx = os.path.join(CLIS_DIR, "campplus.onnx")
+    campplus_graph(xvec_onnx, cfg.speech_decoder.spk_embed_dim)
+    gen_args = ["--seed-model", d["serving"], "--task", "completion",
+                "--input-wav", wav_path, "--text", JOURNEY_TEXT,
+                "--asr-tokenizer", "offline", "--llm-tokenizer", "offline",
+                "--campplus-onnx", xvec_onnx, "--text-top-p", "0",
+                "--extra-words", str(LM_STEPS), "--max-decode-steps",
+                str(LM_STEPS), "--max-speech-steps", str(MAX_SPEECH),
+                "--mel-len-max", str(MEL_LEN_MAX), "--output-dir", d["gen"]]
+    run = run_cli("generate_audio", gen_args, module=CLI_MODULE +
+                  "generate_audio", log_dir=CLIS_DIR)
+    walls["generate_audio"] = run["wall_s"]
+    with open(os.path.join(d["gen"], "journey.json")) as f:
+        meta = json.load(f)
+    model, proc = from_pretrained(d["serving"], device=dev)
+    n_lm = len(load_tokenizers("offline", "offline", cfg)[1].encode(
+        JOURNEY_TEXT))
+    s3_len = meta["speech_tokens"]
+    syn_mel = int(model.voice_generator.flow.mel_lengths(
+        torch.tensor([s3_len], device=dev)).clamp(max=MEL_LEN_MAX)[0])
+    expected = {"flash_attention": flash_shapes(cfg, 3000),
+                "fused_dit_block": dit_shapes(cfg, syn_mel),
+                "conv1d_same": conv_shapes(cfg),
+                **quantized_launches(cfg, "int8", meta["joint_decode_steps"],
+                                     s3_len, lm_tokens=n_lm)}
+    check_counts(run["counts"], {k: sum(v.values())
+                                 for k, v in expected.items()},
+                 "clis generate_audio")
+    counts.append(run["counts"])
+    launches = merge_launches(launches, expected)
+    # the wav: finite, the length the S3 tokens imply
+    wav, sr = native.py_wav_read(os.path.join(d["gen"], "journey.wav"))
+    spf = int(np.prod(cfg.hift.upsample_rates)) * cfg.hift.istft_hop_len
+    check(sr == cfg.hift.sampling_rate and wav.size == meta["samples"]
+          == spf * syn_mel and bool(np.isfinite(wav).all())
+          and float(np.abs(wav).max()) > 0,
+          f"clis: the journey's wav: {wav.size} samples at {sr} Hz for "
+          f"{syn_mel} mel frames")
+    check(meta["joint_decode_steps"] >= 1 and s3_len >= 64
+          and len(meta["generated_llm_token_ids"]) >= LM_STEPS // 2,
+          f"clis: degenerate journey: {meta['joint_decode_steps']} joint "
+          f"steps, {len(meta['generated_llm_token_ids'])} tokens, {s3_len} "
+          "S3 tokens")
+    # the x-vector on the card against the host's, the same fbank
+    audio16 = ga.load_audio(wav_path, cfg.frontend.sample_rate)
+    feats = speaker_fbank_features(torch.from_numpy(audio16).to(dev)[None])
+    x_card = speaker_embedder_from_onnx(xvec_onnx, device=dev)(feats)
+    x_host = speaker_embedder_from_onnx(xvec_onnx, device="cpu")(
+        feats.cpu().numpy())
+    xvec_rel = float(np.abs(x_card - x_host).max() / np.abs(x_host).max())
+    check(xvec_rel <= XVEC_TOL, f"clis: the x-vector on the card is "
+                                f"{xvec_rel} from the host's (> {XVEC_TOL})")
+    # an in-process completion on the same inputs: the same trajectories
+    reset_launch_counts()
+    p = ga.parser()
+    args = p.parse_args(gen_args)
+    asr_tok, llm_tok = load_tokenizers("offline", "offline", cfg)
+    proc.asr_tokenizer, proc.llm_tokenizer = asr_tok, llm_tok
+    proc.speaker_embedder = speaker_embedder_from_onnx(xvec_onnx, device=dev)
+    res = ga.run(args, model, proc, asr_tok, llm_tok, StageTimer(), p)
+    n_s3 = int(res["speech_token_lengths"][0])
+    check(res["generated_llm_token_ids"].tolist()
+          == meta["generated_llm_token_ids"]
+          and res["speech_token_ids"][0, :n_s3].astype(np.int64).tolist()
+          == meta["speech_token_ids"],
+          "clis: generate_audio's trajectories differ from an in-process "
+          "completion on the same inputs")
+    check_counts(launch_counts(), {k: sum(v.values())
+                                   for k, v in expected.items()},
+                 "clis: the in-process completion")
+    counts.append(launch_counts())
+    launches = merge_launches(launches, expected)
+    ctx = 1 + n_lm + cfg.spoken_lm.delay + meta["joint_decode_steps"]
+    out["generate_audio"] = {
+        "meta": {k: meta[k] for k in ("speech_tokens", "samples",
+                                       "joint_decode_steps", "timing")},
+        "generated_tokens": len(meta["generated_llm_token_ids"]),
+        "xvec_card_vs_host_rel": xvec_rel, "launches": run["launched"],
+        "joint_decode_step_bytes": joint_decode_step_bytes(
+            model.spoken_lm.state_dict(), cfg, ctx),
+        "s3_decode_step_bytes": s3_decode_step_bytes(
+            model.speech_decoder.state_dict(), cfg, 3 + SYN_ASR + s3_len)}
+
+    # 7. the S3 topline from the S3-tokenizer-shaped graph: its ids on the
+    # card equal the host's, and the vocoded tokens are those ids
+    s3_onnx = os.path.join(CLIS_DIR, "s3.onnx")
+    s3_tokenizer_graph(s3_onnx, cfg.audio_tower.whisper.n_mels,
+                       cfg.speech_decoder.speech_token_size)
+    top = ["--seed-model", d["serving"], "--task", "reconstruction",
+           "--use-target-speech-token", "--input-wav", wav_path, "--text",
+           JOURNEY_TEXT, "--asr-tokenizer", "offline", "--s3-onnx", s3_onnx,
+           "--mel-len-max", str(MEL_LEN_MAX), "--output-dir", d["topline"]]
+    data = proc(audio16, cfg.frontend.sample_rate, text=JOURNEY_TEXT)
+    n_valid = int(data["audio_feature_lengths"][0])
+    ids_card = s3_tokenizer_from_onnx(s3_onnx, device=dev)(
+        data["audio_features"], n_valid)
+    ids_host = s3_tokenizer_from_onnx(s3_onnx, device="cpu")(
+        data["audio_features"], n_valid)
+    check(np.unique(ids_host).size >= 16,
+          f"clis: the S3 graph's ids are degenerate: {np.unique(ids_host)}")
+    check(np.array_equal(ids_card, ids_host)
+          and ids_card.size == (n_valid + 1) // 2,
+          f"clis: the S3 graph's ids on the card differ from the host's in "
+          f"{int((ids_card != ids_host).sum())} of {ids_host.size}")
+    top_mel = int(model.voice_generator.flow.mel_lengths(torch.tensor(
+        [ids_card.size], device=dev)).clamp(max=MEL_LEN_MAX)[0])
+    del model, proc
+    gc.collect()
+    torch.cuda.empty_cache()
+    run = cli_step("s3_topline", "generate_audio", top, walls, launches,
+                   counts, {"fused_dit_block": dit_shapes(cfg, top_mel),
+                            "conv1d_same": conv_shapes(cfg)})
+    with open(os.path.join(d["topline"], "journey.json")) as f:
+        tmeta = json.load(f)
+    check(tmeta["speech_token_ids"] == ids_card.tolist()
+          and tmeta["samples"] == spf * top_mel,
+          "clis: the topline did not vocode the S3 graph's ids")
+    out["s3_topline"] = {"ids": int(ids_card.size),
+                         "distinct_ids": int(np.unique(ids_card).size),
+                         "mel_frames": top_mel}
+
+    # 5. extract_vq --synthetic on the seed dir: the in-process indices
+    b_vq, b_eval = 8, 4
+    flash8 = flash_shapes(cfg, 3000, b_vq)
+    flash4 = flash_shapes(cfg, 3000, b_eval)
+    run = cli_step("extract_vq", "extract_vq", [
+        "--seed-model", d["seed"], "--synthetic", "--num-batches", "2",
+        "--batch-size", str(b_vq), "--output", d["vq"]], walls, launches,
+        counts, {"flash_attention": {k: 2 * v for k, v in flash8.items()}})
+    with open(os.path.join(d["vq"], "part-0.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    model, _ = from_pretrained(d["seed"], device=dev)
+    reset_launch_counts()
+    i = 0
+    with torch.no_grad():
+        for batch in vq_cli.synthetic_batches(model.config, 2, b_vq):
+            x = to_device(batch, dev, vq_cli.INPUTS)
+            asr_idx, llm_idx = model.extract_vq(*(x[k] for k in vq_cli.INPUTS))
+            for bi in range(b_vq):
+                check(rows[i]["asr_indices"] == asr_idx[bi].tolist()
+                      and rows[i]["llm_indices"] == llm_idx[bi].tolist(),
+                      f"clis: extract_vq row {i} differs from the in-process "
+                      "extract_vq")
+                i += 1
+    check(i == len(rows) == 2 * b_vq, f"clis: extract_vq wrote {len(rows)} rows")
+    # 6. eval --synthetic, stages 1 and 2: the in-process forwards' metrics
+    eval_out = os.path.join(CLIS_DIR, "eval.json")
+    run = cli_step("eval", "eval", [
+        "--seed-model", d["seed"], "--synthetic", "--num-batches", "2",
+        "--batch-size", str(b_eval), "--output", eval_out], walls, launches,
+        counts, {"flash_attention": {k: 4 * v for k, v in flash4.items()}})
+    with open(eval_out) as f:
+        metrics = json.load(f)
+    sums = {}
+    for batch in eval_cli.synthetic_batches(model.config, 2, b_eval, 0):
+        x = to_device(batch, dev)
+        for fn in (eval_cli.eval_stage1, eval_cli.eval_stage2):
+            for k, v in fn(model, x).items():
+                sums[k] = sums.get(k, 0.0) + float(v)
+    in_process = merge_launches(
+        {"flash_attention": {k: 2 * v for k, v in flash8.items()}},
+        {"flash_attention": {k: 4 * v for k, v in flash4.items()}})
+    check_counts(launch_counts(), {k: sum(v.values())
+                                   for k, v in in_process.items()},
+                 "clis: the in-process extract_vq and eval")
+    counts.append(launch_counts())
+    launches = merge_launches(launches, in_process)
+    eval_rel = {}
+    for k, v in sums.items():
+        want = round(v / 2, 5)
+        eval_rel[k] = abs(metrics[k] - want) / max(abs(want), 1e-30)
+        check(abs(metrics[k] - want) <= 1e-5 * max(abs(want), 1.0),
+              f"clis: eval's {k} {metrics[k]} against {want} in-process")
+    check(set(metrics) == set(sums), "clis: eval's metrics differ")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(CLIS_DIR, ignore_errors=True)
+    out.update(card=card, walls_s=walls, eval=metrics,
+               eval_rel_to_in_process=eval_rel,
+               path_wall_s=time.perf_counter() - t_phase)
+    log({"clis": out})
+    log(f"clis ({card}): seed -> export -> reference files -> import "
+        f"-> generate_audio {walls['generate_audio']:.1f} s, extract_vq "
+        f"{walls['extract_vq']:.1f} s, eval {walls['eval']:.1f} s; "
+        f"phase {out['path_wall_s']:.1f} s")
+    total = {k: sum(c[k] for c in counts) for k in counts[0]}
+    return launches, total
+
+
 def merge_launches(*paths: dict) -> dict:
     """{kernel: {shape: launches}} summed over paths."""
     out = {}
@@ -4783,6 +5274,13 @@ def main(argv=None) -> int:
     for path in (padded_flash_path(dev, card), variants_path(dev, card, x)):
         paths.append(path[0])
         all_counts.append(path[1])
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- the offline journey: the CLIs as subprocesses ----
+    launches, counts = clis_path(dev, card)
+    paths.append(launches)
+    all_counts.append(counts)
 
     launches = merge_launches(*paths)
     counts = {name: sum(c[name] for c in all_counts) for name in all_counts[0]}
@@ -4816,7 +5314,9 @@ def main(argv=None) -> int:
                    "steps, the "
                    "decode-layout tools, TASLM's decode and scoring, "
                    "padded flash at the flow's shapes, the variants' "
-                   "whisper encoders): per-launch times x launches; "
+                   "whisper encoders, the offline CLIs' generate_audio "
+                   "completion, S3 topline, extract_vq and eval with "
+                   "their in-process twins): per-launch times x launches; "
                    "per-shape rows in 'shapes'",
             "shapes": shapes})
     log({"total_s_after_build": time.perf_counter() - t_start})

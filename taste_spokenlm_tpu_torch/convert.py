@@ -499,12 +499,21 @@ def flow_state(tree: Mapping, prefix: str = "flow.") -> Dict:
 # ---------------------------------------------------------------------------
 
 
+def weight_norm_g(v) -> np.ndarray:
+    """||v|| over every dim but 0 (torch's weight_norm dim=0), in f32 on a
+    contiguous copy: the one expression both the pairs this module writes
+    and `collapse_weight_norm` use, so a written pair collapses back to
+    its weight exactly."""
+    v = np.ascontiguousarray(v, np.float32)
+    return np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)), keepdims=True))
+
+
 def _put_weight_norm_conv(out: Dict, base: str, p: Mapping):
     """A torch weight-norm (weight_g, weight_v) pair whose collapsed weight
     is ours: v = w, g = ||w|| over every dim but 0 (the same transpose
     serves Conv1d [out, in, k] and ConvTranspose1d [in, out, k])."""
     w = _np(p["kernel"]).transpose(2, 1, 0)
-    out[f"{base}.weight_g"] = np.sqrt(np.sum(w * w, axis=(1, 2), keepdims=True))
+    out[f"{base}.weight_g"] = weight_norm_g(w)
     out[f"{base}.weight_v"] = w
     if "bias" in p:
         out[f"{base}.bias"] = _np(p["bias"])
@@ -561,19 +570,19 @@ def hift_state(tree: Mapping, prefix: str = "hift.") -> Dict:
 
 
 def collapse_weight_norm(state: Dict) -> Dict:
-    """Replace every (X.weight_g, X.weight_v) pair by X.weight =
-    g * v / ||v|| (norm over every dim but 0, torch's weight_norm dim=0)."""
+    """Replace every (X.weight_g, X.weight_v) pair by X.weight = v * (g /
+    ||v||) in f32, in torch's own order (torch._weight_norm, dim=0): a
+    pair with g = weight_norm_g(v) gives v back bit for bit."""
     out = {}
     for key, value in state.items():
         if key.endswith(".weight_g"):
             continue
         if key.endswith(".weight_v"):
             base = key[: -len(".weight_v")]
-            g = state[f"{base}.weight_g"]
-            v = value
-            norm = np.sqrt(np.sum(v.astype(np.float64) ** 2,
-                                  axis=tuple(range(1, v.ndim)), keepdims=True))
-            out[f"{base}.weight"] = (v * (g / norm)).astype(np.float32)
+            v = np.ascontiguousarray(value, np.float32)
+            g = np.asarray(state[f"{base}.weight_g"], np.float32)
+            out[f"{base}.weight"] = v * (g / np.maximum(weight_norm_g(v),
+                                                        np.float32(1e-12)))
         else:
             out[key] = value
     return out

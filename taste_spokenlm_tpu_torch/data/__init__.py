@@ -1,1 +1,2 @@
-"""The training data pipeline (counterpart of the JAX data package)."""
+"""The training data pipeline and the native wav I/O (counterpart of the
+JAX data package)."""

@@ -17,6 +17,7 @@ numpy in, numpy out, the same arrays as JAX's for the same examples:
 from __future__ import annotations
 
 import dataclasses
+import subprocess
 from typing import Any, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -202,10 +203,17 @@ class Stage1Dataset:
                 yield ds[int(i)]
 
     def _resample16(self, wav: np.ndarray, sr: int) -> np.ndarray:
-        # JAX's mel_on_device path tries its native C++ resampler first
-        # (data/native.py, not ported) and falls back to this one
         if sr == 16000:
             return wav
+        if self.mel_on_device:
+            # host-light path: the native C++ resampler (data/native.py; no
+            # torch dispatch, so the prefetch thread does not contend with
+            # the train step), the torch one where it cannot build
+            try:
+                from taste_spokenlm_tpu_torch.data import native
+                return native.resample(wav, sr, 16000)
+            except (OSError, RuntimeError, subprocess.CalledProcessError):
+                pass
         return audio_ops.resample(torch.from_numpy(np.array(wav[None])), sr,
                                   16000)[0].numpy()
 

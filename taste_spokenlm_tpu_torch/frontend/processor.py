@@ -12,9 +12,9 @@ llama ("llm") tokenizers; every sub-token carries its word index, so the
 tokenizer tower can pool to word level and the spoken LM can align the two
 token spaces.
 
-The ONNX hooks of the JAX module (`speaker_embedder_from_onnx`,
-`s3_tokenizer_from_onnx`) need an ONNX executor, which the port does not
-have yet (ROADMAP.md queue A, "onnx_exec").
+`speaker_embedder_from_onnx` and `s3_tokenizer_from_onnx` make the
+speaker and S3 hooks from the reference's ONNX graphs, run by
+frontend/onnx_exec.py on a device.
 """
 
 from __future__ import annotations
@@ -30,6 +30,43 @@ import torch
 from taste_spokenlm_tpu_torch.config import AudioFrontendConfig
 from taste_spokenlm_tpu_torch.device import resolve_device
 from taste_spokenlm_tpu_torch.ops import audio as A
+
+
+def speaker_embedder_from_onnx(path_or_bytes, device=None) -> Callable:
+    """campplus.onnx / speaker_embed.onnx -> a `speaker_embedder` hook.
+
+    The reference's onnxruntime call: one positional input, the [B, T, 80]
+    mean-normalized kaldi fbank; returns the flat 192-d x-vector (numpy
+    f32).  The graph runs on `device` (None: CUDA) with TF32 off."""
+    from taste_spokenlm_tpu_torch.frontend.onnx_exec import OnnxTorchFunction
+    fn = OnnxTorchFunction.from_file(path_or_bytes, device=device)
+
+    def embed(feats):
+        out = fn(np.asarray(_numpy(feats), np.float32))
+        if isinstance(out, list):
+            out = out[0]
+        return np.asarray(_numpy(out), np.float32).reshape(-1)
+
+    return embed
+
+
+def s3_tokenizer_from_onnx(path_or_bytes, device=None) -> Callable:
+    """speech_tokenizer_v1.onnx -> an `s3_tokenizer` hook.
+
+    The reference's onnxruntime call: positional inputs (mel [1, 128, T <=
+    3000], length int32 [1]); returns the flat int32 S3 ids (4096-way, 50
+    Hz).  The graph runs on `device` (None: CUDA) with TF32 off."""
+    from taste_spokenlm_tpu_torch.frontend.onnx_exec import OnnxTorchFunction
+    fn = OnnxTorchFunction.from_file(path_or_bytes, device=device)
+
+    def tokenize(mel, n_valid_frames):
+        feats = np.asarray(_numpy(mel), np.float32)[:, :, :int(n_valid_frames)]
+        out = fn(feats, np.asarray([feats.shape[2]], np.int32))
+        if isinstance(out, list):
+            out = out[0]
+        return _numpy(out).reshape(-1).astype(np.int32)
+
+    return tokenize
 
 
 def transcribe_with_fallback(asr_apply, mel, tokenizer=None,

@@ -1,1 +1,2 @@
-"""Checkpoints and metric logging (counterpart of the JAX utils package)."""
+"""Checkpoints, metric logging and profiling (counterpart of the JAX utils
+package)."""
