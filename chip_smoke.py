@@ -4,9 +4,10 @@ serving tiers, streaming (the chunked synthesis and the pipelined
 completion), the stage-1 and stage-2 training steps and the stage-2 eval,
 the flow's OT-CFM step, the decode-layout tools (profile_lmhead,
 profile_fusion), TASLM in the int8 layout, padded flash attention at the
-flow's shapes, the model variants (card against host), and the offline
+flow's shapes, the model variants (card against host), the offline
 user journey through the CLIs (seed, export, import, generate, extract,
-eval).
+eval), and the model axis (the int8 joint decode over two ranks sharing
+the card, dryrun_multichip).
 
     python3 chip_smoke.py
 
@@ -33,7 +34,8 @@ quantizer (quant.py).  In order it:
    FFNs (their one-row SIMT kernels too) issues an int-to-float conversion
    (I2F);
 3. runs, on the int8 model, the full-width reconstruction (step 4), a
-   full-width completion (step 5) and the streaming path (step 5s); then
+   full-width completion (step 5), the streaming path (step 5s), serving
+   and the model axis (step 5m); then
    frees it, builds the int4 model and
    runs the same completion on it (step 6); frees that, runs the serving
    tiers' fidelity gate (step 6), builds the bf16 training model and runs
@@ -107,6 +109,30 @@ quantizer (quant.py).  In order it:
    5), the pipelined wall and RTF (median of 3, with their runs), the
    non-streaming TTFA (the median of three offline completions' decode +
    synthesis walls), the path's wall and peak memory;
+5m. the model axis ("model_axis"), on the int8 model's prompt: two
+   processes on the one card over gloo (NCCL refuses two ranks on one
+   device), each building the int8 serving model from the same seed-0
+   float weights and holding its rank's slices (quant.shard_state_dict:
+   16 of the 32 query heads and 4 of the 8 key / value heads, gate / up /
+   down's half of I = 8192, so gated_mlp_int8 runs at H = 2048, I = 4096;
+   half of the int8 embedding's rows; the fused qkv_proj and the int4
+   head whole), run a warm-up and a counted greedy joint decode of 64
+   steps on step 5's prompt (extract_vq's llm indices, the 40-token
+   prefix) while this process runs the same decode on the whole model.
+   Checks: each rank's launches exact (gated_mlp_int8 at the 42 prefix
+   rows and one row a step at I = 4096, matmul_int4 once a step, nothing
+   else) and its collectives exact (one all-reduce per embedding lookup
+   and two per layer and pass); the two ranks' trajectories equal and
+   their logits bit-identical; the prefill's and the first step's text
+   logits within 2e-2 of max |logit| of the one-process run's; every step
+   equal to the one-process run's or, where the runs part, the
+   one-process run's top-2 margin there below the logit drift measured
+   there (a tie, as serving_fidelity reads one).  It prints ms a joint
+   step, collectives a step and peak memory per rank beside the
+   one-process run's (two ranks sharing one card say nothing of tensor-
+   parallel speed).  Then entry.dryrun_multichip(4) on the card: one
+   stage-1, one stage-2 and one flow step of TasteConfig.tiny() over four
+   processes on a (2, 2) mesh, sharing the card over gloo;
 6. the int4 completion: step 5 on the int4 model, where the fused MLPs are
    gated_mlp_int4 / ffn_int4 and every other projection (Llama qkv / o, S3
    qkv / out, the S3 head) runs matmul_int4; it must launch the int8 MLPs
@@ -184,15 +210,18 @@ quantizer (quant.py).  In order it:
    step 2 run steps 3 and 4: the losses, every parameter, EMA buffer and
    Adam moment, the step and the generator against the uninterrupted
    run's step-4 checkpoint, bit for bit (or within that spread); (c) the
-   train CLI (scripts/train.py, full config, f32, --synthetic --remat
-   full) as subprocesses: straight through 4 steps (saves at 2 and 4),
-   then a run killed with SIGKILL once its step-2 checkpoint has landed
-   and relaunched, whose steps 3-4 rows must match the straight run's
-   (bit for bit, or within (b)'s spread); the synthetic shapes (8 asr,
-   12 S3 tokens) run flash but not rel-pos, each run's launches exact;
-   then --stage 2 and --model flow, 2 steps each: finite losses and
-   "done".  It prints the step walls, the save and restore seconds, the
-   checkpoint bytes, the peak memory and each CLI run's wall;
+   train CLI (scripts/train.py, --tiny, f32, --synthetic --remat full: cut
+   from the full config for the model_axis phase's time, printed as
+   `reduced`; (a) and (b) and steps 7-7c run the full width) as
+   subprocesses, four chains run concurrently: straight through 4 steps
+   (saves at 2 and 4); a run killed with SIGKILL once its step-2
+   checkpoint has landed and relaunched, whose steps 3-4 rows must match
+   the straight run's (bit for bit, or within (b)'s spread); --stage 2
+   and --model flow, 2 steps each: finite losses and "done".  At the tiny
+   widths no kernel runs (the whisper frames are below flash's gate),
+   each run's launches exact.  It prints the step walls, the save and
+   restore seconds, the checkpoint bytes, the peak memory and each CLI
+   run's wall;
 7c. the flow step ("flow_train"): the full-width flow in f32 with the
    serving config's fused-DiT flag on, B = 8 rows of 512 S3 tokens and
    882 mel frames (flow_mel, on the card, of a seeded 22.05 kHz wav);
@@ -353,6 +382,7 @@ It imports nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import copy
 import gc
 import json
@@ -372,6 +402,7 @@ import torch.nn.functional as F
 from taste_spokenlm_tpu_torch import (from_pretrained, quant,
                                       save_pretrained)
 from taste_spokenlm_tpu_torch.config import TasteConfig
+from taste_spokenlm_tpu_torch.entry import dryrun_multichip, free_port
 from taste_spokenlm_tpu_torch.frontend import streaming
 from taste_spokenlm_tpu_torch.frontend.processor import (
     TasteProcessor, transcribe_with_fallback)
@@ -404,6 +435,7 @@ from taste_spokenlm_tpu_torch.ops.quantized import (FUSED_MLP_MAX_ROWS,
                                                     INT4_KERNEL_MAX_ROWS)
 from taste_spokenlm_tpu_torch.ops.remat import apply_remat
 from taste_spokenlm_tpu_torch.ops.sampling import gumbel_noise
+from taste_spokenlm_tpu_torch.parallel import mesh
 from taste_spokenlm_tpu_torch.serving.server import (TasteEngine,
                                                      create_http_server,
                                                      run_load_test)
@@ -2027,6 +2059,217 @@ def completion_path(model, cfg: TasteConfig, tier: str, x, lm, scfg, tables,
 
 
 # ---------------------------------------------------------------------------
+# the model axis: the int8 joint decode over two ranks sharing the card
+# ---------------------------------------------------------------------------
+
+MODEL_AXIS_DIR = os.path.join("build", "model_axis")
+MODEL_AXIS_RANKS = 2
+MODEL_AXIS_TIMEOUT_S = 600
+MODEL_AXIS_TOL = 2e-2      # the prefill's and first step's logits, rel
+MODEL_AXIS_WORKER = """
+import sys
+import chip_smoke
+sys.exit(chip_smoke.model_axis_worker(int(sys.argv[1]), sys.argv[2]))
+"""
+
+
+def model_axis_worker(rank: int, port: str) -> int:
+    """One rank of "model_axis" (a process of its own): the int8 serving
+    model of build_model's weights, split over a (1, 2) mesh, a warm-up and
+    a counted greedy joint decode of the prompt in MODEL_AXIS_DIR; writes
+    its trajectory, text logits, launches, collectives, walls and peak
+    memory to rank<rank>.pt there."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    mesh.init_distributed(f"localhost:{port}", MODEL_AXIS_RANKS, rank,
+                          torch.device("cuda"), backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    axis = mesh.make_mesh(1, MODEL_AXIS_RANKS).model_axis
+    float_cfg, serving = configs()
+    cfg = serving["int8"]
+    kw = dict(dtype=torch.bfloat16, tower_dtype=torch.float32, device=dev)
+    with torch.device(dev):
+        float_model = TasteForCausalLM(float_cfg, **kw)
+        sd = random_state_dict(float_model,
+                               torch.Generator(device=dev).manual_seed(0))
+        del float_model
+        sd = quant.shard_state_dict(quant.serving_state_dict(sd, cfg, "int8"),
+                                    axis.rank, axis.size)
+        model = TasteForCausalLM(cfg, model_axis=axis, **kw)
+    model.load_state_dict(sd, strict=True)
+    del sd
+    model.eval()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prompt = torch.load(os.path.join(MODEL_AXIS_DIR, "prompt.pt"),
+                        map_location=dev, weights_only=False)
+    lm, idx = prompt["lm"], prompt["llm_indices"]
+    scfg = SamplerConfig(**prompt["sampler"])
+    tables = {k: torch.from_numpy(v).to(dev) for k, v in build_sampler_tables(
+        VocabScan(), cfg.spoken_lm.llama.vocab_size).items()}
+    model.generate_completion(              # warm-up: the prefill, 4 steps
+        scfg, tables, idx, lm["llm_token_ids"], lm["llm_token_lengths"],
+        lm["llm_word_ids"], "audio", 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    mesh.COLLECTIVES.clear()
+    t0 = time.perf_counter()
+    res, (logits, decisions) = greedy_run(model, scfg, tables, lm, idx)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, collectives = launch_counts(), dict(mesh.COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    # one collective of the decode alone: a [1, H] bf16 row over the group
+    row = torch.ones((1, cfg.spoken_lm.llama.hidden_size),
+                     dtype=torch.bfloat16, device=dev)
+    with torch.no_grad():
+        for i in range(55):
+            if i == 5:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            mesh.reduce_from_model(row, axis)
+        torch.cuda.synchronize()
+    out = {"steps": int(res["steps"]), "wall_s": wall, "build_s": build_s,
+           "counts": counts, "collectives": collectives, "peak_mem_gb": peak,
+           "all_reduce_ms": (time.perf_counter() - t0) / 50 * 1e3,
+           "logits": logits.cpu(), "decisions": decisions.cpu(),
+           **{k: res[k].cpu() for k in ("llm_token_ids", "taste_indices",
+                                        "num_tokens", "num_taste_words")}}
+    torch.save(out, os.path.join(MODEL_AXIS_DIR, f"rank{rank}.pt"))
+    mesh.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def model_axis_launches(cfg: TasteConfig, steps: int) -> dict:
+    """{kernel: {shape: launches}} of one rank's joint decode of `steps`
+    steps: per Llama layer gated_mlp_int8 on the rank's block of I over the
+    prefix rows once and one row a step, the int4 head (whole) once a
+    step."""
+    llama = cfg.spoken_lm.llama
+    h, n_layers = llama.hidden_size, llama.num_hidden_layers
+    i = llama.intermediate_size // MODEL_AXIS_RANKS
+    rows = B * (1 + T_TOK + cfg.spoken_lm.delay)
+    return {"gated_mlp_int8": {(rows, h, i): n_layers,
+                               (1, h, i): n_layers * steps},
+            "matmul_int4": {(1, h, llama.vocab_size): steps}}
+
+
+def model_axis_path(model, cfg: TasteConfig, lm, idx, scfg, tables, card: str):
+    """(5m) the int8 joint decode over two ranks on the card against this
+    process's run on the whole model, then dryrun_multichip(4) -> ({kernel:
+    {shape: launches}} and the launch counts of both ranks' counted runs)."""
+    shutil.rmtree(MODEL_AXIS_DIR, ignore_errors=True)
+    os.makedirs(MODEL_AXIS_DIR)
+    greedy = scfg._replace(text_top_p=0.0)
+    torch.save({"lm": lm, "llm_indices": idx, "sampler": greedy._asdict()},
+               os.path.join(MODEL_AXIS_DIR, "prompt.pt"))
+    t_path = time.perf_counter()
+    port = str(free_port())
+    procs, logs = [], []
+    for r in range(MODEL_AXIS_RANKS):
+        logs.append(os.path.join(MODEL_AXIS_DIR, f"rank{r}.log"))
+        with open(logs[-1], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", MODEL_AXIS_WORKER, str(r), port],
+                stdout=f, stderr=subprocess.STDOUT))
+    try:
+        # the one-process run meanwhile, on the whole model
+        greedy_run(model, greedy, tables, lm, idx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        one, run_one = greedy_run(model, greedy, tables, lm, idx)
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        one_peak = torch.cuda.max_memory_allocated() / 1e9
+        for r, proc in enumerate(procs):
+            rc = proc.wait(timeout=MODEL_AXIS_TIMEOUT_S)
+            check(rc == 0, f"model_axis rank {r} exited {rc}: "
+                           f"{open(logs[r]).read()[-3000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    ranks = [torch.load(os.path.join(MODEL_AXIS_DIR, f"rank{r}.pt"),
+                        weights_only=False) for r in range(MODEL_AXIS_RANKS)]
+    a, b = ranks
+    traj = ("llm_token_ids", "taste_indices", "num_tokens", "num_taste_words")
+    check(all(torch.equal(a[k], b[k]) for k in traj),
+          "model_axis: the two ranks decode different trajectories")
+    logits_equal = torch.equal(a["logits"], b["logits"])
+    check(logits_equal, "model_axis: the two ranks' text logits differ")
+    lg_one = run_one[0].cpu()
+    drift = [((a["logits"][s] - lg_one[s]).abs().max()
+              / lg_one[s].abs().max()).item() for s in (0, 1)]
+    check(max(drift) <= MODEL_AXIS_TOL,
+          f"model_axis: the prefill's / first step's text logits {drift} "
+          f"of max |logit| from the one-process run's, > {MODEL_AXIS_TOL}")
+    parted, shared_rel, at = parting(
+        (a["logits"], a["decisions"]), (lg_one, run_one[1].cpu()),
+        ~tables["banned"].cpu())
+    if parted is not None:
+        log({"model_axis_parting": {"step": parted, **at}})
+        check(at["top2_margin"] < at["logit_diff"],
+              f"model_axis: the trajectory parts from the one-process run's "
+              f"at step {parted}, where that run's top-2 margin "
+              f"{at['top2_margin']} exceeds the logit drift "
+              f"{at['logit_diff']}: not a tie")
+    steps = a["steps"]
+    launches = model_axis_launches(cfg, steps)
+    llama = cfg.spoken_lm.llama
+    per_pass = 1 + 2 * llama.num_hidden_layers
+    # the prefix's two embedding lookups, its prefill, then per step one
+    # lookup and one pass (the int4 head is whole: no gather)
+    want_collectives = {"all_reduce": 2 + 2 * llama.num_hidden_layers
+                        + steps * per_pass}
+    for r, res in enumerate(ranks):
+        check(res["steps"] == steps, "model_axis: the ranks' step counts")
+        check_counts(res["counts"], {k: sum(v.values())
+                                     for k, v in launches.items()},
+                     f"model_axis rank {r}")
+        check(res["collectives"] == want_collectives,
+              f"model_axis rank {r}: collectives {res['collectives']}, "
+              f"the config implies {want_collectives}")
+    n = int(a["num_tokens"][0])
+    log({"model_axis": {
+        "card": card, "ranks": MODEL_AXIS_RANKS, "backend": "gloo",
+        "note": "two ranks share one card: the walls say nothing of "
+                "tensor-parallel speed",
+        "joint_decode_steps": steps, "tokens": n,
+        "ms_per_step": [1e3 * r["wall_s"] / steps for r in ranks],
+        "one_process_ms_per_step": 1e3 * one_wall / int(one["steps"]),
+        "collectives_per_step": per_pass,
+        "collectives": ranks[0]["collectives"],
+        "all_reduce_ms": [r["all_reduce_ms"] for r in ranks],
+        "peak_mem_gb": [r["peak_mem_gb"] for r in ranks],
+        "one_process_peak_mem_gb": one_peak,
+        "build_s": [r["build_s"] for r in ranks],
+        "ranks_logits_bit_identical": logits_equal,
+        "prefill_and_first_step_logit_rel_drift": drift,
+        "shared_history_logit_rel_drift": shared_rel,
+        "parted_at_step": parted,
+        "text_agreement_with_one_process": (
+            a["llm_token_ids"][0, :n] == one["llm_token_ids"][0, :n].cpu()
+        ).float().mean().item(),
+        "launches": ranks[0]["counts"]}})
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    log({"model_axis_dryrun_multichip_s": time.perf_counter() - t0,
+         "model_axis_path_wall_s": time.perf_counter() - t_path})
+    shutil.rmtree(MODEL_AXIS_DIR, ignore_errors=True)
+    both = {k: {shape: MODEL_AXIS_RANKS * n for shape, n in v.items()}
+            for k, v in launches.items()}
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in a["counts"]}
+    return both, counts
+
+
+# ---------------------------------------------------------------------------
 # streaming: the chunked synthesis and the pipelined completion
 # ---------------------------------------------------------------------------
 
@@ -3151,31 +3394,48 @@ def run_cli(name: str, args: list, kill_after: str = None,
     return out
 
 
+# the train CLI's runs, cut from the full config for the model_axis phase's
+# time; the full width trains in-process (steps 7-7c)
+CLI_REDUCED = {"train CLI": "TasteConfig.tiny() (--tiny), was TasteConfig.full()"}
+
+
 def cli_path(spread_gate: float) -> dict:
-    """(c): the train CLI at the full config (f32, per-layer remat) on the
-    synthetic stage-1 stream, straight through and killed-and-resumed, and
-    two steps of stage 2 and of the flow."""
-    cfg = apply_remat(TasteConfig.full(), True)
+    """(c): the train CLI at TasteConfig.tiny() (f32, per-layer remat) on
+    the synthetic stage-1 stream, straight through and killed-and-resumed,
+    and two steps of stage 2 and of the flow.  The four chains of processes
+    (straight; victim, then resumed; stage 2; the flow) run concurrently,
+    so each wall includes its neighbours' load."""
+    cfg = apply_remat(TasteConfig.tiny(), True)
     flash = flash_shapes(cfg, 2 * cfg.audio_tower.whisper.max_source_positions,
                          8, "float32")
-    check(bool(flash), "the CLI's synthetic batch is not the flash kernel's")
-    per_step = {"flash_attention": sum(flash.values())}
-    base = ["--stage", "1", "--synthetic", "--save-every", "2",
+    per_step = {"flash_attention": sum(flash.values())} if flash else {}
+    base = ["--tiny", "--stage", "1", "--synthetic", "--save-every", "2",
             "--log-every", "1", "--remat", "full"]
     out = {}
     work = {k: os.path.join(HARNESS_DIR, k) for k in
             ("straight", "resumed", "stage2", "flow")}
-    straight = run_cli("cli_straight", base + ["--steps", "4", "--workdir",
-                                               work["straight"]])
+
+    def drill():
+        victim = run_cli("cli_victim", base + ["--steps", "500", "--workdir",
+                                               work["resumed"]], kill_after="2")
+        return victim, run_cli("cli_resumed", base + [
+            "--steps", "4", "--workdir", work["resumed"]])
+    with concurrent.futures.ThreadPoolExecutor(4) as pool:
+        runs = {"straight": pool.submit(run_cli, "cli_straight", base + [
+                    "--steps", "4", "--workdir", work["straight"]]),
+                "drill": pool.submit(drill)}
+        for name, args in (("stage2", ["--tiny", "--stage", "2"]),
+                           ("flow", ["--tiny", "--model", "flow"])):
+            runs[name] = pool.submit(run_cli, f"cli_{name}", args + [
+                "--synthetic", "--steps", "2", "--log-every", "1",
+                "--workdir", work[name]])
+        runs = {k: f.result() for k, f in runs.items()}
+    straight, (victim, resumed) = runs["straight"], runs["drill"]
     check_counts(straight["counts"], {k: 4 * v for k, v in per_step.items()},
                  "train CLI, straight")
     shutil.rmtree(os.path.join(work["straight"], "ckpt"))
-    victim = run_cli("cli_victim", base + ["--steps", "500", "--workdir",
-                                           work["resumed"]], kill_after="2")
     check(victim["steps_on_disk"][-1] < 4,
           f"the killed run saved {victim['steps_on_disk']}")
-    resumed = run_cli("cli_resumed", base + ["--steps", "4", "--workdir",
-                                             work["resumed"]])
     check(resumed["resumed"], "the relaunched CLI did not resume")
     check_counts(resumed["counts"], {k: 2 * v for k, v in per_step.items()},
                  "train CLI, resumed")
@@ -3196,15 +3456,11 @@ def cli_path(spread_gate: float) -> dict:
         "launches": {"straight": straight["launched"],
                      "resumed": resumed["launched"]},
         "losses": [straight["rows"][s]["loss"] for s in range(1, 5)]}
-    for name, args in (("stage2", ["--stage", "2"]),
-                       ("flow", ["--model", "flow"])):
-        run = run_cli(f"cli_{name}", args + [
-            "--synthetic", "--steps", "2", "--log-every", "1", "--workdir",
-            work[name]])
-        losses = [run["rows"][s]["loss"] for s in (1, 2)]
+    for name in ("stage2", "flow"):
+        losses = [runs[name]["rows"][s]["loss"] for s in (1, 2)]
         check(all(np.isfinite(losses)), f"train CLI {name}: losses {losses}")
-        out[name] = {"wall_s": run["wall_s"], "losses": losses,
-                     "launches": run["launched"]}
+        out[name] = {"wall_s": runs[name]["wall_s"], "losses": losses,
+                     "launches": runs[name]["launched"]}
     return out
 
 
@@ -3334,7 +3590,7 @@ def harness_path(dev, card: str):
         "card": card, "batch": f"{TRAIN_B}x30s", "trainer_step_walls_s": walls,
         "trainer_step_s": min(walls), "save_s": saves, "restore_s": restore_s,
         "checkpoint_bytes": ckpt_bytes, "peak_mem_gb": peak_gb,
-        "metrics": rows, "cli": cli,
+        "metrics": rows, "cli": cli, "reduced": CLI_REDUCED,
         "path_wall_s": time.perf_counter() - t_path}})
     shutil.rmtree(HARNESS_DIR, ignore_errors=True)
     return train_launches(cfg, HARNESS_STEPS + 4), {
@@ -5210,6 +5466,10 @@ def main(argv=None) -> int:
                 model, cfg, x, lm, scfg, tables, run[0], card, opts.profile)
             paths.extend(launches)
             all_counts.extend(counts)
+            launches, counts = model_axis_path(model, cfg, lm, run[0], scfg,
+                                               tables, card)
+            paths.append(launches)
+            all_counts.append(counts)
     n = max(greedy["int8"][1], greedy["int4"][1])
     log({"int4_vs_int8_greedy_text_agreement": (
         greedy["int4"][0][:n] == greedy["int8"][0][:n]).float().mean().item(),
@@ -5307,6 +5567,7 @@ def main(argv=None) -> int:
             "per": "the counted runs (reconstruction, the SpokenLLM "
                    "reconstruction, int8 and int4 completion, the "
                    "streaming synthesis and pipelined completion, the "
+                   "model axis's two ranks' joint decodes, the "
                    "serving path's ASR, batched decodes, load tests and "
                    "HTTP requests, three stage-1 steps, the training "
                    "harness's eight in-process stage-1 steps, three "

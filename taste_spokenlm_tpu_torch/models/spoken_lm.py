@@ -17,6 +17,12 @@ decode step.
 The decode is a Python loop over steps; it stops early once every row is
 done, as the JAX while-loop does.
 
+Built with a `model_axis`, the Llama is split over the model group
+(models/llama.py) and everything else is replicated: every rank gets the
+same full logits from the head, so every rank runs the sampler, the
+bridges and the decode's bookkeeping alike and, with generators seeded
+alike, decodes the same trajectory.
+
 Random draws are Gumbel noise: per step a [B, V] text draw and a
 [B, L, K] taste draw, taken from `generator` or from the `text_gumbel`
 [max_steps, B, V] / `taste_gumbel` [max_steps, B, L, K] arguments (step s
@@ -85,7 +91,8 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 class TasteSpokenLM(nn.Module):
     def __init__(self, config: SpokenLMConfig, audio_dim: int = 1280,
                  taste_k: int = 512, taste_d: int = 256, taste_l: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 model_axis: Optional[mesh.ModelAxis] = None):
         super().__init__()
         cfg = self.config = config
         if cfg.out_llm_module == "reference_mix":
@@ -99,7 +106,7 @@ class TasteSpokenLM(nn.Module):
         self.dtype, self.audio_dim, self.taste_l = dtype, audio_dim, taste_l
         h = cfg.llama.hidden_size
         self.language_model = LlamaModel(
-            cfg.llama, cfg.lora if cfg.use_lora else None, dtype)
+            cfg.llama, cfg.lora if cfg.use_lora else None, dtype, model_axis)
         self.fuse_for_bridge_in_llm = make_fusion(cfg.in_llm_module, h, audio_dim)
         self.extract_for_bridge_out_llm = make_extract(
             cfg.out_llm_module, h, taste_k, taste_d, taste_l,

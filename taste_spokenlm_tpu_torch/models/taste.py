@@ -49,18 +49,25 @@ from taste_spokenlm_tpu_torch.ops.losses import IGNORE_ID
 from taste_spokenlm_tpu_torch.ops.segment import (compact_valid_rows,
                                                   remap_gather,
                                                   word_start_remap)
+from taste_spokenlm_tpu_torch.parallel.mesh import ModelAxis
 
 
 class TasteForCausalLM(nn.Module):
     """`dtype` is the compute dtype of the speech decoder, the spoken LM and
     the voice generator; `tower_dtype` (default `dtype`) that of the audio
     tower's encoder (its segmenter and RVQ run float32 under
-    `segmenter_f32`)."""
+    `segmenter_f32`).  `model_axis` (parallel/mesh.py, e.g.
+    `make_mesh(data, model).model_axis`) splits the spoken LM's Llama over
+    the model group, tensor parallel as JAX's `_TP_RULES`; the tower, the
+    speech decoder and the voice generator stay whole on every rank (JAX
+    has no rule for them), so `synthesize_from_taste` runs alike on every
+    rank.  Load it with `quant.shard_state_dict` of a full state dict."""
 
     def __init__(self, config: TasteConfig, dtype: torch.dtype = torch.float32,
                  tower_dtype: Optional[torch.dtype] = None,
                  device: Optional[Union[str, torch.device]] = None,
-                 weight_commit_loss: float = 1.0):
+                 weight_commit_loss: float = 1.0,
+                 model_axis: Optional[ModelAxis] = None):
         super().__init__()
         self.config = config
         self.weight_commit_loss = weight_commit_loss
@@ -73,7 +80,7 @@ class TasteForCausalLM(nn.Module):
         self.spoken_lm = TasteSpokenLM(
             config.spoken_lm, audio_dim=config.audio_tower.audio_embed_dim,
             taste_k=q.codebook_size, taste_d=q.codebook_dim,
-            taste_l=q.num_quantizers, dtype=dtype)
+            taste_l=q.num_quantizers, dtype=dtype, model_axis=model_axis)
         self.voice_generator = VoiceGenerator(config.flow, config.hift,
                                               dtype=dtype)
         self.to(self.device)

@@ -22,6 +22,7 @@ import torch
 import torch.nn as nn
 
 from taste_spokenlm_tpu_torch.kernels import fused_mlp, int4_matmul
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 FUSED_MLP_MAX_ROWS = 256
 INT4_KERNEL_MAX_ROWS = 256
@@ -125,7 +126,10 @@ def fused_gated_mlp_apply(x, gate, up, down, mode: str, dtype,
     """The Llama MLP over (weights, scale) pairs in `mode` "int8" ([in, out]
     int8) or "int4" (packed, down per tile): one kernel call for
     decode-sized inputs (its plain version when not `use_kernel`), the
-    unfused math above FUSED_MLP_MAX_ROWS."""
+    unfused math above FUSED_MLP_MAX_ROWS.  Given a model rank's slices
+    (gate / up's columns, down's rows of one block of the intermediate
+    axis; int8 only) it returns the rank's partial sum, which the caller
+    sums over the model group."""
     if _rows(x) <= FUSED_MLP_MAX_ROWS:
         fn = {("int8", True): fused_mlp.gated_mlp_int8,
               ("int8", False): fused_mlp.gated_mlp_int8_plain,
@@ -173,17 +177,29 @@ class QEmbed(F32Buffers):
     """int8 embedding table with per-row scales; a tied head reads it as
     (h @ q^T) * scale, or with head_mode "int4" the transposed nibble-packed
     copy through the int4 kernel (its plain version when `use_kernels` is
-    False)."""
+    False).
+
+    With a `model_axis` (parallel/mesh.py) the rank holds its block of the
+    vocab's rows of `embedding_q` / `embedding_scale` (JAX's rule): a lookup
+    reads the ids in its block, zeros the others and sums over the model
+    group; the int8 head multiplies by the block's rows and gathers the
+    vocab axis.  The int4 head `head_q4` / `head_scale4` stays whole (JAX
+    has no rule for it), so its logits are computed alike on every rank."""
 
     def __init__(self, num_embeddings: int, features: int,
                  dtype: torch.dtype = torch.float32, head_mode: str = "int8",
-                 int4_group: int = 128):
+                 int4_group: int = 128, model_axis=None):
         super().__init__()
         self.dtype, self.head_mode = dtype, head_mode
         self.use_kernels = True
+        self.model_axis = model_axis
+        rows = num_embeddings
+        if model_axis is not None:
+            rows = num_embeddings // model_axis.size
+            self.offset = model_axis.rank * rows
         self.register_buffer("embedding_q", torch.zeros(
-            num_embeddings, features, dtype=torch.int8))
-        self.register_buffer("embedding_scale", torch.ones(num_embeddings))
+            rows, features, dtype=torch.int8))
+        self.register_buffer("embedding_scale", torch.ones(rows))
         if head_mode == "int4":
             g = int4_matmul._group(features, int4_group)
             self.register_buffer("head_q4", torch.zeros(
@@ -192,14 +208,25 @@ class QEmbed(F32Buffers):
                 features // g, num_embeddings))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        axis = self.model_axis
+        if axis is not None:
+            local = ids - self.offset
+            own = (local >= 0) & (local < self.embedding_q.shape[0])
+            ids = torch.where(own, local, torch.zeros_like(local))
         rows = self.embedding_q[ids].to(self.dtype)
-        return rows * self.embedding_scale[ids][..., None].to(self.dtype)
+        out = rows * self.embedding_scale[ids][..., None].to(self.dtype)
+        if axis is None:
+            return out
+        out = torch.where(own[..., None], out, torch.zeros_like(out))
+        return mesh.reduce_from_model(out, axis)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """-> f32 logits [..., V]."""
+        """-> f32 logits [..., V], alike on every rank of a model group."""
         if self.head_mode == "int4":
             fn = (int4_matmul.matmul_int4 if self.use_kernels
                   else int4_matmul.matmul_int4_plain)
             return fn(hidden, self.head_q4, self.head_scale4)
-        h = hidden.to(torch.bfloat16).float()
-        return (h @ self.embedding_q.float().T) * self.embedding_scale
+        h = mesh.copy_to_model(hidden, self.model_axis).to(
+            torch.bfloat16).float()
+        out = (h @ self.embedding_q.float().T) * self.embedding_scale
+        return mesh.gather_from_model(out, self.model_axis)

@@ -16,18 +16,23 @@ stored [in, out] as in JAX, not transposed like a torch Linear weight.
     sd = quantize_llama_params(sd, include_embed=True, mode="int4",
                                embed_head_mode="int4head", fuse_qkv=True,
                                fused_mlp=True)    # -> the int4 LlamaModel's
+
+`shard_state_dict` cuts any of these state dicts (float, int8, int4, a
+whole TasteForCausalLM's or a bare LlamaModel's) to a model rank's slices.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 from taste_spokenlm_tpu_torch.kernels.fused_mlp import (
     dequantize_int4_tiled, mlp_tile, quantize_int4_tiled)
 from taste_spokenlm_tpu_torch.kernels.int4_matmul import (dequantize_int4,
                                                           quantize_int4)
+from taste_spokenlm_tpu_torch.parallel import mesh
 
 _PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
          "down_proj")
@@ -310,4 +315,29 @@ def dequantized_state_dict(sd: Dict, cfg) -> Dict:
             put(pre, "bias", val.float())
         else:
             out[key] = val.float() if val.is_floating_point() else val
+    return out
+
+
+def shard_state_dict(sd: Dict, model_rank: int, model_size: int) -> Dict:
+    """A full state dict (torch tensors or numpy arrays) -> model rank
+    `model_rank` of `model_size`'s: each tensor that JAX's `_TP_RULES` split
+    and the port does not hold whole (parallel/mesh.py `tp_axis`) sliced to
+    the rank's block of its axis (a contiguous copy), the others as they
+    are.  It loads strictly into the module built with that rank's
+    ModelAxis; the ranks' slices, concatenated in rank order, are the
+    input."""
+    if model_size == 1:
+        return dict(sd)
+    part = mesh.ModelAxis(model_rank, model_size).part
+    out: Dict = {}
+    for key, val in sd.items():
+        axis = mesh.tp_axis(key, tuple(val.shape), model_size)
+        if axis is None:
+            out[key] = val
+            continue
+        idx = [slice(None)] * val.ndim
+        idx[axis] = part(val.shape[axis])
+        piece = val[tuple(idx)]
+        out[key] = (piece.contiguous().clone() if isinstance(piece, torch.Tensor)
+                    else np.ascontiguousarray(piece))
     return out

@@ -10,8 +10,12 @@ tokenizer curriculum, the stage-2 joint LM, and the flow.
 The flags are JAX's, plus --device (default CUDA; --device cpu, or
 --platform cpu, runs the plain versions on the CPU).  Several processes
 train one model data parallel (parallel/mesh.py: gloo on the CPU, nccl on
-CUDA, the optimizer's moments sharded ZeRO-1), from --coordinator /
---num-processes / --process-id or torchrun's environment.  Checkpoints
+CUDA or --backend gloo for ranks that share a card, the optimizer's
+moments sharded ZeRO-1), from --coordinator / --num-processes /
+--process-id or torchrun's environment.  --model-parallel k lays the
+processes out as a (processes / k, k) mesh, as JAX's CLI does: training
+replicates along the model axis (JAX's state_shardings), so the k ranks
+of a model group compute the same step on the same rows.  Checkpoints
 land in <workdir>/ckpt/<step>, the metric rows in <workdir>/metrics.jsonl;
 a relaunch with the same workdir resumes from the latest checkpoint and
 replays the data stream to it, so the resumed run sees the batches an
@@ -220,7 +224,11 @@ def parse_args(argv=None):
     p.add_argument("--data-parallel", type=int, default=None,
                    help="the number of processes (checked against the "
                         "group's)")
-    p.add_argument("--model-parallel", type=int, default=1)
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="the model axis of the (data, model) mesh")
+    p.add_argument("--backend", default=None, choices=["gloo", "nccl"],
+                   help="the process group's backend (default: gloo on the "
+                        "CPU, nccl on CUDA; gloo for ranks sharing a card)")
     p.add_argument("--ref-kl", action="store_true",
                    help="stage 2: add the KL to the adapter-disabled "
                         "frozen base, in the same step")
@@ -260,15 +268,19 @@ def main(argv=None):
 
     dev = resolve_device(args.device or (
         "cpu" if args.platform == "cpu" else None))
-    mesh.check_model_parallel(args.model_parallel)
     mesh.init_distributed(args.coordinator, args.num_processes,
-                          args.process_id, dev)
+                          args.process_id, dev, args.backend)
     if dev.type == "cuda":
         dev = torch.device("cuda", torch.cuda.current_device())
-    n_data = mesh.world_size()
+    world = mesh.world_size()
+    if args.model_parallel < 1 or world % args.model_parallel:
+        raise SystemExit(f"--model-parallel {args.model_parallel}: the group "
+                         f"has {world} processes")
+    n_data = world // args.model_parallel
     if args.data_parallel not in (None, n_data):
-        raise SystemExit(f"--data-parallel {args.data_parallel}: the group "
-                         f"has {n_data} processes")
+        raise SystemExit(f"--data-parallel {args.data_parallel}: the mesh "
+                         f"has {n_data} data ranks")
+    mesh.make_mesh(n_data, args.model_parallel)
 
     cfg = TasteConfig.tiny() if args.tiny else TasteConfig.full()
     if args.remat != "off":
@@ -341,7 +353,7 @@ def main(argv=None):
                    for k, v in mesh.local_rows(b).items()}
 
     trainer.fit(state, device_batches())
-    if n_data > 1:
+    if world > 1:
         torch.distributed.destroy_process_group()
     print("done")
     return 0

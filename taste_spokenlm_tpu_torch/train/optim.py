@@ -14,9 +14,10 @@ limit / (norm + 1e-6)).  Each parameter is updated in place in its own
 dtype, with its moments in that dtype, one rounding per operation and the
 constants rounded to that dtype first, as optax's jitted update of a bf16
 tree (bench.py's train_main) does.  Under a data-parallel group
-(parallel/mesh.py) the gradients are summed over the ranks before the
+(parallel/mesh.py) the gradients are summed over the data group before the
 clip, and each rank keeps the moments of its slice of each parameter
-(ZeRO-1, JAX's `opt_state_shardings`).
+(ZeRO-1 over the data group, JAX's `opt_state_shardings`); the ranks of a
+model group hold the same slices and make the same update.
 """
 
 from __future__ import annotations
@@ -191,11 +192,12 @@ class Optimizer:
     global norm of the raw gradients.  The update runs as foreach
     operations over the parameters of each dtype.
 
-    Under a data-parallel group the gradients are summed over the ranks
-    first, so every rank clips by the global batch's norm, and the moments
-    are sharded (ZeRO-1): parameter i's `mu` / `nu` hold the rank's slice
-    along `axes[i]` (mesh.zero_shard_rule; None: whole), the rank updates
-    that slice and all-gathers the parameter.
+    Under a data-parallel group the gradients are summed over the data
+    group first, so every rank clips by the global batch's norm, and the
+    moments are sharded over it (ZeRO-1): parameter i's `mu` / `nu` hold
+    the data rank's slice along `axes[i]` (mesh.zero_shard_rule; None:
+    whole), the rank updates that slice and all-gathers the parameter over
+    the data group.
     `state_dict()` holds the whole moments (a collective under a group), so
     a checkpoint resumes at any number of ranks."""
 
@@ -209,7 +211,7 @@ class Optimizer:
         self.weight_decay, self.b1, self.b2, self.eps = (weight_decay, b1, b2,
                                                          eps)
         self.grad_clip = grad_clip
-        world = mesh.world_size()
+        world = mesh.data_size()
         self.axes = [mesh.zero_shard_rule(p.shape, world)
                      for p in self.params]
         self.mu = [torch.zeros_like(mesh.shard(p, a))

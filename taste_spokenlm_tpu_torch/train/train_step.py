@@ -21,11 +21,15 @@ the JAX state's key is PRNGKey(0) in bench.py), or are passed in per step
 - The flow (MaskedDiffWithXvec): the OT-CFM loss on unfused DiT blocks.
   `draws`: {"t", "z", "keep"} (ConditionalCFM.compute_loss).
 
-Under a data-parallel group (parallel/mesh.py) a step takes the rank's rows
-of the global batch and runs within `mesh.data_parallel()`: the forward's
-means are the rank's shares of the global ones, and the step sums its
-metrics over the ranks, so every rank returns the global batch's.  `draws` are then the rank's own rows (the
-dead-code picks: rows of the global batch).
+Under a data-parallel group (parallel/mesh.py) a step takes the data
+rank's rows of the global batch and runs within `mesh.data_parallel()`:
+the forward's means are the rank's shares of the global ones, and the step
+sums its metrics over the data group, so every rank returns the global
+batch's.  `draws` are then the rank's own rows (the dead-code picks: rows
+of the global batch).  On a ("data", "model") mesh the parameters stay
+replicated along "model", as JAX's `state_shardings` keeps them: the ranks
+of a model group take the same rows and compute the same step, and
+nothing is summed over the model group.
 
 `TrainState.state_dict()` is what a checkpoint holds, JAX's TrainState
 (utils/checkpoint.py): the model's parameters and buffers (the RVQ's EMA

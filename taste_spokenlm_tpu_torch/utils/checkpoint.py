@@ -15,8 +15,11 @@ CheckpointManagerOptions(max_to_keep, best_fn, best_mode) keeps: without
 that metric (ties: the later step) and every step saved without metrics.
 A step not past the latest one is not saved (orbax's `should_save`).
 Saves are synchronous; `wait` and `close` exist for the JAX manager's
-callers.  Under a data-parallel group every rank calls `save` and
-`restore` (the optimizer's state dict is a collective); rank 0 writes.
+callers.  Under a process group every rank calls `save` and `restore` (the
+optimizer's state dict gathers the moments over the data group); one
+writer, rank 0, writes the whole state.  The file holds whole parameters
+and whole moments, so a step saved on one ("data", "model") mesh restores
+on another (data 2 x model 2 and data 2 x model 1 alike).
 """
 
 from __future__ import annotations
