@@ -115,12 +115,14 @@ def load(name: str, signatures: Dict[str, Tuple]) -> ctypes.CDLL:
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
-            lib = ctypes.CDLL(library_path(name))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = list(argtypes)
-                f.restype = ctypes.c_int
+            from taste_spokenlm_tpu_torch.utils import profiling
+            with profiling.span("kernels.load"):
+                build([name])
+                lib = ctypes.CDLL(library_path(name))
+                for fn, argtypes in signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = list(argtypes)
+                    f.restype = ctypes.c_int
             _LIBS[name] = lib
         return lib
 

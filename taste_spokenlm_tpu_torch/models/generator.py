@@ -11,6 +11,7 @@ import torch.nn as nn
 from taste_spokenlm_tpu_torch.config import FlowConfig, HiFTConfig
 from taste_spokenlm_tpu_torch.models.flow import MaskedDiffWithXvec
 from taste_spokenlm_tpu_torch.models.hift import HiFTGenerator
+from taste_spokenlm_tpu_torch.utils import profiling
 
 
 class VoiceGenerator(nn.Module):
@@ -39,9 +40,11 @@ class VoiceGenerator(nn.Module):
         noise `z` [B, mel_len_max, n_mels] (standard normal) and the sine
         source's initial phases `source_phase` [B, H+1, 1] (uniform in
         [-pi, pi)) and `source_noise` [B, H+1, samples] (standard normal)."""
-        mel, mel_lengths = self.flow.inference(
-            speech_token_ids, speech_token_lengths, flow_embedding,
-            mel_len_max, n_timesteps, z=z, generator=generator)
-        wav = self.hift(mel, source_phase, source_noise, generator)
+        with profiling.span("flow"):
+            mel, mel_lengths = self.flow.inference(
+                speech_token_ids, speech_token_lengths, flow_embedding,
+                mel_len_max, n_timesteps, z=z, generator=generator)
+        with profiling.span("hift"):
+            wav = self.hift(mel, source_phase, source_noise, generator)
         samples_per_frame = wav.shape[1] // mel.shape[1]
         return wav, mel_lengths * samples_per_frame

@@ -37,6 +37,7 @@ from taste_spokenlm_tpu_torch.ops.losses import (IGNORE_ID, label_smoothing_ce,
 from taste_spokenlm_tpu_torch.ops.quantized import dense
 from taste_spokenlm_tpu_torch.ops.sampling import sample
 from taste_spokenlm_tpu_torch.ops.segment import ragged_concat
+from taste_spokenlm_tpu_torch.utils import profiling
 
 
 class _Fuse(nn.Module):
@@ -53,6 +54,19 @@ def _layer_norm_no_affine(x: torch.Tensor) -> torch.Tensor:
     mu = xf.mean(dim=-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
     return ((xf - mu) * torch.rsqrt(var + 1e-5)).to(x.dtype)
+
+
+def _count_rows(tokens, done_before, steps: int) -> None:
+    """The tracer's S3 counters for a chunk that ran `steps` steps: steps,
+    rows x steps, and the row-steps before each row stopped (a row live at
+    the chunk's start emitted its tokens, then stopped on the next step or
+    ran to the chunk's end).  One host read."""
+    emitted = (tokens >= 0).sum(dim=1)
+    live = torch.where(done_before, torch.zeros_like(emitted),
+                       torch.clamp(emitted + 1, max=steps))
+    profiling.count("s3.steps", steps)
+    profiling.count("s3.row_steps", tokens.shape[0] * steps)
+    profiling.count("s3.row_steps_live", int(live.sum()))
 
 
 class TasteSpeechDecoder(nn.Module):
@@ -202,37 +216,39 @@ class TasteSpeechDecoder(nn.Module):
         """Pack + prefill; returns the stream state for
         `generate_stream_chunk`, which draws its noise from `generator` or
         reads it from `gumbel` [max_steps, B, V+1]."""
-        b = asr_token_ids.shape[0]
-        dev = asr_token_ids.device
-        sos, spk, fused, task, fused_lengths = self.prepare_conditional_embeds(
-            speaker_embeds, audio_unit_embeds, audio_unit_lengths,
-            asr_token_ids, asr_token_lengths, skip_audio)
-        prefix_max = 3 + fused.shape[1]
-        packed, prefix_len = ragged_concat(
-            [(sos, None), (spk, None), (fused, fused_lengths), (task, None)],
-            prefix_max)
-        # right-aligned (left-padded) packing: every row shares positions
-        shift = prefix_max - prefix_len
-        pos = torch.arange(prefix_max, device=dev)[None, :]
-        src = torch.clamp(pos - shift[:, None], 0, prefix_max - 1)
-        prefix = torch.gather(packed, 1,
-                              src[:, :, None].expand(-1, -1, packed.shape[-1]))
-        prefix_valid = pos >= shift[:, None]
-        prefix = torch.where(prefix_valid[:, :, None], prefix,
-                             torch.zeros_like(prefix))
-        total = prefix_max + max_steps
-        caches = self.llm.init_cache(b, total)
-        key_valid = torch.cat(
-            [prefix_valid, torch.ones((b, max_steps), dtype=torch.bool,
-                                      device=dev)], dim=1)
-        pos_projs = self.llm.precompute_pos_projs(total)
-        lm_out, caches = self.llm.decode_step(
-            prefix, caches, 0, key_valid=key_valid[:, None, None, :],
-            pos_projs=pos_projs)
-        plen = prefix_len.float()
-        min_len = (plen * min_token_text_ratio).to(torch.int32)
-        max_len = torch.clamp((plen * max_token_text_ratio).to(torch.int32),
-                              max=max_steps)
+        with profiling.span("s3.prefill"):
+            b = asr_token_ids.shape[0]
+            dev = asr_token_ids.device
+            sos, spk, fused, task, fused_lengths = \
+                self.prepare_conditional_embeds(
+                    speaker_embeds, audio_unit_embeds, audio_unit_lengths,
+                    asr_token_ids, asr_token_lengths, skip_audio)
+            prefix_max = 3 + fused.shape[1]
+            packed, prefix_len = ragged_concat(
+                [(sos, None), (spk, None), (fused, fused_lengths),
+                 (task, None)], prefix_max)
+            # right-aligned (left-padded) packing: every row shares positions
+            shift = prefix_max - prefix_len
+            pos = torch.arange(prefix_max, device=dev)[None, :]
+            src = torch.clamp(pos - shift[:, None], 0, prefix_max - 1)
+            prefix = torch.gather(
+                packed, 1, src[:, :, None].expand(-1, -1, packed.shape[-1]))
+            prefix_valid = pos >= shift[:, None]
+            prefix = torch.where(prefix_valid[:, :, None], prefix,
+                                 torch.zeros_like(prefix))
+            total = prefix_max + max_steps
+            caches = self.llm.init_cache(b, total)
+            key_valid = torch.cat(
+                [prefix_valid, torch.ones((b, max_steps), dtype=torch.bool,
+                                          device=dev)], dim=1)
+            pos_projs = self.llm.precompute_pos_projs(total)
+            lm_out, caches = self.llm.decode_step(
+                prefix, caches, 0, key_valid=key_valid[:, None, None, :],
+                pos_projs=pos_projs)
+            plen = prefix_len.float()
+            min_len = (plen * min_token_text_ratio).to(torch.int32)
+            max_len = torch.clamp(
+                (plen * max_token_text_ratio).to(torch.int32), max=max_steps)
         return {"step": 0, "generator": generator, "gumbel": gumbel,
                 "caches": caches,
                 "hidden": lm_out[:, -1], "done": torch.zeros(
@@ -257,29 +273,37 @@ class TasteSpeechDecoder(nn.Module):
         kv = state["key_valid"][:, None, None, :]
         max_steps = state["key_valid"].shape[1] - state["prefix_max"]
         for i in range(chunk_steps):
-            if bool(done.all()):
-                break
-            if step >= max_steps:
-                # every row is past its max_len (<= max_steps): the step
-                # would emit -1 and stop them, with no cache slot to write
-                done = torch.ones_like(done)
-                break
-            logits = self.llm_decoder(hidden).float()
-            forbid = step < state["min_len"]
-            ids = sample(logits, top_k=sampling_k, forbid_eos=forbid,
-                         eos_id=eos, generator=state["generator"],
-                         gumbel=None if gumbel is None else gumbel[step])
-            is_eos = ids == eos
-            over = step >= state["max_len"]
-            stop = done | is_eos | over
-            tokens[:, i] = torch.where(stop, torch.full_like(ids, -1), ids)
-            done = stop
-            emb = self.speech_embedding(torch.clamp(ids, min=0) % eos)[:, None]
-            lm_out, _ = self.llm.decode_step(
-                emb, state["caches"], state["prefix_max"] + step,
-                key_valid=kv, pos_projs=state["pos_projs"])
-            hidden = lm_out[:, 0]
-            step += 1
+            with profiling.span("s3.step"):
+                with profiling.span("s3.done_read"):
+                    finished = bool(done.all())
+                if finished:
+                    break
+                if step >= max_steps:
+                    # every row is past its max_len (<= max_steps): the step
+                    # would emit -1 and stop them, with no cache slot to
+                    # write
+                    done = torch.ones_like(done)
+                    break
+                logits = self.llm_decoder(hidden).float()
+                forbid = step < state["min_len"]
+                ids = sample(logits, top_k=sampling_k, forbid_eos=forbid,
+                             eos_id=eos, generator=state["generator"],
+                             gumbel=None if gumbel is None else gumbel[step])
+                is_eos = ids == eos
+                over = step >= state["max_len"]
+                stop = done | is_eos | over
+                tokens[:, i] = torch.where(stop, torch.full_like(ids, -1),
+                                           ids)
+                done = stop
+                emb = self.speech_embedding(
+                    torch.clamp(ids, min=0) % eos)[:, None]
+                lm_out, _ = self.llm.decode_step(
+                    emb, state["caches"], state["prefix_max"] + step,
+                    key_valid=kv, pos_projs=state["pos_projs"])
+                hidden = lm_out[:, 0]
+                step += 1
+        if profiling.enabled():
+            _count_rows(tokens, state["done"], step - state["step"])
         return tokens, dict(state, step=step, hidden=hidden, done=done)
 
     @torch.no_grad()

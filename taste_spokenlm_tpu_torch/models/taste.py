@@ -50,6 +50,7 @@ from taste_spokenlm_tpu_torch.ops.segment import (compact_valid_rows,
                                                   remap_gather,
                                                   word_start_remap)
 from taste_spokenlm_tpu_torch.parallel.mesh import ModelAxis
+from taste_spokenlm_tpu_torch.utils import profiling
 
 
 class TasteForCausalLM(nn.Module):
@@ -72,18 +73,19 @@ class TasteForCausalLM(nn.Module):
         self.config = config
         self.weight_commit_loss = weight_commit_loss
         self.device = resolve_device(device)
-        self.audio_tower = TasteAudioTower(
-            config.audio_tower, dtype=tower_dtype or dtype)
-        self.speech_decoder = TasteSpeechDecoder(config.speech_decoder,
-                                                 dtype=dtype)
-        q = config.audio_tower.quantizer
-        self.spoken_lm = TasteSpokenLM(
-            config.spoken_lm, audio_dim=config.audio_tower.audio_embed_dim,
-            taste_k=q.codebook_size, taste_d=q.codebook_dim,
-            taste_l=q.num_quantizers, dtype=dtype, model_axis=model_axis)
-        self.voice_generator = VoiceGenerator(config.flow, config.hift,
-                                              dtype=dtype)
-        self.to(self.device)
+        with profiling.span("setup.construct"):
+            self.audio_tower = TasteAudioTower(
+                config.audio_tower, dtype=tower_dtype or dtype)
+            self.speech_decoder = TasteSpeechDecoder(config.speech_decoder,
+                                                     dtype=dtype)
+            q = config.audio_tower.quantizer
+            self.spoken_lm = TasteSpokenLM(
+                config.spoken_lm, audio_dim=config.audio_tower.audio_embed_dim,
+                taste_k=q.codebook_size, taste_d=q.codebook_dim,
+                taste_l=q.num_quantizers, dtype=dtype, model_axis=model_axis)
+            self.voice_generator = VoiceGenerator(config.flow, config.hift,
+                                                  dtype=dtype)
+            self.to(self.device)
 
     def set_use_kernels(self, flag: bool) -> None:
         """Route every kernel call site to its kernel (True) or to the
@@ -219,13 +221,39 @@ class TasteForCausalLM(nn.Module):
         `gumbel` [max_speech_steps, B, V+1] is the S3 sampling noise; `z`,
         `source_phase` and `source_noise` the voice generator's draws.  Each
         comes from `generator` when not given."""
-        if mode == "SpeechAutoEncoder":
-            encoded = self.audio_tower(audio_features, asr_token_ids,
-                                       asr_token_lengths, asr_word_ids)
-            indices = encoded["quantized_indices"]
-            audio_unit_embeds = encoded["audio_unit_embeds"]
-            audio_unit_lengths = encoded["audio_unit_lengths"]
-        elif mode == "SpokenLLM":
+        with profiling.span("reconstruct"):
+            embeds, embed_lengths, indices = self._taste_embeds(
+                mode, asr_token_ids, asr_token_lengths, asr_word_ids,
+                audio_features, llm_token_ids, llm_token_lengths, llm_word_ids)
+            gen = self.speech_decoder.generate(
+                speaker_embeds, embeds, embed_lengths,
+                asr_token_ids, asr_token_lengths,
+                max_steps=max_speech_steps, sampling_k=sampling_k,
+                generator=generator, gumbel=gumbel)
+            tokens = torch.clamp(gen["speech_token_ids"], min=0)
+            wav, wav_lengths = self.voice_generator(
+                tokens, gen["speech_token_lengths"], speaker_embeds,
+                mel_len_max, generator=generator, z=z,
+                source_phase=source_phase, source_noise=source_noise)
+        return {"quantized_indices": indices,
+                "speech_token_ids": gen["speech_token_ids"],
+                "speech_token_lengths": gen["speech_token_lengths"],
+                "waveform": wav, "waveform_lengths": wav_lengths}
+
+    def _taste_embeds(self, mode, asr_token_ids, asr_token_lengths,
+                      asr_word_ids, audio_features, llm_token_ids,
+                      llm_token_lengths, llm_word_ids):
+        """inference_reconstruction's taste, under the span `tower`: ->
+        (audio_unit_embeds, audio_unit_lengths, asr indices)."""
+        with profiling.span("tower"):
+            if mode == "SpeechAutoEncoder":
+                encoded = self.audio_tower(audio_features, asr_token_ids,
+                                           asr_token_lengths, asr_word_ids)
+                return (encoded["audio_unit_embeds"],
+                        encoded["audio_unit_lengths"],
+                        encoded["quantized_indices"])
+            if mode != "SpokenLLM":
+                raise ValueError(mode)
             if llm_token_ids is None or llm_token_lengths is None \
                     or llm_word_ids is None:
                 raise ValueError("mode 'SpokenLLM' needs llm_token_ids, "
@@ -236,26 +264,9 @@ class TasteForCausalLM(nn.Module):
                 llm_token_lengths, llm_word_ids, audio_features)
             lm_out = self.spoken_lm(cb, llm_indices, llm_token_ids,
                                     llm_token_lengths, llm_word_ids)
-            audio_unit_embeds = self._taste_to_audio_embeds(
+            return (self._taste_to_audio_embeds(
                 cb, lm_out["taste_logits"], lm_out["taste_labels"],
-                asr_token_lengths, asr_word_ids)
-            audio_unit_lengths = asr_token_lengths
-        else:
-            raise ValueError(mode)
-        gen = self.speech_decoder.generate(
-            speaker_embeds, audio_unit_embeds, audio_unit_lengths,
-            asr_token_ids, asr_token_lengths,
-            max_steps=max_speech_steps, sampling_k=sampling_k,
-            generator=generator, gumbel=gumbel)
-        tokens = torch.clamp(gen["speech_token_ids"], min=0)
-        wav, wav_lengths = self.voice_generator(
-            tokens, gen["speech_token_lengths"], speaker_embeds, mel_len_max,
-            generator=generator, z=z, source_phase=source_phase,
-            source_noise=source_noise)
-        return {"quantized_indices": indices,
-                "speech_token_ids": gen["speech_token_ids"],
-                "speech_token_lengths": gen["speech_token_lengths"],
-                "waveform": wav, "waveform_lengths": wav_lengths}
+                asr_token_lengths, asr_word_ids), asr_token_lengths, indices)
 
     @torch.no_grad()
     def vocode(self, speech_token_ids, speech_token_lengths, speaker_embeds,

@@ -33,6 +33,7 @@ from taste_spokenlm_tpu_torch.kernels.fused_mlp import (
 from taste_spokenlm_tpu_torch.kernels.int4_matmul import (dequantize_int4,
                                                           quantize_int4)
 from taste_spokenlm_tpu_torch.parallel import mesh
+from taste_spokenlm_tpu_torch.utils import profiling
 
 _PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
          "down_proj")
@@ -221,6 +222,11 @@ def serving_state_dict(sd: Dict, cfg, tier: str) -> Dict:
     with the int4 tied head, fused qkv and separate MLP projections (int4:
     down_proj packed per tile); the S3 llm stack (int4: w_2 per tile) and
     its head likewise; every other entry as it is."""
+    with profiling.span("setup.serving_layout"):
+        return _serving_layout(sd, cfg, tier)
+
+
+def _serving_layout(sd: Dict, cfg, tier: str) -> Dict:
     lm_pre, llm_pre = "spoken_lm.language_model.", "speech_decoder.llm."
     head = "speech_decoder.llm_decoder"
     sub = lambda pre: {k[len(pre):]: v for k, v in sd.items()  # noqa: E731

@@ -12,7 +12,9 @@ generators (frontend/streaming.py) in place of JAX's host-built PRNG key.
 Concurrency: the engine runs its device work under one lock (a whole
 reconstruction, tokenization or batched decode, one chunk of a stream),
 and makes no CUDA stream of its own, so every thread's work goes to the
-device's default stream in the order the lock admits it.  The kernels'
+device's default stream in the order the lock admits it (the tracer,
+utils/profiling.py, records each wait for the lock as `engine.lock_wait`
+and the work under it as `engine.<entry point>`).  The kernels'
 launch counters and the arrival counters the gated kernels keep per kind
 and device (kernels/_build.py `arrivals`) are therefore never used by two
 launches at once.
@@ -27,6 +29,7 @@ from __future__ import annotations
 
 import base64
 import concurrent.futures
+import contextlib
 import itertools
 import json
 import threading
@@ -40,6 +43,7 @@ import torch
 from taste_spokenlm_tpu_torch.frontend.streaming import (CompletionStreamer,
                                                          StreamingSynthesizer)
 from taste_spokenlm_tpu_torch.models.sampler import SamplerConfig
+from taste_spokenlm_tpu_torch.utils import profiling
 
 SEED_MASK = 0xFFFFFFFFFFFFFFFF
 
@@ -99,11 +103,24 @@ class TasteEngine:
         return tuple(torch.as_tensor(np.asarray(a)).to(self.device, dtype)
                      for a in arrays)
 
-    def _locked(self, it):
+    @contextlib.contextmanager
+    def _serving(self, call, what: str):
+        """The engine's lock, held for the block: the wait for it is the
+        span `engine.lock_wait`, the block the span `engine.<what>`, both
+        under the request id `call`."""
+        with profiling.span("engine.lock_wait", call):
+            self._lock.acquire()
+        try:
+            with profiling.span("engine." + what, call):
+                yield
+        finally:
+            self._lock.release()
+
+    def _locked(self, it, call):
         """Iterate a stream, each chunk's device work under the lock."""
         done = object()
         while True:
-            with self._lock:
+            with self._serving(call, "stream_chunk"):
                 out = next(it, done)
             if out is done:
                 return
@@ -113,26 +130,31 @@ class TasteEngine:
     def tokenize(self, mel: np.ndarray, asr_ids, asr_word_ids) -> np.ndarray:
         """whisper log-mel [n_mels, frames] + asr tokens -> taste indices
         [n, L] (n = the tokens that fit the bucket)."""
-        bucket = self._bucket(len(asr_ids))
-        ids, lens, words = self._dev(*self._pad_tokens(asr_ids, asr_word_ids,
-                                                       bucket))
-        (mel_t,) = self._dev(np.asarray(mel, np.float32)[None],
-                             dtype=torch.float32)
-        with self._lock:
+        call = next(self._calls)
+        with profiling.span("engine.prepare", call):
+            bucket = self._bucket(len(asr_ids))
+            ids, lens, words = self._dev(*self._pad_tokens(
+                asr_ids, asr_word_ids, bucket))
+            (mel_t,) = self._dev(np.asarray(mel, np.float32)[None],
+                                 dtype=torch.float32)
+        with self._serving(call, "tokenize"):
             out = self.model.audio_tower(mel_t, ids, lens, words)
             return out["quantized_indices"][0, :len(asr_ids)].cpu().numpy()
 
     @torch.no_grad()
     def reconstruct(self, mel, asr_ids, asr_word_ids, spk, max_steps, seed):
         """-> (wav [n] f32, sample rate, S3 token count, RTF)."""
-        bucket = self._bucket(len(asr_ids))
-        mel_len_max = max(32, int(np.ceil(max_steps / 50 * 22050 / 256)) + 8)
-        ids, lens, words = self._dev(*self._pad_tokens(asr_ids, asr_word_ids,
-                                                       bucket))
-        mel_t, spk_t = self._dev(np.asarray(mel, np.float32)[None],
-                                 np.asarray(spk, np.float32)[None],
-                                 dtype=torch.float32)
-        with self._lock:
+        call = next(self._calls)
+        with profiling.span("engine.prepare", call):
+            bucket = self._bucket(len(asr_ids))
+            mel_len_max = max(32,
+                              int(np.ceil(max_steps / 50 * 22050 / 256)) + 8)
+            ids, lens, words = self._dev(*self._pad_tokens(
+                asr_ids, asr_word_ids, bucket))
+            mel_t, spk_t = self._dev(np.asarray(mel, np.float32)[None],
+                                     np.asarray(spk, np.float32)[None],
+                                     dtype=torch.float32)
+        with self._serving(call, "reconstruct"):
             t0 = time.perf_counter()
             out = self.model.inference_reconstruction(
                 spk_t, ids, lens, words, mel_t, max_speech_steps=max_steps,
@@ -169,7 +191,7 @@ class TasteEngine:
                              dtype=torch.float32)
         it = streamer.stream(seed, spk_t, *self._dev(taste_pad, ids, lens,
                                                      words))
-        for out in self._locked(it):
+        for out in self._locked(it, next(self._calls)):
             yield out["wav"][0], bool(out["is_last"]), int(out["n_new"])
 
     def _get_tables(self):
@@ -224,7 +246,7 @@ class TasteEngine:
             seed, spk_t, *self._dev(idx, ids, lens, words, a_ids, a_words),
             max_steps=max_steps,
             asr_valid_len=min(len(asr_ids), asr_bucket))
-        for out in self._locked(it):
+        for out in self._locked(it, next(self._calls)):
             yield (out["wav"][0], bool(out["is_last"]), int(out["n_new"]),
                    int(out["n_words"]))
 
@@ -276,14 +298,15 @@ class TasteEngine:
         gens = ([self._generator(r.get("seed", 0)) for r in requests]
                 + [self._generator(0) for _ in range(nb - n_req)])
         tables = self._get_tables()
-        with self._lock:
+        call = next(self._calls)
+        with self._serving(call, "complete_batch"):
             out = self.model.generate_completion(
                 scfg, tables, *self._dev(idx, ids, lens, words), "audio",
                 max_steps, generator=gens)
             steps = int(out.pop("steps"))
             out = {k: v.cpu().numpy().astype(np.int32)
                    for k, v in out.items()}
-        ran = {"call": next(self._calls), "nb": nb, "bucket": bucket,
+        ran = {"call": call, "nb": nb, "bucket": bucket,
                "rows": n_req, "prefill_rows": nb * (1 + bucket + delay),
                "steps": steps}
         return [dict({k: val[i] for k, val in out.items()}, ran=ran)

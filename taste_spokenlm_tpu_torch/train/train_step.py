@@ -39,6 +39,7 @@ generator's state.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Callable, Dict, Optional
 
@@ -47,6 +48,7 @@ import torch
 from taste_spokenlm_tpu_torch.ops.losses import IGNORE_ID, masked_accuracy
 from taste_spokenlm_tpu_torch.parallel import mesh
 from taste_spokenlm_tpu_torch.train.optim import Optimizer, apply_mask
+from taste_spokenlm_tpu_torch.utils import profiling
 
 BATCH_KEYS = ("speaker_embeds", "asr_token_ids", "asr_token_lengths",
               "asr_word_ids", "audio_features", "speech_token_ids",
@@ -101,6 +103,30 @@ def _train_state(model, optimizer: Optimizer,
                       torch.Generator(device=dev).manual_seed(0))
 
 
+def _traced(step):
+    """The step under the tracer's span `train.step`."""
+    @functools.wraps(step)
+    def traced(*args, **kwargs):
+        with profiling.span("train.step"):
+            return step(*args, **kwargs)
+    return traced
+
+
+def _update(optimizer: Optimizer, forward: Callable[[], Dict]):
+    """The step's forward (gradients zeroed first), backward and optimizer
+    update, under the spans `train.forward`, `train.backward` and
+    `train.optimizer` -> (the forward's outputs, the raw gradients' global
+    norm)."""
+    with profiling.span("train.forward"):
+        optimizer.zero_grad()
+        out = forward()
+    with profiling.span("train.backward"):
+        out["loss"].backward()
+    with profiling.span("train.optimizer"):
+        grad_norm = optimizer.step()
+    return out, grad_norm
+
+
 def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
                      skip_audio_in_decoder: bool = False,
                      trainable_mask: Optional[Dict[str, bool]] = None
@@ -112,14 +138,13 @@ def make_stage1_step(model, optimizer: Optimizer, skip_vq: bool = False,
     state = _train_state(model, optimizer, trainable_mask)
 
     @mesh.data_parallel()
+    @_traced
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        out = model.forward_speech_autoencoder(
-            *(batch[k] for k in BATCH_KEYS), train=True,
-            generator=state.generator, skip_vq=skip_vq,
-            skip_audio_in_decoder=skip_audio_in_decoder, draws=draws)
-        out["loss"].backward()
-        grad_norm = optimizer.step()
+        out, grad_norm = _update(optimizer, lambda: (
+            model.forward_speech_autoencoder(
+                *(batch[k] for k in BATCH_KEYS), train=True,
+                generator=state.generator, skip_vq=skip_vq,
+                skip_audio_in_decoder=skip_audio_in_decoder, draws=draws)))
         state.step += 1
         metrics = {"loss": out["loss"].detach(),
                    "speech_token_accuracy": out["speech_token_accuracy"]}
@@ -145,15 +170,13 @@ def make_stage2_step(model, optimizer: Optimizer, use_ref_kl: bool = False,
     state = _train_state(model, optimizer, trainable_mask)
 
     @mesh.data_parallel()
+    @_traced
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        out = model.forward_spoken_llm(
+        out, grad_norm = _update(optimizer, lambda: model.forward_spoken_llm(
             *(batch[k] for k in STAGE2_KEYS), train=True,
             eps=(draws or {}).get("eps"), generator=state.generator,
             ref_logits=batch.get("ref_logits") if use_ref_kl else None,
-            compute_ref_kl=use_ref_kl, return_text_logits=False)
-        out["loss"].backward()
-        grad_norm = optimizer.step()
+            compute_ref_kl=use_ref_kl, return_text_logits=False))
         state.step += 1
         metrics = _global({k: out[k].detach() for k in (
             "loss", "text_loss", "taste_loss", "text_kl") if k in out})
@@ -173,12 +196,11 @@ def make_flow_step(flow, optimizer: Optimizer,
     state = _train_state(flow, optimizer, trainable_mask)
 
     @mesh.data_parallel()
+    @_traced
     def step(batch, draws: Optional[Dict] = None) -> Dict[str, torch.Tensor]:
-        optimizer.zero_grad()
-        out = flow(*(batch[k] for k in FLOW_KEYS), generator=state.generator,
-                   **(draws or {}))
-        out["loss"].backward()
-        grad_norm = optimizer.step()
+        out, grad_norm = _update(optimizer, lambda: flow(
+            *(batch[k] for k in FLOW_KEYS), generator=state.generator,
+            **(draws or {})))
         state.step += 1
         return {"loss": mesh.global_sum(out["loss"].detach()),
                 "grad_norm": grad_norm}

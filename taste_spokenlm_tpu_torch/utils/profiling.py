@@ -1,6 +1,42 @@
-"""Tracing and per-stage timing (counterpart of the JAX package's
-utils/profiling.py): torch.profiler traces, a per-stage wall-time / RTF
-report, and the bytes a decode step reads.
+"""The port's tracer, per-stage timing (counterpart of the JAX package's
+utils/profiling.py) and the bytes a decode step reads.
+
+The tracer records spans and counters where the work happens: the
+reconstruction's call tree, each S3 decode step and its read of `done`, the
+serving engine's wait for its lock and its service, the train step's
+forward, backward and optimizer, and the program's set-up (model
+construction, the serving layout, each kernel library's first load).  It
+is off until `enable()`.  Off, a span or counter site costs one check of
+a module-level flag: no `record_function`, no launch and no host read of a
+device value.  On, each span is kept in memory with its name, its start
+and end on `time.perf_counter_ns()` (no device synchronize), the thread it
+ran on, its parent (the innermost span open on that thread) and a call id
+shared by every span of one call or request.  Recording is safe from many
+threads.
+
+    profiling.enable()
+    out = model.inference_reconstruction(...)
+    tree = profiling.spans()          # [Span], in the order they ended
+    steps = profiling.counters()["s3.steps"]
+    profiling.disable(); profiling.reset()
+
+Spans of the port (name: where):
+    reconstruct, tower           models/taste.py inference_reconstruction
+    flow, hift                   models/generator.py VoiceGenerator.forward
+    s3.prefill                   models/speech_decoder.py generate_stream_init
+    s3.step, s3.done_read        models/speech_decoder.py generate_stream_chunk
+    engine.prepare, engine.lock_wait, engine.tokenize, engine.reconstruct,
+    engine.stream_chunk, engine.complete_batch    serving/server.py
+    train.step, train.forward, train.backward, train.optimizer
+                                 train/train_step.py (the three steps)
+    setup.construct              models/taste.py TasteForCausalLM.__init__
+    setup.serving_layout         quant.py serving_state_dict
+    kernels.load                 kernels/_build.py load (a library's first)
+    StageTimer's stage names     StageTimer.stage
+Counters: s3.steps (decode steps run), s3.row_steps (rows x steps run),
+s3.row_steps_live (the row-steps before each row stopped).
+
+`StageTimer` accumulates wall time per named stage:
 
     timer = StageTimer()
     with timer.stage("synthesis", sync=model.device):
@@ -9,20 +45,136 @@ report, and the bytes a decode step reads.
 
 A stage with `sync` set to a CUDA device (or a tensor on one) ends in
 `torch.cuda.synchronize` on it, so the stage's time is the device's work,
-not the host's enqueue.  Each stage is also a `record_function` range, so
-it shows in a torch.profiler trace by name.
+not the host's enqueue.  Each stage is also a tracer span of its name.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
-import os
+import threading
 import time
 from dataclasses import dataclass, field
-from typing import Dict, Iterator, Mapping, Optional, Union
+from typing import (Dict, Hashable, Iterator, List, Mapping, NamedTuple,
+                    Optional, Union)
 
 import torch
+
+# ---------------------------------------------------------------------------
+# the tracer
+# ---------------------------------------------------------------------------
+
+
+class Span(NamedTuple):
+    name: str
+    start_ns: int          # time.perf_counter_ns()
+    end_ns: int
+    thread: int            # threading.get_ident() of the thread
+    id: int
+    parent: Optional[int]  # id of the innermost span open at the start
+    call: Hashable         # shared by the spans of one call or request
+
+
+_ON = False
+_LOCK = threading.Lock()
+_SPANS: List[Span] = []
+_COUNTERS: Dict[str, int] = {}
+_THREADS: Dict[int, int] = {}   # threading.get_ident() -> native id
+_IDS = itertools.count()
+_OPEN = threading.local()       # .stack: the thread's open spans
+_OFF = contextlib.nullcontext()
+
+
+def enable() -> None:
+    global _ON
+    _ON = True
+
+
+def disable() -> None:
+    global _ON
+    _ON = False
+
+
+def enabled() -> bool:
+    return _ON
+
+
+def reset() -> None:
+    """Forget every recorded span and counter."""
+    with _LOCK:
+        _SPANS.clear()
+        _COUNTERS.clear()
+
+
+def spans() -> List[Span]:
+    """The spans recorded so far, in the order they ended."""
+    with _LOCK:
+        return list(_SPANS)
+
+
+def counters() -> Dict[str, int]:
+    with _LOCK:
+        return dict(_COUNTERS)
+
+
+def threads() -> Dict[int, int]:
+    """{a span's `thread`: that thread's native id} of every thread that
+    has opened a span (a profiler may name a thread by either)."""
+    with _LOCK:
+        return dict(_THREADS)
+
+
+class _Open:
+    __slots__ = ("name", "call", "id", "parent", "start")
+
+    def __init__(self, name: str, call: Hashable):
+        self.name, self.call, self.id = name, call, next(_IDS)
+
+    def __enter__(self):
+        stack = getattr(_OPEN, "stack", None)
+        if stack is None:
+            stack = _OPEN.stack = []
+            with _LOCK:
+                _THREADS[threading.get_ident()] = threading.get_native_id()
+        up = stack[-1] if stack else None
+        self.parent = up.id if up else None
+        if self.call is None:
+            self.call = up.call if up else self.id
+        stack.append(self)
+        self.start = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        end = time.perf_counter_ns()
+        _OPEN.stack.pop()
+        rec = Span(self.name, self.start, end, threading.get_ident(),
+                   self.id, self.parent, self.call)
+        with _LOCK:
+            _SPANS.append(rec)
+        return False
+
+
+def span(name: str, call: Hashable = None):
+    """A context manager recording the span `name` while the tracer is on.
+    `call` is the call or request id (default: the enclosing span's, or the
+    span's own id at the root of a thread)."""
+    if not _ON:
+        return _OFF
+    return _Open(name, call)
+
+
+def count(name: str, n: int) -> None:
+    """Add `n` (a host int) to the counter `name` while the tracer is on."""
+    if not _ON:
+        return
+    with _LOCK:
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + int(n)
+
+
+# ---------------------------------------------------------------------------
+# per-stage timing
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -38,7 +190,7 @@ class StageTimer:
               sync: Union[None, torch.device, torch.Tensor] = None
               ) -> Iterator[None]:
         dev = sync.device if isinstance(sync, torch.Tensor) else sync
-        with torch.profiler.record_function(name):
+        with span(name):
             t0 = time.perf_counter()
             yield
             if dev is not None and torch.device(dev).type == "cuda":
@@ -61,23 +213,6 @@ class StageTimer:
     def dump(self, path: str, audio_seconds: Optional[float] = None):
         with open(path, "w") as f:
             json.dump(self.report(audio_seconds), f, indent=2)
-
-
-@contextlib.contextmanager
-def profiler_trace(logdir: Optional[str]):
-    """A torch.profiler trace of the block (the CPU, and CUDA where there
-    is a device), written to <logdir>/trace.json for Perfetto or
-    chrome://tracing.  No logdir: no trace."""
-    if not logdir:
-        yield
-        return
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 # ---------------------------------------------------------------------------

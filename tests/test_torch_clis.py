@@ -163,20 +163,29 @@ def test_decode_step_bytes_match_jax(pair, layout):
 
 
 def test_stage_timer_and_trace(tmp_path):
-    from taste_spokenlm_tpu_torch.utils.profiling import (StageTimer,
-                                                          profiler_trace)
+    """StageTimer's report, and each stage a tracer span of its name."""
+    from taste_spokenlm_tpu_torch.utils import profiling
+    from taste_spokenlm_tpu_torch.utils.profiling import StageTimer
     timer = StageTimer()
-    with profiler_trace(str(tmp_path / "trace")):
+    profiling.reset()
+    profiling.enable()
+    try:
         for _ in range(2):
             with timer.stage("matmul", sync=torch.device("cpu")):
                 torch.randn(64, 64) @ torch.randn(64, 64)
+    finally:
+        profiling.disable()
+    spans = profiling.spans()
+    profiling.reset()
     rep = timer.report(audio_seconds=2.0)
     assert timer.counts == {"matmul": 2} and rep["audio_s"] == 2.0
     assert rep["rtf"] == round(timer.stages["matmul"] / 2.0, 4)
     timer.dump(str(tmp_path / "t.json"), 2.0)
     with open(tmp_path / "t.json") as f:
         assert json.load(f) == rep
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
+    assert [s.name for s in spans] == ["matmul", "matmul"]
+    assert sum(s.end_ns - s.start_ns for s in spans) / 1e9 \
+        >= timer.stages["matmul"]
 
 
 def test_entry_matches_jax_entry(pair):
